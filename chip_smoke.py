@@ -421,7 +421,8 @@ def kernels_vs_plain(torch, ctx, launches):
         (x, y, inf), ms, pms, err = compare(
             torch, f"tree_level0_{g}", CT.tree_level0, MT.tree_level0_plain,
             args)
-        live = int((~inf).sum())     # pairs that needed the affine add
+        h = d.shape[-1] // 2           # pairs with both digits nonzero
+        live = int(((d[..., :h] != 0) & (d[..., h:] != 0)).sum())
         row(f"tree_level0_{g}", tree_src, refs[0], ms, pms, err,
             nbytes(tabs.tx[0], tabs.ty[0], d, x, y, inf), 6 * fmul * live)
         args = (x, y, inf, is_g2)
@@ -476,10 +477,12 @@ def kernels_vs_plain(torch, ctx, launches):
             torch, f"to_affine_{g}",
             lambda *a: ec.to_affine(*a, is_g2),
             lambda *a: ec.to_affine_plain(*a, is_g2), coords, reps=2)
-        inv_muls = 254 + bin(ec.F.FQ.modulus - 2).count("1")
-        per = inv_muls + 2 if not is_g2 else inv_muls + 4 + 2 * 3 + 2
+        # a batch inversion of the nonzero Z (3 field multiplications
+        # each, one Fermat in all) and X/Z, Y/Z: 5 per point
+        nz = int((coords[2] != 0).reshape(-1, 8 * npts).any(0).sum())
+        fermat = 254 + bin(ec.F.FQ.modulus - 2).count("1")
         row(f"to_affine_{g}", ec_src, "za_tpu/engine/msm_tree.py:422", ms,
-            pms, err, nbytes(*coords, *outs), per * 8 * npts)
+            pms, err, nbytes(*coords, *outs), 5 * fmul * nz + fermat)
     return rows
 
 

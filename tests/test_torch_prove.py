@@ -10,11 +10,12 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 import za_tpu.engine.field as ZF
 from za_tpu.curve import (
-    G1_GEN as ZG1, G2_GEN as ZG2, Fq2 as ZFq2, R, g1_mul as z_g1_mul,
-    g2_mul as z_g2_mul,
+    G1_GEN as ZG1, G2_GEN as ZG2, Fq2 as ZFq2, R, g1_add as z_g1_add,
+    g1_mul as z_g1_mul, g2_add as z_g2_add, g2_mul as z_g2_mul,
 )
 from za_tpu.groth16.domain import Domain as ZDomain
 from za_tpu.groth16.prove import Proof as ZProof
@@ -96,12 +97,56 @@ def params_to_arrays(params):
     }
 
 
+class _FixedBase:
+    """Host fixed-base scalar multiplication for za_tpu's setup, from
+    tables k * 16^j * G (k < 16, j < 64) of the generators: the same
+    points as g1_mul / g2_mul with ~60 additions each instead of ~380."""
+
+    def __init__(self):
+        self.g1 = self._tables(ZG1, z_g1_add)
+        self.g2 = self._tables(ZG2, z_g2_add)
+
+    @staticmethod
+    def _tables(gen, add):
+        tabs, base = [], gen
+        for _ in range(64):
+            row = [None]
+            for _ in range(15):
+                row.append(add(row[-1], base))
+            tabs.append(row)
+            base = add(row[-1], base)
+        return tabs
+
+    @staticmethod
+    def _mul(tabs, add, k):
+        acc = None
+        for j in range(64):
+            acc = add(acc, tabs[j][(k >> (4 * j)) & 15])
+        return acc
+
+    def fixed_base_g1(self, scalars):
+        return [self._mul(self.g1, z_g1_add, s % R) for s in scalars]
+
+    def fixed_base_g2(self, scalars):
+        return [self._mul(self.g2, z_g2_add, s % R) for s in scalars]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the test suite runs in several processes at
+    once, where torch's thread pool only oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def chain510():
     a, b, c, z = _chain_rows(510)
     zr1cs = ZR1CS(num_inputs=2, num_aux=510, input_names=["main.x"],
                   a_rows=a, b_rows=b, c_rows=c, var_of_signal=[])
-    zparams = z_generate_parameters(zr1cs, **TOXIC)
+    zparams = z_generate_parameters(zr1cs, **TOXIC, engine=_FixedBase())
     r1cs = r1cs_from_arrays({
         "a": _csr(a), "b": _csr(b), "c": _csr(c), "num_inputs": 2,
         "num_aux": 510, "input_names": ["main.x"],

@@ -10,16 +10,18 @@
 // In the reference all of these are XLA code (za_tpu/engine/ec.py
 // point_add, msm.build_multiples, msm.lane_fold, msm.horner_windows),
 // not Pallas kernels.
-// to_affine: projective -> affine with one Fermat inverse per point
-// (0 maps to 0), the reference's msm_tree._normalize_affine without a
-// batch inversion and its intermediates.
+// to_affine: projective -> affine (Z = 0 maps to 0), the reference's
+// msm_tree._normalize_affine: a block batch-inverts the Z of its TB * K
+// points (prefix products per thread, block_inverse, walk back), so a
+// point costs ~5 multiplications and the block one Fermat (~380).
 //
 // Bound: integer multiplies.  An add is 12 field multiplications plus
 // two by 3b (G1: ~3.6k 32-bit multiply-adds; G2 x3 with Karatsuba), a
-// normalisation ~380 multiplications; bytes are 6 (resp. 3) elements
-// in and 3 (resp. 2) out.  The design keeps every operand in registers
-// and launches one thread per point; the work is independent, so the
-// card fills once there are more than ~100k points, as at table build.
+// normalisation ~5 (3 for the batch inversion, 2 for X/Z and Y/Z); bytes
+// are 6 (resp. 3) elements in and 3 (resp. 2) out.  The design keeps
+// every operand in registers and launches one thread per point (K per
+// thread for to_affine); the work is independent, so the card fills
+// once there are more than ~100k points, as at table build.
 
 #include "field.cuh"
 
@@ -139,21 +141,49 @@ __global__ void horner_kernel(const uint32_t* __restrict__ WX,
   store(Z, M, m, z);
 }
 
-template <class F>
-__global__ void to_affine_kernel(const uint32_t* __restrict__ X,
-                                 const uint32_t* __restrict__ Y,
-                                 const uint32_t* __restrict__ Z,
-                                 uint32_t* __restrict__ x,
-                                 uint32_t* __restrict__ y, int n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)n) return;
-  F a, b, z;
-  load(a, X, n, i);
-  load(b, Y, n, i);
-  load(z, Z, n, i);
-  const F zi = inv(z);
-  store(x, n, i, mul(a, zi));
-  store(y, n, i, mul(b, zi));
+constexpr int AFF_TB = 128;  // threads per to_affine block
+
+// Thread t of a block walks points t, t + AFF_TB, ... of the block's
+// AFF_TB * K (coalesced across the warp), keeping the exclusive prefix
+// products of its nonzero Z; after block_inverse it walks back, emitting
+// 1/Z = inv_acc * prefix and stepping inv_acc past Z.
+template <class F, int K>
+__global__ void __launch_bounds__(AFF_TB)
+to_affine_kernel(const uint32_t* __restrict__ X,
+                 const uint32_t* __restrict__ Y,
+                 const uint32_t* __restrict__ Z, uint32_t* __restrict__ x,
+                 uint32_t* __restrict__ y, int n) {
+  __shared__ F tree[2 * AFF_TB];
+  const size_t i0 = (size_t)blockIdx.x * AFF_TB * K + threadIdx.x;
+  F pre[K];
+  F acc = one<F>();
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const size_t i = i0 + (size_t)j * AFF_TB;
+    pre[j] = acc;
+    if (i < (size_t)n) {
+      F z;
+      load(z, Z, n, i);
+      if (!is_zero(z)) acc = mul(acc, z);
+    }
+  }
+  F inv_acc = block_inverse<F, AFF_TB>(acc, tree);
+#pragma unroll
+  for (int j = K - 1; j >= 0; --j) {
+    const size_t i = i0 + (size_t)j * AFF_TB;
+    if (i >= (size_t)n) continue;
+    F a, b, z;
+    load(z, Z, n, i);
+    F zi = zero<F>();
+    if (!is_zero(z)) {
+      zi = mul(inv_acc, pre[j]);
+      inv_acc = mul(inv_acc, z);
+    }
+    load(a, X, n, i);
+    load(b, Y, n, i);
+    store(x, n, i, mul(a, zi));
+    store(y, n, i, mul(b, zi));
+  }
 }
 
 template <class F>
@@ -182,12 +212,13 @@ int launch_horner(const void* WX, const void* WY, const void* WZ, void* X,
   return (int)cudaGetLastError();
 }
 
-template <class F>
+template <class F, int K>
 int launch_affine(const void* X, const void* Y, const void* Z, void* x,
                   void* y, int n, void* stream) {
   if (n > 0) {
-    const int tb = 128;
-    to_affine_kernel<F><<<(n + tb - 1) / tb, tb, 0, (cudaStream_t)stream>>>(
+    const int per = AFF_TB * K;
+    to_affine_kernel<F, K><<<(n + per - 1) / per, AFF_TB, 0,
+                             (cudaStream_t)stream>>>(
         (const uint32_t*)X, (const uint32_t*)Y, (const uint32_t*)Z,
         (uint32_t*)x, (uint32_t*)y, n);
   }
@@ -224,12 +255,12 @@ int horner_g2(const void* WX, const void* WY, const void* WZ, void* X,
 
 int to_affine_g1(const void* X, const void* Y, const void* Z, void* x,
                  void* y, int n, void* stream) {
-  return za::launch_affine<za::Fq>(X, Y, Z, x, y, n, stream);
+  return za::launch_affine<za::Fq, 8>(X, Y, Z, x, y, n, stream);
 }
 
 int to_affine_g2(const void* X, const void* Y, const void* Z, void* x,
                  void* y, int n, void* stream) {
-  return za::launch_affine<za::Fq2>(X, Y, Z, x, y, n, stream);
+  return za::launch_affine<za::Fq2, 4>(X, Y, Z, x, y, n, stream);
 }
 
 }  // extern "C"

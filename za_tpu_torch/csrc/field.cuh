@@ -300,6 +300,38 @@ __device__ __noinline__ Fq2 inv(const Fq2& a) {
   return Fq2{mul(a.c0, ninv), neg(mul(a.c1, ninv))};
 }
 
+// -- block-wide batch inversion ------------------------------------------------
+
+// Every thread of a block of TB threads (a power of two) passes a
+// nonzero acc and gets acc^-1 back, for one Fermat per block: a product
+// tree over the thread values in shared memory (tree: 2 TB elements),
+// one thread inverts the root, the tree is unwound
+// (inv(left) = inv(parent) * right).  About 3 multiplications per thread.
+template <class F, int TB>
+__device__ __forceinline__ F block_inverse(const F& acc, F* tree) {
+  const int t = threadIdx.x;
+  tree[TB + t] = acc;
+  __syncthreads();
+  for (int s = TB / 2; s >= 1; s >>= 1) {
+    if (t < s) tree[s + t] = mul(tree[2 * (s + t)], tree[2 * (s + t) + 1]);
+    __syncthreads();
+  }
+  if (t == 0) tree[1] = inv(tree[1]);
+  __syncthreads();
+  for (int s = 1; s < TB; s <<= 1) {
+    if (t < s) {
+      const int nd = s + t;
+      const F iv = tree[nd];
+      const F lft = tree[2 * nd];
+      const F rgt = tree[2 * nd + 1];
+      tree[2 * nd] = mul(iv, rgt);
+      tree[2 * nd + 1] = mul(iv, lft);
+    }
+    __syncthreads();
+  }
+  return tree[TB + t];
+}
+
 // -- loads and stores of limb planes ------------------------------------------
 
 template <class P>

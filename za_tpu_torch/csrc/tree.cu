@@ -120,26 +120,7 @@ tree_level_kernel(Level<F, L0> lv, uint32_t* __restrict__ x3,
   }
 
   // block product tree over the thread totals, one inversion, unwind
-  tree[TB + t] = acc;
-  __syncthreads();
-  for (int s = TB / 2; s >= 1; s >>= 1) {
-    if (t < s) tree[s + t] = mul(tree[2 * (s + t)], tree[2 * (s + t) + 1]);
-    __syncthreads();
-  }
-  if (t == 0) tree[1] = inv(tree[1]);
-  __syncthreads();
-  for (int s = 1; s < TB; s <<= 1) {
-    if (t < s) {
-      const int nd = s + t;
-      const F iv = tree[nd];
-      const F lft = tree[2 * nd];
-      const F rgt = tree[2 * nd + 1];
-      tree[2 * nd] = mul(iv, rgt);
-      tree[2 * nd + 1] = mul(iv, lft);
-    }
-    __syncthreads();
-  }
-  F inv_acc = tree[TB + t];  // (product of this thread's dens)^-1
+  F inv_acc = block_inverse<F, TB>(acc, tree);  // (this thread's dens)^-1
 
   // backward: per-pair inverses and the affine adds
 #pragma unroll

@@ -8,7 +8,7 @@ Kernel wrappers (plain versions in ``engine.msm_tree``):
 
 The loop mirrors pallas_tree.tree_window_sums_fused /
 msm_tree_fused (and their _g2 twins): digits once for all chunks; per
-chunk level 0, then levels until ``tail`` (128) pair columns remain;
+chunk level 0, then levels until ``TAIL`` (128) pair columns remain;
 those partials go projective and add into the chunk carry; then the
 lane fold and Horner.  Keeping the reference's schedule lets a level
 of the port be held against a level of the reference.
@@ -73,12 +73,12 @@ def tree_level(x, y, inf, is_g2: bool):
     return x3, y3, inf3
 
 
-def chunk_partials(tabx, taby, d, is_g2: bool, tail: int = TAIL):
+def chunk_partials(tabx, taby, d, is_g2: bool):
     """One chunk's per-window partials: projective (*E, M, W, T)."""
     S = d.shape[-1]
-    if S > tail:
+    if S > TAIL:
         x, y, inf = tree_level0(tabx, taby, d, is_g2)
-        while x.shape[-1] > tail:
+        while x.shape[-1] > TAIL:
             x, y, inf = tree_level(x, y, inf, is_g2)
     else:
         x, y, inf = MT.select_tables(tabx, taby, d, is_g2)
@@ -98,21 +98,20 @@ def window_digits(tables: MT.AffineTables, scalars):
     return MT.mask_ident_digits(d, tables.ident)
 
 
-def tree_window_sums(tables: MT.AffineTables, scalars, tail: int = TAIL):
+def tree_window_sums(tables: MT.AffineTables, scalars):
     """Per-window sums of M MSMs: projective leaves (*E, M, W)."""
     is_g2 = tables.is_g2
     d = window_digits(tables, scalars)
     acc = None
     for c in range(tables.chunks):
-        part = chunk_partials(tables.tx[c], tables.ty[c], d[c], is_g2, tail)
+        part = chunk_partials(tables.tx[c], tables.ty[c], d[c], is_g2)
         acc = part if acc is None else ec.ec_add(acc, part, is_g2)
     return MSM.lane_fold(acc, is_g2)
 
 
-def msm_tree(tables: MT.AffineTables, scalars, tail: int = TAIL):
+def msm_tree(tables: MT.AffineTables, scalars):
     """M same-size MSMs over staged affine tables.
 
     scalars: (16, M, n) plain 16-bit limbs (int tensor, n <= C*S).
     Returns projective Montgomery leaves (*E, M)."""
-    return MSM.horner_windows(tree_window_sums(tables, scalars, tail),
-                              tables.is_g2)
+    return MSM.horner_windows(tree_window_sums(tables, scalars), tables.is_g2)

@@ -27,6 +27,10 @@ from . import cuda_tree as CT, ec, field as F, msm_tree as MT, ntt as NTT
 from . import r1cs as RC
 
 
+# columns per staging block: bounds the working set of the {1P..8P} build
+STAGE_BLOCK = {False: 1 << 16, True: 1 << 15}
+
+
 def _pad_pow2(n: int, floor: int = 8) -> int:
     size = floor
     while size < n:
@@ -61,11 +65,11 @@ class GpuEngine:
         S = min(chunk or self.tree_chunk(n), _pad_pow2(n))
         return S, -(-n // S)
 
-    def _stage(self, coords, n: int, M: int, is_g2: bool, S: int, C: int,
-               block: int) -> MT.AffineTables:
+    def _stage(self, coords, n: int, M: int, is_g2: bool, S: int,
+               C: int) -> MT.AffineTables:
         """coords(lo, hi) -> host (X, Y, Z) blocks (16, [2,] M*(hi-lo))
         of plain limbs -> chunked affine tables, block by block."""
-        block = S * max(block // S, 1)
+        block = S * max(STAGE_BLOCK[is_g2] // S, 1)
         E = (8, 2) if is_g2 else (8,)
         tx = torch.empty((C, MT.HALF) + E + (M, S), dtype=torch.int32,
                          device=self.device)
@@ -86,8 +90,8 @@ class GpuEngine:
             ident[lo // S:lo // S + k] = chunks(idm)
         return MT.AffineTables(tx=tx, ty=ty, ident=ident, n=n, is_g2=is_g2)
 
-    def stage_g1_affine(self, queries, chunk: int | None = None,
-                        block: int = 1 << 16) -> MT.AffineTables:
+    def stage_g1_affine(self, queries,
+                        chunk: int | None = None) -> MT.AffineTables:
         """M G1 queries (point lists or raw limb-array queries) ->
         chunked affine {1P..8P} tables, staged block by block."""
         n = max(len(q) for q in queries)
@@ -98,10 +102,10 @@ class GpuEngine:
             return tuple(np.concatenate([c[i][:, lo:hi] for c in cols], 1)
                          for i in range(3))
 
-        return self._stage(coords, n, len(queries), False, S, C, block)
+        return self._stage(coords, n, len(queries), False, S, C)
 
-    def stage_g2_affine(self, queries, chunk: int | None = None,
-                        block: int = 1 << 15) -> MT.AffineTables:
+    def stage_g2_affine(self, queries,
+                        chunk: int | None = None) -> MT.AffineTables:
         n = max(len(q) for q in queries)
         S, C = self._layout(n, chunk)
         cols = [_g2_coords(q, C * S) for q in queries]
@@ -113,7 +117,7 @@ class GpuEngine:
             return tuple(np.stack([cat(i), cat(i + 1)], axis=1)
                          for i in (0, 2, 4))
 
-        return self._stage(coords, n, len(queries), True, S, C, block)
+        return self._stage(coords, n, len(queries), True, S, C)
 
     def stage_params(self, params, r1cs: R1CS) -> dict:
         """Stage the pk queries once per process (cached on params):
