@@ -8,18 +8,25 @@ Run from the repository root with no arguments:
 
 Phases:
   1. identify the card, build the kernels from za_tpu_torch/csrc (nvcc);
-  2. the main path at full width: the 2^17-constraint multiplier chain
+  2. the tree path at full width: the 2^17-constraint multiplier chain
      of bench.py, pk queries from prime-size pools of points with known
      discrete logs, driven through GpuEngine.stage_params and
      groth16.prove; every kernel launch counted; the proof, each of the
      five MSMs and h(x) checked exactly on the host; stage times (CUDA
      events, one warm-up, median of 3) printed as one JSON line;
-  3. a real 510-constraint proof (host setup with fixed toxic waste,
-     GpuEngine prove) that the pairing check accepts;
-  4. each kernel against its plain PyTorch version on the main path's
-     shapes, exact equality (integers mod p), timed beside its bound;
-     printed as one JSON line {"kernels": [...]};
-  5. the card's name and power limit, then the result line.
+  3. the dense path at full width: the same at 2^13 constraints, where
+     the padded queries stay below TREE_MIN and the four G1 MSMs run as
+     one stacked dense MSM; then the same prove through
+     GpuEngine(msm_style="fused") (radix 4), checked against the same
+     proof, and its MSMs checked and timed; one JSON line;
+  4. a real 510-constraint proof (host setup with fixed toxic waste,
+     GpuEngine prove, dense path) that the pairing check accepts;
+  5. each kernel against its plain PyTorch version on the shapes of the
+     path that runs it, exact equality (integers mod p), timed beside
+     its bound; printed as one JSON line {"kernels": [...]};
+  6. the card's name and power limit, then the result line.
+Launches are counted per path (each path's staging and first prove)
+and every kernel must launch on at least one path.
 
 Exits non-zero without a CUDA card, without the package beside it, or
 when any phase fails.
@@ -43,9 +50,15 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # one 8x32-limb CIOS Montgomery multiplication: 2 * 8^2 word products,
 # each a lo and a hi multiply-add
 MADS_PER_MUL = 4 * 8 * 8
+# Fq multiplications one complete projective add needs (RCB algorithm 7):
+# 12 general ones plus two products by 3b.  In G1, 3b = 9 is three
+# doublings and an add, no multiplication; in G2 it is a full Fq2
+# constant.  An Fq2 multiplication is 3 Fq ones.
+ADD_MULS = {False: 12, True: 3 * 14}
 
 SEED = 20261016
-LOG2N = 17
+LOG2N = 17        # the tree path
+LOG2N_DENSE = 13  # the dense path (padded queries below TREE_MIN)
 
 
 def log(msg: str) -> None:
@@ -95,7 +108,7 @@ class Timer:
         return out, a.elapsed_time(b) / 1e3
 
 
-# -- phase 2: the main path at full width -----------------------------------------
+# -- phases 2 and 3: the tree and dense paths at full width ----------------------
 
 
 def pool_query_g1(rng, k: int, pool: int = 67):
@@ -138,11 +151,30 @@ def pooled_dot(scalars, dlogs) -> int:
     return sum(a % R * b for a, b in zip(sums, dlogs)) % R
 
 
-def main_path(torch, timer):
+def launch_counts() -> dict:
+    from za_tpu_torch.engine import _build
+
+    return {k.name: k.launches for k in _build.KERNELS.values()}
+
+
+def median_runs(fn, reps: int = 3):
+    """One warm-up, then reps timed runs of fn() -> {stage: seconds};
+    returns (medians, totals, warm-up total)."""
+    warm = fn()
+    runs = [fn() for _ in range(reps)]
+    stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    return stages, [sum(r.values()) for r in runs], sum(warm.values())
+
+
+def prove_path(torch, timer, log2n: int):
+    """Stage, prove and time the chain at 2^log2n constraints through
+    the engine's default routing; check h(x), the MSMs and the proof
+    exactly.  The dense path (no "g1abl" staged) also proves through
+    GpuEngine(msm_style="fused") and times its MSMs there."""
     from za_tpu_torch.curve import (
         G1_GEN, G2_GEN, R, g1_mul, g2_mul,
     )
-    from za_tpu_torch.engine import _build, cuda_tree as CT
+    from za_tpu_torch.engine import _build
     from za_tpu_torch.engine.engine import GpuEngine
     from za_tpu_torch.engine.field import limbs_to_ints
     from za_tpu_torch.groth16.domain import Domain
@@ -150,7 +182,7 @@ def main_path(torch, timer):
     from za_tpu_torch.groth16.setup import Groth16Parameters, VerifyingKey
 
     t0 = time.time()
-    r1cs, z = chain_r1cs(1 << LOG2N)
+    r1cs, z = chain_r1cs(1 << log2n)
     n, ni, nv = r1cs.num_constraints, r1cs.num_inputs, r1cs.num_vars
     domain = Domain.for_constraints(n + ni)
     m = domain.size
@@ -170,39 +202,50 @@ def main_path(torch, timer):
     params = Groth16Parameters(vk=vk, h=h_q, l=l_q, a=a_q, b_g1=b1_q,
                                b_g2=b2_q, domain_size=m)
     r_, s_ = rng.randrange(1, R), rng.randrange(1, R)
-    log(f"main path inputs: n={n} domain={m} ({time.time() - t0:.1f}s)")
+    log(f"2^{log2n} inputs: n={n} domain={m} ({time.time() - t0:.1f}s)")
 
     eng = GpuEngine()
     _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     staged, stage_s = timer(lambda: eng.stage_params(params, r1cs))
     proof, prove_cold_s = timer(
         lambda: prove(params, r1cs, z, r=r_, s=s_, engine=eng))
-    launches = {k.name: k.launches for k in _build.KERNELS.values()}
-    log(f"main path run {time.time() - t0:.1f}s (stage {stage_s:.2f}s, "
-        f"first prove {prove_cold_s:.2f}s); launches {launches}")
+    launches = {"default": launch_counts()}
+    tree = "g1abl" in staged
+    log(f"2^{log2n} run {time.time() - t0:.1f}s (stage {stage_s:.2f}s, "
+        f"first prove {prove_cold_s:.2f}s, {'tree' if tree else 'dense'}); "
+        f"launches {launches['default']}")
 
     # timed runs of the device compute, as bench.py splits it
     z_l = eng.witness_limbs_dev(z)
     zaux = z_l[:, ni:]
     out = {}
 
+    def msms(e, st_):
+        st = {}
+        if "g1abl" in st_:
+            out["g1abl"], st["msm_g1abl"] = timer(
+                lambda: e.msm_g1_many(st_["g1abl"], [z_l, z_l, zaux]))
+            out["g1h"], st["msm_g1h"] = timer(
+                lambda: e.msm_g1_many(st_["g1h"], [out["h"]]))
+        else:
+            out["g1x4"], st["msm_g1x4"] = timer(
+                lambda: e.msm_g1_many(st_["g1x4"],
+                                      [z_l, z_l, zaux, out["h"]]))
+        out["b2"], st["msm_b2"] = timer(
+            lambda: e.msm_g2_many(st_["b_g2x"], [z_l]))
+        return st
+
     def prove_compute():
         st = {}
         out["h"], st["h"] = timer(
             lambda: eng.h_coeffs_limbs(r1cs, z_l, domain))
-        out["g1abl"], st["msm_g1abl"] = timer(
-            lambda: eng.msm_g1_many(staged["g1abl"], [z_l, z_l, zaux]))
-        out["g1h"], st["msm_g1h"] = timer(
-            lambda: eng.msm_g1_many(staged["g1h"], [out["h"]]))
-        out["b2"], st["msm_b2"] = timer(
-            lambda: eng.msm_g2_many(staged["b_g2x"], [z_l]))
+        st.update(msms(eng, staged))
         return st
 
-    warm = prove_compute()
-    runs = [prove_compute() for _ in range(3)]
-    parts = breakdown(timer, eng, r1cs, z_l, domain, staged, CT)
-    totals = [sum(r.values()) for r in runs]
+    stages, totals, warm = median_runs(prove_compute)
+    parts = breakdown(timer, eng, r1cs, z_l, domain, staged, out["h"])
     eng.r1cs_satisfied(r1cs, z_l)
     sat_ok, sat_s = timer(lambda: eng.r1cs_satisfied(r1cs, z_l))
     peak = torch.cuda.max_memory_allocated()
@@ -229,12 +272,18 @@ def main_path(torch, timer):
         "l": pooled_dot(zs[ni:], sl), "h": pooled_dot(h, sh),
         "b2": pooled_dot(zs, sb2),
     }
-    got_a, got_b1, got_l = out["g1abl"]
-    assert got_a == g1_mul(G1_GEN, want["a"]), "msm a"
-    assert got_b1 == g1_mul(G1_GEN, want["b1"]), "msm b_g1"
-    assert got_l == g1_mul(G1_GEN, want["l"]), "msm l"
-    assert out["g1h"][0] == g1_mul(G1_GEN, want["h"]), "msm h"
-    assert out["b2"][0] == g2_mul(G2_GEN, want["b2"]), "msm b_g2"
+
+    def check_msms(tag):
+        if "g1abl" in out:
+            got = dict(zip("a b1 l".split(), out.pop("g1abl")))
+            got["h"] = out.pop("g1h")[0]
+        else:
+            got = dict(zip("a b1 l h".split(), out.pop("g1x4")))
+        for k in ("a", "b1", "l", "h"):
+            assert got[k] == g1_mul(G1_GEN, want[k]), f"{tag}: msm {k}"
+        assert out.pop("b2")[0] == g2_mul(G2_GEN, want["b2"]), f"{tag}: b_g2"
+
+    check_msms(f"2^{log2n}")
     pa = (alpha + want["a"] + r_ * delta) % R
     pb = (beta + want["b2"] + s_ * delta) % R
     pb1 = (beta + want["b1"] + s_ * delta) % R
@@ -242,17 +291,17 @@ def main_path(torch, timer):
     assert proof.a == g1_mul(G1_GEN, pa), "proof A"
     assert proof.b == g2_mul(G2_GEN, pb), "proof B"
     assert proof.c == g1_mul(G1_GEN, pc), "proof C"
-    log(f"main path checks passed ({time.time() - t0:.1f}s)")
+    log(f"2^{log2n} checks passed ({time.time() - t0:.1f}s)")
 
-    stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     result = {
-        "metric": f"groth16_prove_device_compute_{1 << LOG2N}c",
+        "metric": f"groth16_prove_device_compute_{1 << log2n}c",
         "value": statistics.median(totals),
         "unit": "s",
+        "route": "tree" if tree else "dense",
         "stages_s": stages,
         "breakdown_s": parts,
         "runs_s": totals,
-        "warmup_s": sum(warm.values()),
+        "warmup_s": warm,
         "stage_s": stage_s,
         "prove_cold_s": prove_cold_s,
         "sat_check_s": sat_s,
@@ -260,17 +309,36 @@ def main_path(torch, timer):
         "domain": m,
         "peak_mem_bytes": peak,
     }
-    ctx = {"eng": eng, "staged": staged, "z_l": z_l, "CT": CT}
+    ctx = {"eng": eng, "staged": staged, "z_l": z_l, "h": out["h"]}
+    if not tree:
+        # the same prove at radix 4, staged anew by a fused-style engine
+        feng = GpuEngine(msm_style="fused")
+        _build.reset_launches()
+        fstaged, fstage_s = timer(lambda: feng.stage_params(params, r1cs))
+        fproof = prove(params, r1cs, z, r=r_, s=s_, engine=feng)
+        launches["fused"] = launch_counts()
+        assert fstaged is not staged and fstaged["g1x4"].radix == 4
+        assert fproof == proof, "fused-style proof"
+        msms(feng, fstaged)
+        check_msms("fused")
+        fstages, ftotals, _ = median_runs(lambda: msms(feng, fstaged))
+        check_msms("fused, timed")
+        result["fused"] = {"stages_s": fstages, "runs_s": ftotals,
+                           "stage_s": fstage_s}
+        ctx["fstaged"] = fstaged
+        log(f"fused proof and MSMs checked: {fstages}; "
+            f"launches {launches['fused']}")
+    result["launches"] = launches
     return result, launches, ctx
 
 
-def breakdown(timer, eng, r1cs, z_l, domain, staged, CT):
-    """Where h(x) and one G1 group MSM spend their time: the engine's
-    steps timed one by one (CUDA events, each ending in a sync)."""
+def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
+    """Where h(x) and the G1 group MSM (and, dense, the G2 MSM) spend
+    their time: the engine's steps timed one by one (CUDA events, each
+    ending in a sync)."""
     import torch
 
-    from za_tpu_torch.engine import ec, field as F, msm as MSM
-    from za_tpu_torch.engine import msm_tree as MT, ntt as NTT
+    from za_tpu_torch.engine import field as F, ntt as NTT
 
     FR = F.FR
     dom = eng._domain(domain.size)
@@ -282,17 +350,31 @@ def breakdown(timer, eng, r1cs, z_l, domain, staged, CT):
     hc, t["h.combine"] = timer(lambda: FR.mul(
         FR.sub(FR.mul(x[:, 0], x[:, 1]), x[:, 2]), dom.z_coset_inv))
     _, t["h.coset_intt"] = timer(lambda: FR.from_mont(NTT.coset_intt(dom, hc)))
+    ni = r1cs.num_inputs
+    if "g1abl" in staged:
+        t.update(tree_breakdown(timer, eng, staged["g1abl"],
+                                [z_l, z_l, z_l[:, ni:]], "g1abl"))
+    else:
+        t.update(dense_breakdown(timer, eng, staged["g1x4"],
+                                 [z_l, z_l, z_l[:, ni:], h], "g1x4"))
+        t.update(dense_breakdown(timer, eng, staged["b_g2x"], [z_l], "b2"))
+    return t
 
-    tabs = staged["g1abl"]
-    sc = eng._scalars(tabs, [z_l, z_l, z_l[:, r1cs.num_inputs:]])
-    d, t["g1abl.digits"] = timer(lambda: CT.window_digits(tabs, sc))
+
+def tree_breakdown(timer, eng, tabs, scal, tag):
+    from za_tpu_torch.engine import cuda_tree as CT, ec, msm as MSM
+    from za_tpu_torch.engine import msm_tree as MT
+
+    t = {}
+    sc = eng._scalars(tabs, scal)
+    d, t[f"{tag}.digits"] = timer(lambda: CT.window_digits(tabs, sc))
     acc = None
-    for k in ("g1abl.level0", "g1abl.levels", "g1abl.carry"):
-        t[k] = 0.0
+    for k in ("level0", "levels", "carry"):
+        t[f"{tag}.{k}"] = 0.0
     for c in range(tabs.chunks):
         (x, y, inf), dt = timer(
             lambda: CT.tree_level0(tabs.tx[c], tabs.ty[c], d[c], False))
-        t["g1abl.level0"] += dt
+        t[f"{tag}.level0"] += dt
 
         def levels(x=x, y=y, inf=inf):
             while x.shape[-1] > CT.TAIL:
@@ -300,20 +382,39 @@ def breakdown(timer, eng, r1cs, z_l, domain, staged, CT):
             return x, y, inf
 
         (x, y, inf), dt = timer(levels)
-        t["g1abl.levels"] += dt
+        t[f"{tag}.levels"] += dt
 
         def carry(x=x, y=y, inf=inf, acc=acc):
             p = MT.proj_of_affine(x, y, inf, False)
             return p if acc is None else ec.ec_add(acc, p, False)
 
         acc, dt = timer(carry)
-        t["g1abl.carry"] += dt
-    w, t["g1abl.lane_fold"] = timer(lambda: MSM.lane_fold(acc, False))
-    _, t["g1abl.horner"] = timer(lambda: MSM.horner_windows(w, False))
+        t[f"{tag}.carry"] += dt
+    w, t[f"{tag}.lane_fold"] = timer(lambda: MSM.lane_fold(acc, False))
+    _, t[f"{tag}.horner"] = timer(lambda: MSM.horner_windows(w, False, 4))
     return t
 
 
-# -- phase 3: a verifying proof ------------------------------------------------------
+def dense_breakdown(timer, eng, tabs, scal, tag):
+    """digits, the {1P..KP} build (at staging, once per pk: timed here
+    from the staged base points), window sums, lane fold, Horner."""
+    from za_tpu_torch.engine import msm as MSM, msm_dense as MD
+
+    t = {}
+    sc = eng._scalars(tabs, scal)
+    d, t[f"{tag}.digits"] = timer(lambda: MD.digits(sc, tabs.radix))
+    _, t[f"{tag}.multiples_at_staging"] = timer(lambda: MD.build_tables(
+        (tabs.x[0], tabs.y[0], tabs.z[0]), tabs.is_g2, tabs.radix))
+    L = MD.lanes(tabs.m, tabs.n, tabs.radix)
+    acc, t[f"{tag}.window_sums"] = timer(
+        lambda: MD.dense_window_sums(tabs, d, L))
+    w, t[f"{tag}.lane_fold"] = timer(lambda: MSM.lane_fold(acc, tabs.is_g2))
+    _, t[f"{tag}.horner"] = timer(lambda: MSM.horner_windows(
+        w, tabs.is_g2, MD.BITS[tabs.radix]))
+    return t
+
+
+# -- phase 4: a verifying proof ------------------------------------------------------
 
 
 def real_proof():
@@ -326,14 +427,14 @@ def real_proof():
                                  delta=9)
     t1 = time.time()
     proof = prove(params, r1cs, z, r=13, s=17, engine=GpuEngine())
-    assert "g1abl" in params._staged_cache[1], "staged branch not taken"
+    assert "g1x4" in params._staged_cache[1], "dense staged branch not taken"
     ok = verify_proof(params.vk, proof, z[1:r1cs.num_inputs])
     log(f"510-constraint proof: setup {t1 - t0:.1f}s, prove+verify "
         f"{time.time() - t1:.1f}s, verifies={ok}")
     assert ok, "the 510-constraint proof does not verify"
 
 
-# -- phase 4: kernels against their plain versions ----------------------------------
+# -- phase 5: kernels against their plain versions ----------------------------------
 
 
 def rand_fq(torch, shape, gen):
@@ -387,24 +488,27 @@ def compare(torch, name, kern, plain, args, reps: int = 3):
     return out_k, ms, plain_ms, err
 
 
-def kernels_vs_plain(torch, ctx, launches):
-    from za_tpu_torch.engine import ec, msm as MSM, msm_tree as MT
+def kernels_vs_plain(torch, tctx, dctx, launches):
+    """tctx: the tree path's engine and staged tables (2^17); dctx: the
+    dense path's, default and fused style (2^13)."""
+    from za_tpu_torch.engine import cuda_tree as CT, ec, msm as MSM
+    from za_tpu_torch.engine import msm_dense as MD, msm_tree as MT
     from za_tpu_torch.engine import ntt as NTT
 
-    CT = ctx["CT"]
-    eng, staged, z_l = ctx["eng"], ctx["staged"], ctx["z_l"]
+    eng, staged, z_l = tctx["eng"], tctx["staged"], tctx["z_l"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
 
-    def row(name, source, replaces, ms, plain_ms, err, bmoved, muls):
+    def row(name, source, replaces, shape, ms, plain_ms, err, bmoved, muls):
         b_ms, by = bound(bmoved, muls)
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "shape": shape,
         })
-        log(f"{name}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
+        log(f"{name} [{shape}]: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
             f"{b_ms:.3f} ms by {by}), launches {launches[name]}")
 
     tree_src = "za_tpu_torch/csrc/tree.cu"
@@ -423,7 +527,8 @@ def kernels_vs_plain(torch, ctx, launches):
             args)
         h = d.shape[-1] // 2           # pairs with both digits nonzero
         live = int(((d[..., :h] != 0) & (d[..., h:] != 0)).sum())
-        row(f"tree_level0_{g}", tree_src, refs[0], ms, pms, err,
+        row(f"tree_level0_{g}", tree_src, refs[0],
+            f"2^{LOG2N} chunk M={tabs.m} S={tabs.chunk_cols}", ms, pms, err,
             nbytes(tabs.tx[0], tabs.ty[0], d, x, y, inf), 6 * fmul * live)
         args = (x, y, inf, is_g2)
         (x2, y2, inf2), ms, pms, err = compare(
@@ -431,22 +536,55 @@ def kernels_vs_plain(torch, ctx, launches):
             args)
         h = x.shape[-1] // 2
         live = int((~(inf[..., :h] | inf[..., h:])).sum())
-        row(f"tree_level_{g}", tree_src, refs[1], ms, pms, err,
+        row(f"tree_level_{g}", tree_src, refs[1],
+            f"2^{LOG2N} M={tabs.m} n={x.shape[-1]}", ms, pms, err,
             nbytes(x, y, inf, x2, y2, inf2), 6 * fmul * live)
 
+    # the dense window sums at the 2^13 shapes, both radices
+    dense_src = "za_tpu_torch/csrc/dense.cu"
+    deng, dz, dh = dctx["eng"], dctx["z_l"], dctx["h"]
+    horner_in = []   # (is_g2, radix, window sums) at the dense shapes
+    for st in (dctx["staged"], dctx["fstaged"]):
+        for is_g2, tabs, scal in (
+                (False, st["g1x4"], [dz, dz, dz[:, 2:], dh]),
+                (True, st["b_g2x"], [dz])):
+            g = "g2" if is_g2 else "g1"
+            name, ref = (("dense_window_sums", "pallas_msm_rns.py:374")
+                         if tabs.radix == 16 else
+                         ("dense4_window_sums", "pallas_msm.py:102"))
+            d = MD.digits(deng._scalars(tabs, scal), tabs.radix)
+            L = MD.lanes(tabs.m, tabs.n, tabs.radix)
+            outs, ms, pms, err = compare(
+                torch, f"{name}_{g}", MD.dense_window_sums,
+                MD.dense_window_sums_plain, (tabs, d, L), reps=5)
+            # one complete add per nonzero digit
+            row(f"{name}_{g}", dense_src, f"za_tpu/engine/{ref}",
+                f"2^{LOG2N_DENSE} M={tabs.m} n={tabs.n} L={L}", ms, pms, err,
+                nbytes(tabs.x, tabs.y, tabs.z, d, *outs),
+                ADD_MULS[is_g2] * int((d != 0).sum()))
+            if tabs.radix == 4 or not is_g2:  # radix-16 G2: the tree's shape
+                horner_in.append((is_g2, tabs.radix,
+                                  MSM.lane_fold(outs, is_g2)))
+
+    # Horner at radix 16 on the tree path's window sums (M = 3 and 1),
+    # then on the dense path's (g1x4 at radix 16, both at radix 4)
     ec_src = "za_tpu_torch/csrc/ec.cu"
-    for is_g2, tabs, scal in ((False, staged["g1abl"],
-                               [z_l, z_l, z_l[:, 2:]]),
-                              (True, staged["b_g2x"], [z_l])):
-        g = "g2" if is_g2 else "g1"
-        fmul = 3 if is_g2 else 1
+    for is_g2, tabs, scal in ((True, staged["b_g2x"], [z_l]),
+                              (False, staged["g1abl"],
+                               [z_l, z_l, z_l[:, 2:]])):
         wsum = CT.tree_window_sums(tabs, eng._scalars(tabs, scal))
+        horner_in.insert(0, (is_g2, 16, wsum))
+    for is_g2, radix, wsum in horner_in:
+        g = "g2" if is_g2 else "g1"
+        bits = MD.BITS[radix]
+        M, W = wsum[0].shape[-2:]
         outs, ms, pms, err = compare(
-            torch, f"horner_{g}", lambda *a: MSM.horner_windows(a, is_g2),
-            lambda *a: MSM.horner_windows_plain(a, is_g2), wsum)
-        M = wsum[0].shape[-2]
-        row(f"horner_{g}", ec_src, "za_tpu/engine/msm.py:698", ms, pms, err,
-            nbytes(*wsum, *outs), 14 * fmul * 5 * 64 * M)
+            torch, f"horner_{g}",
+            lambda *a: MSM.horner_windows(a, is_g2, bits),
+            lambda *a: MSM.horner_windows_plain(a, is_g2, bits), wsum)
+        row(f"horner_{g}", ec_src, "za_tpu/engine/msm.py:698",
+            f"radix {radix} M={M} W={W}", ms, pms, err,
+            nbytes(*wsum, *outs), ADD_MULS[is_g2] * (bits + 1) * W * M)
 
     dom = eng._domain(1 << (LOG2N + 1))
     x = rand_fq(torch, (3, dom.size), gen)   # also canonical mod r
@@ -455,7 +593,8 @@ def kernels_vs_plain(torch, ctx, launches):
         lambda a, t: (NTT.ntt_stages_plain(a, t),), (x, dom.w_fwd), reps=2)
     stages = LOG2N + 1
     row("ntt_stage_fr", "za_tpu_torch/csrc/ntt.cu",
-        "za_tpu/engine/ntt_rns.py:156", ms / stages, pms / stages, err,
+        "za_tpu/engine/ntt_rns.py:156", f"3 x 2^{stages}",
+        ms / stages, pms / stages, err,
         nbytes(x, outs[0]) + nbytes(dom.w_fwd),
         x[0].numel() // 2)
 
@@ -470,8 +609,9 @@ def kernels_vs_plain(torch, ctx, launches):
             torch, f"ec_add_{g}",
             lambda *a: ec.ec_add(a[:3], a[3:6], is_g2),
             lambda *a: ec.ec_add_plain(a[:3], a[3:6], is_g2), pts)
-        row(f"ec_add_{g}", ec_src, "za_tpu/engine/ec.py:453", ms, pms, err,
-            nbytes(*pts, *outs), 14 * fmul * npts)
+        row(f"ec_add_{g}", ec_src, "za_tpu/engine/ec.py:453",
+            f"{npts} points", ms, pms, err, nbytes(*pts, *outs),
+            ADD_MULS[is_g2] * npts)
         coords = [rand_fq(torch, E[1:] + (8 * npts,), gen) for _ in range(3)]
         outs, ms, pms, err = compare(
             torch, f"to_affine_{g}",
@@ -481,8 +621,9 @@ def kernels_vs_plain(torch, ctx, launches):
         # each, one Fermat in all) and X/Z, Y/Z: 5 per point
         nz = int((coords[2] != 0).reshape(-1, 8 * npts).any(0).sum())
         fermat = 254 + bin(ec.F.FQ.modulus - 2).count("1")
-        row(f"to_affine_{g}", ec_src, "za_tpu/engine/msm_tree.py:422", ms,
-            pms, err, nbytes(*coords, *outs), 5 * fmul * nz + fermat)
+        row(f"to_affine_{g}", ec_src, "za_tpu/engine/msm_tree.py:422",
+            f"{8 * npts} points", ms, pms, err, nbytes(*coords, *outs),
+            5 * fmul * nz + fermat)
     return rows
 
 
@@ -517,15 +658,26 @@ def main() -> int:
                 log(f"{f.stem}: {line.strip()}")
 
     timer = Timer(torch)
-    result, launches, ctx = main_path(torch, timer)
+    tree, tree_launches, tctx = prove_path(torch, timer, LOG2N)
+    assert tree["route"] == "tree", "2^17 did not take the tree"
+    dense, dense_launches, dctx = prove_path(torch, timer, LOG2N_DENSE)
+    assert dense["route"] == "dense", "2^13 did not take the dense path"
+    per_path = {"tree": tree_launches["default"],
+                "dense": dense_launches["default"],
+                "fused": dense_launches["fused"]}
+    launches = {k: sum(p[k] for p in per_path.values())
+                for k in _build.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
+    assert not missing, f"kernels launched on no path: {missing}"
     real_proof()
-    rows = kernels_vs_plain(torch, ctx, launches)
+    rows = kernels_vs_plain(torch, tctx, dctx, launches)
 
-    result.update({"device": torch.cuda.get_device_name(0), "card": card,
-                   "build_s": build_s, "smoke_s": time.time() - t_start})
-    print(json.dumps(result))
+    for result in (tree, dense):
+        result.update({"device": torch.cuda.get_device_name(0),
+                       "card": card})
+    tree.update({"build_s": build_s, "smoke_s": time.time() - t_start})
+    print(json.dumps(tree))
+    print(json.dumps(dense))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

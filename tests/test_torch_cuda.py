@@ -6,7 +6,8 @@ import pytest
 import torch
 
 from za_tpu_torch.engine import cuda_tree as CT, ec, field as F
-from za_tpu_torch.engine import msm as MSM, msm_tree as MT, ntt as NTT
+from za_tpu_torch.engine import msm as MSM, msm_dense as MD
+from za_tpu_torch.engine import msm_tree as MT, ntt as NTT
 
 pytestmark = pytest.mark.cuda
 
@@ -38,9 +39,10 @@ def test_ec_kernels_match_plain(gen, is_g2):
                  ec.ec_add_plain(p[:3], p[3:], is_g2))
     assert _same(ec.to_affine(*p[:3], is_g2),
                  ec.to_affine_plain(*p[:3], is_g2))
-    w = [_rand_fq(E + (3, 64), gen) for _ in range(3)]
-    assert _same(MSM.horner_windows(w, is_g2),
-                 MSM.horner_windows_plain(w, is_g2))
+    for bits, W in MSM.WINDOWS.items():
+        w = [_rand_fq(E + (3, W), gen) for _ in range(3)]
+        assert _same(MSM.horner_windows(w, is_g2, bits),
+                     MSM.horner_windows_plain(w, is_g2, bits))
 
 
 def test_ntt_stage_kernel_matches_plain(gen):
@@ -61,3 +63,21 @@ def test_tree_kernels_match_plain(gen, is_g2):
     out = CT.tree_level0(tx, ty, d, is_g2)
     assert _same(out, MT.tree_level0_plain(tx, ty, d, is_g2))
     assert _same(CT.tree_level(*out, is_g2), MT.tree_level_plain(*out, is_g2))
+
+
+@pytest.mark.parametrize("radix", [16, 4])
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_dense_kernels_match_plain(gen, is_g2, radix):
+    """Random tables and digits; n = 300 is not a multiple of L = 64."""
+    E = (2,) if is_g2 else ()
+    M, n, L = 2, 300, 64
+    K = MD.MULTIPLES[radix]
+    tabs = MD.DenseTables(
+        *(_rand_fq((K,) + E + (M, n), gen).movedim(0, 1).contiguous()
+          for _ in range(3)), is_g2=is_g2)
+    W = MSM.WINDOWS[MD.BITS[radix]]
+    lo, hi = (-8, 9) if radix == 16 else (0, 4)
+    d = torch.randint(lo, hi, (W, M, n), generator=gen,
+                      device="cuda").to(torch.int8)
+    assert _same(MD.dense_window_sums(tabs, d, L),
+                 MD.dense_window_sums_plain(tabs, d, L))

@@ -24,6 +24,7 @@ from za_tpu.groth16.setup import (
     generate_parameters as z_generate_parameters, qap_evals_at_tau,
 )
 from za_tpu.groth16.verify import verify_proof as z_verify_proof
+import za_tpu_torch.engine.engine as engine_mod
 from za_tpu_torch.engine.engine import GpuEngine
 from za_tpu_torch.groth16 import (
     HostEngine, generate_parameters, prove, verify_proof,
@@ -174,11 +175,22 @@ def _expected_proof(zr1cs, z, domain_size, r, s):
     return z_g1_mul(ZG1, pa), z_g2_mul(ZG2, pb), z_g1_mul(ZG1, pc)
 
 
-def test_prove_matches_reference_and_verifies(chain510):
+@pytest.mark.parametrize("route", ["dense", "tree", "fused"])
+def test_prove_matches_reference_and_verifies(chain510, route, monkeypatch):
+    """The MSM routes of the staged branch: at 512 padded points the
+    dense kernel (g1x4), the tree once TREE_MIN is lowered, and the
+    dense radix-4 kernel of msm_style="fused"."""
     zr1cs, zparams, r1cs, params, z = chain510
-    eng = GpuEngine(device="cpu")
+    if route == "tree":
+        monkeypatch.setattr(engine_mod, "TREE_MIN", 0)
+    eng = GpuEngine(device="cpu",
+                    msm_style="fused" if route == "fused" else None)
     proof = prove(params, r1cs, z, r=13, s=17, engine=eng)
-    assert "g1abl" in params._staged_cache[1], "staged branch not taken"
+    staged = params._staged_cache[1]
+    if route == "tree":
+        assert "g1abl" in staged
+    else:
+        assert staged["g1x4"].radix == (4 if route == "fused" else 16)
     want_a, want_b, want_c = _expected_proof(zr1cs, z, params.domain_size,
                                              13, 17)
     zb = (ZFq2(proof.b[0].c0, proof.b[0].c1),
@@ -204,3 +216,15 @@ def test_small_circuit_takes_the_host_path():
     assert (p_dev.a, p_dev.b, p_dev.c) == (p_host.a, p_host.b, p_host.c)
     assert verify_proof(params.vk, p_dev, z[1:2])
     assert not hasattr(params, "_staged_cache")
+
+
+def test_stage_cache_is_keyed_by_style(chain510):
+    """A params object staged by a fused-style engine is restaged, not
+    reused, by a default engine: the two stage other multiples."""
+    _, _, r1cs, params, _ = chain510
+    fused = GpuEngine(device="cpu", msm_style="fused").stage_params(
+        params, r1cs)
+    assert fused["g1x4"].radix == 4
+    default = GpuEngine(device="cpu").stage_params(params, r1cs)
+    assert default is not fused and default["g1x4"].radix == 16
+    assert GpuEngine(device="cpu").stage_params(params, r1cs) is default

@@ -4,9 +4,10 @@
 // algorithm 7, a = 0), one point pair per thread.  It serves the
 // {1P..8P} table build at staging, the per-chunk projective carry and
 // the lane fold of the tree MSM.
-// horner: the window combine sum_w 16^w S_w of M MSMs in one launch,
-// one thread per MSM (320 dependent adds each): as 320 ec_add launches
-// on a few points it cost more in launches than in arithmetic.
+// horner: the window combine sum_w 2^(bits w) S_w of M MSMs in one
+// launch, one thread per MSM (320 dependent adds each at radix 16, 381
+// at radix 4): as that many ec_add launches on a few points it cost
+// more in launches than in arithmetic.  The group law is curve.cuh's.
 // In the reference all of these are XLA code (za_tpu/engine/ec.py
 // point_add, msm.build_multiples, msm.lane_fold, msm.horner_windows),
 // not Pallas kernels.
@@ -23,72 +24,9 @@
 // thread for to_affine); the work is independent, so the card fills
 // once there are more than ~100k points, as at table build.
 
-#include "field.cuh"
+#include "curve.cuh"
 
 namespace za {
-
-template <class F> __device__ __forceinline__ F b3();
-template <> __device__ __forceinline__ Fq b3<Fq>() {  // 3 * 3, Montgomery
-  Fq r;
-  constexpr uint32_t v[8] = {0x410d7ff7u, 0xf60647ceu, 0xd31bd011u,
-                             0x2f3d6f4du, 0x3940c6d1u, 0x2943337eu,
-                             0xa7e39857u, 0x1d9598e8u};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) r.v[i] = v[i];
-  return r;
-}
-template <> __device__ __forceinline__ Fq2 b3<Fq2>() {  // 3 * 3/(9+i)
-  Fq2 r;
-  constexpr uint32_t c0[8] = {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu,
-                              0xd71e7c52u, 0xd95d4664u, 0x03873e63u,
-                              0x082ab8f4u, 0x0e75b5b1u};
-  constexpr uint32_t c1[8] = {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau,
-                              0x31d21a78u, 0x680401ffu, 0x85dd7297u,
-                              0xdf39a7e9u, 0x03c52d6au};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    r.c0.v[i] = c0[i];
-    r.c1.v[i] = c1[i];
-  }
-  return r;
-}
-
-// (x1:y1:z1) + (x2:y2:z2), RCB algorithm 7 (a = 0): the same operation
-// order as engine/ec.py point_add, so both give the same coordinates.
-template <class F>
-__device__ __forceinline__ void point_add(const F& x1, const F& y1,
-                                          const F& z1, const F& x2,
-                                          const F& y2, const F& z2, F& xo,
-                                          F& yo, F& zo) {
-  const F k = b3<F>();
-  F t0 = mul(x1, x2);
-  F t1 = mul(y1, y2);
-  F t2 = mul(z1, z2);
-  F t3 = mul(add(x1, y1), add(x2, y2));
-  F t4 = add(t0, t1);
-  t3 = sub(t3, t4);
-  t4 = mul(add(y1, z1), add(y2, z2));
-  F x3 = add(t1, t2);
-  t4 = sub(t4, x3);
-  x3 = mul(add(x1, z1), add(x2, z2));
-  F y3 = add(t0, t2);
-  y3 = sub(x3, y3);
-  x3 = add(t0, t0);
-  t0 = add(x3, t0);
-  t2 = mul(k, t2);
-  F z3 = add(t1, t2);
-  t1 = sub(t1, t2);
-  y3 = mul(k, y3);
-  x3 = mul(t4, y3);
-  t2 = mul(t3, t1);
-  xo = sub(t2, x3);
-  y3 = mul(y3, t0);
-  t1 = mul(t1, z3);
-  yo = add(t1, y3);
-  t0 = mul(t0, t3);
-  z3 = mul(z3, t4);
-  zo = add(z3, t0);
-}
 
 template <class F>
 __global__ void ec_add_kernel(const uint32_t* __restrict__ X1,
@@ -112,15 +50,17 @@ __global__ void ec_add_kernel(const uint32_t* __restrict__ X1,
 }
 
 // Horner over the window sums of M MSMs: one thread per MSM walks the
-// W windows MSB first, acc = 16 acc + S_w (four doublings through the
-// complete add, then one add).  Input (E, M, W), output (E, M).
+// W windows MSB first, acc = 2^bits acc + S_w (bits doublings through
+// the complete add, then one add; bits = 4 for signed radix-16, 2 for
+// radix-4).  Input (E, M, W), output (E, M).
 template <class F>
 __global__ void horner_kernel(const uint32_t* __restrict__ WX,
                               const uint32_t* __restrict__ WY,
                               const uint32_t* __restrict__ WZ,
                               uint32_t* __restrict__ X,
                               uint32_t* __restrict__ Y,
-                              uint32_t* __restrict__ Z, int M, int W) {
+                              uint32_t* __restrict__ Z, int M, int W,
+                              int bits) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
   const size_t plane = (size_t)M * W;
@@ -128,7 +68,7 @@ __global__ void horner_kernel(const uint32_t* __restrict__ WX,
 #pragma unroll 1
   for (int w = W - 1; w >= 0; --w) {
 #pragma unroll 1
-    for (int k = 0; k < 4; ++k) point_add(x, y, z, x, y, z, x, y, z);
+    for (int k = 0; k < bits; ++k) point_add(x, y, z, x, y, z, x, y, z);
     F sx, sy, sz;
     const size_t idx = (size_t)m * W + w;
     load(sx, WX, plane, idx);
@@ -202,12 +142,12 @@ int launch_add(const void* X1, const void* Y1, const void* Z1,
 
 template <class F>
 int launch_horner(const void* WX, const void* WY, const void* WZ, void* X,
-                  void* Y, void* Z, int M, int W, void* stream) {
+                  void* Y, void* Z, int M, int W, int bits, void* stream) {
   if (M > 0) {
     const int tb = 32;
     horner_kernel<F><<<(M + tb - 1) / tb, tb, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)WX, (const uint32_t*)WY, (const uint32_t*)WZ,
-        (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, M, W);
+        (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, M, W, bits);
   }
   return (int)cudaGetLastError();
 }
@@ -244,13 +184,13 @@ int ec_add_g2(const void* X1, const void* Y1, const void* Z1, const void* X2,
 }
 
 int horner_g1(const void* WX, const void* WY, const void* WZ, void* X,
-              void* Y, void* Z, int M, int W, void* stream) {
-  return za::launch_horner<za::Fq>(WX, WY, WZ, X, Y, Z, M, W, stream);
+              void* Y, void* Z, int M, int W, int bits, void* stream) {
+  return za::launch_horner<za::Fq>(WX, WY, WZ, X, Y, Z, M, W, bits, stream);
 }
 
 int horner_g2(const void* WX, const void* WY, const void* WZ, void* X,
-              void* Y, void* Z, int M, int W, void* stream) {
-  return za::launch_horner<za::Fq2>(WX, WY, WZ, X, Y, Z, M, W, stream);
+              void* Y, void* Z, int M, int W, int bits, void* stream) {
+  return za::launch_horner<za::Fq2>(WX, WY, WZ, X, Y, Z, M, W, bits, stream);
 }
 
 int to_affine_g1(const void* X, const void* Y, const void* Z, void* x,

@@ -1,5 +1,5 @@
-// BN254 base and scalar field arithmetic for the tree-MSM and curve
-// kernels: header-only __device__ code, no state.
+// BN254 base and scalar field arithmetic for the port's kernels:
+// header-only __device__ code, no state.
 //
 // Layout: a field element is a canonical value in [0, p) in Montgomery
 // form (R = 2^256), eight 32-bit limbs, little-endian.  In device memory

@@ -114,4 +114,5 @@ def msm_tree(tables: MT.AffineTables, scalars):
 
     scalars: (16, M, n) plain 16-bit limbs (int tensor, n <= C*S).
     Returns projective Montgomery leaves (*E, M)."""
-    return MSM.horner_windows(tree_window_sums(tables, scalars), tables.is_g2)
+    return MSM.horner_windows(tree_window_sums(tables, scalars), tables.is_g2,
+                              4)

@@ -1,13 +1,19 @@
 """GpuEngine: the prover-facing compute facade on one CUDA device.
 
-Provides the surface ``groth16.prove`` calls on its staged branch:
-``stage_params``, ``use_grouped``, ``witness_limbs_dev``,
-``r1cs_satisfied``, ``h_coeffs_limbs`` (and ``h_coeffs``),
-``msm_g1_many``, ``msm_g2_many``, plus ``stage_g1_affine`` /
-``stage_g2_affine`` for callers that stage queries themselves.  Every
-staged MSM takes the batch-affine tree (the dense kernel of the
-reference is not ported yet), with column chunks of 2^15 below 2^19
-points and 2^14 above (the reference's _tree_chunk).
+Provides the surface ``groth16.prove`` calls: ``stage_params``,
+``use_grouped``, ``witness_limbs_dev``, ``r1cs_satisfied``,
+``h_coeffs_limbs`` (and ``h_coeffs``), ``msm_g1_many``, ``msm_g2_many``,
+``msm_g1``, ``msm_g2``, plus the staging calls ``stage_g1_affine`` /
+``stage_g2_affine`` (tree) and ``stage_g1_stacked`` /
+``stage_g2_stacked`` (dense) for callers that stage queries themselves.
+
+MSM routing follows the reference's (za_tpu/engine/engine.py
+stage_params): a pk whose padded a/b1/l length reaches ``TREE_MIN``
+takes the batch-affine tree, with column chunks of 2^15 below 2^19
+points and 2^14 above (the reference's _tree_chunk); a smaller one
+takes the dense signed radix-16 kernel, its four G1 queries stacked as
+one "g1x4".  ``msm_style="fused"`` takes the dense radix-4 kernel at
+every size (the reference's "fused" style).
 
 The engine runs on ``cuda`` unless the caller asks for another device
 (the tests pass ``device="cpu"``, where every kernel wrapper takes its
@@ -23,12 +29,20 @@ from ..curve import R
 from ..groth16.domain import Domain
 from ..groth16.r1cs import R1CS
 from ..groth16.setup import expand_queries
-from . import cuda_tree as CT, ec, field as F, msm_tree as MT, ntt as NTT
+from . import cuda_tree as CT, ec, field as F, msm_dense as MD
+from . import msm_tree as MT, ntt as NTT
 from . import r1cs as RC
 
 
 # columns per staging block: bounds the working set of the {1P..8P} build
 STAGE_BLOCK = {False: 1 << 16, True: 1 << 15}
+
+# padded query length from which the batch-affine tree beats the dense
+# kernel (the reference's _tree_min, measured there on a TPU)
+TREE_MIN = 1 << 15
+
+# msm_style -> radix of the dense kernel
+STYLES = {None: 16, "fused": 4}
 
 
 def _pad_pow2(n: int, floor: int = 8) -> int:
@@ -41,11 +55,19 @@ def _pad_pow2(n: int, floor: int = 8) -> int:
 class GpuEngine:
     use_grouped = True
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, msm_style: str | None = None):
+        if msm_style not in STYLES:
+            raise ValueError(
+                f"GpuEngine: msm_style {msm_style!r} is not ported: None "
+                f"(tree, or dense signed radix 16 below TREE_MIN) or "
+                f"'fused' (dense radix 4); 'dense' and 'grouped' are the "
+                f"reference's XLA-only alternates")
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("GpuEngine: CUDA is not available")
         self.device = device
+        self.msm_style = msm_style
+        self.radix = STYLES[msm_style]
         self._domains: dict[int, NTT.DeviceDomain] = {}
         self._sat_legs = None
         self._witness = None
@@ -119,20 +141,66 @@ class GpuEngine:
 
         return self._stage(coords, n, len(queries), True, S, C)
 
+    def _mont(self, limbs: np.ndarray) -> torch.Tensor:
+        """(16, ...) plain host limbs -> (8, ...) l32 Montgomery."""
+        return F.pack(F.FQ.to_mont(self._put(limbs).to(F.I64)))
+
+    def stage_g1_stacked(self, queries,
+                         n_pad: int | None = None) -> MD.DenseTables:
+        """M G1 queries (point lists or raw limb-array queries),
+        identity-padded to n_pad (default: the longest) -> their
+        multiples for the engine's dense radix, (K, 8, M, n)."""
+        n = n_pad or max(1, *(len(q) for q in queries))
+        cols = [_g1_coords(q, n) for q in queries]
+        pts = [self._mont(np.concatenate([c[i] for c in cols], 1))
+               .reshape(F.NL32, len(queries), n) for i in range(3)]
+        return MD.build_tables(pts, False, self.radix)
+
+    def stage_g2_stacked(self, queries,
+                         n_pad: int | None = None) -> MD.DenseTables:
+        """-> (K, 8, 2, M, n): component axis after the limbs."""
+        n = n_pad or max(1, *(len(q) for q in queries))
+        cols = [_g2_coords(q, n) for q in queries]
+
+        def coord(i):
+            def cat(j):
+                return np.concatenate([c[j] for c in cols], 1)
+            both = np.stack([cat(i), cat(i + 1)], axis=1)  # (16, 2, M*n)
+            return self._mont(both).reshape(F.NL32, 2, len(queries), n)
+
+        return MD.build_tables([coord(i) for i in (0, 2, 4)], True,
+                               self.radix)
+
     def stage_params(self, params, r1cs: R1CS) -> dict:
-        """Stage the pk queries once per process (cached on params):
-        a/b_g1/l share one G1 table group, h gets its own, b_g2 the G2
-        tables."""
+        """Stage the pk queries once per process, cached on params under
+        the device, the style and TREE_MIN (a params object staged by
+        one engine is restaged, not reused, by an engine that routes
+        otherwise).  Tree (padded a/b1/l length >= TREE_MIN, default
+        style): a/b_g1/l share one G1 table group, h gets its own, b_g2
+        its G2 tables.  Dense: the four G1 queries padded to one power
+        of two and stacked as "g1x4", b_g2 as a stacked "b_g2x"."""
         cached = getattr(params, "_staged_cache", None)
-        key = ("gpu", str(self.device))
+        key = ("gpu", str(self.device), self.msm_style, TREE_MIN)
         if cached is not None and cached[0] == key:
             return cached[1]
         params = expand_queries(params, r1cs)
-        staged = {
-            "g1abl": self.stage_g1_affine([params.a, params.b_g1, params.l]),
-            "g1h": self.stage_g1_affine([params.h]),
-            "b_g2x": self.stage_g2_affine([params.b_g2]),
-        }
+        n_abl = _pad_pow2(max(len(params.a), len(params.b_g1),
+                              len(params.l)))
+        if self.msm_style is None and n_abl >= TREE_MIN:  # tree
+            staged = {
+                "g1abl": self.stage_g1_affine(
+                    [params.a, params.b_g1, params.l]),
+                "g1h": self.stage_g1_affine([params.h]),
+                "b_g2x": self.stage_g2_affine([params.b_g2]),
+            }
+        else:
+            n = _pad_pow2(max(n_abl, len(params.h)))
+            staged = {
+                "g1x4": self.stage_g1_stacked(
+                    [params.a, params.b_g1, params.l, params.h], n),
+                "b_g2x": self.stage_g2_stacked(
+                    [params.b_g2], _pad_pow2(len(params.b_g2))),
+            }
         params._staged_cache = (key, staged)
         return staged
 
@@ -200,23 +268,50 @@ class GpuEngine:
 
     # -- MSM -------------------------------------------------------------------
 
-    def _scalars(self, tabs: MT.AffineTables, scalars_list) -> torch.Tensor:
-        n_pad = tabs.chunks * tabs.chunk_cols
+    def _scalars(self, tabs, scalars_list) -> torch.Tensor:
+        """One scalar vector per staged query -> (16, M, n) plain limbs,
+        zero-padded to the staged width n."""
+        if isinstance(tabs, MT.AffineTables):
+            n = tabs.chunks * tabs.chunk_cols
+        else:
+            n = tabs.n
         if len(scalars_list) != tabs.m:
             raise ValueError("one scalar vector per staged query")
         cols = []
         for s in scalars_list:
             s = self.witness_limbs_dev(s)
-            cols.append(torch.nn.functional.pad(s, (0, n_pad - s.shape[1])))
-        return torch.stack(cols, dim=1)                  # (16, M, n_pad)
+            if s.shape[1] > n:
+                raise ValueError("more scalars than points")
+            cols.append(torch.nn.functional.pad(s, (0, n - s.shape[1])))
+        return torch.stack(cols, dim=1)                  # (16, M, n)
 
-    def msm_g1_many(self, tabs: MT.AffineTables, scalars_list) -> list:
-        X, Y, Z = CT.msm_tree(tabs, self._scalars(tabs, scalars_list))
-        return ec.g1_points_from_device(X, Y, Z)
+    def _msm_many(self, points, scalars_list, is_g2: bool) -> list:
+        if isinstance(points, MT.AffineTables):
+            out = CT.msm_tree(points, self._scalars(points, scalars_list))
+        else:
+            if not isinstance(points, MD.DenseTables):
+                stage = (self.stage_g2_stacked if is_g2
+                         else self.stage_g1_stacked)
+                points = stage(points)
+            out = MD.msm_dense(points, self._scalars(points, scalars_list))
+        if is_g2:
+            return ec.g2_points_from_device(*out)
+        return ec.g1_points_from_device(*out)
 
-    def msm_g2_many(self, tabs: MT.AffineTables, scalars_list) -> list:
-        X, Y, Z = CT.msm_tree(tabs, self._scalars(tabs, scalars_list))
-        return ec.g2_points_from_device(X, Y, Z)
+    def msm_g1_many(self, points, scalars_list) -> list:
+        """M G1 MSMs, one scalar vector each, over staged tree tables
+        (AffineTables), staged dense multiples (DenseTables), or M host
+        point lists or raw queries (staged here, then dense)."""
+        return self._msm_many(points, scalars_list, False)
+
+    def msm_g2_many(self, points, scalars_list) -> list:
+        return self._msm_many(points, scalars_list, True)
+
+    def msm_g1(self, points, scalars):
+        return self.msm_g1_many([points], [scalars])[0]
+
+    def msm_g2(self, points, scalars):
+        return self.msm_g2_many([points], [scalars])[0]
 
 
 def _pad_cols(a: np.ndarray, total: int, fill_y0: bool = False):

@@ -109,8 +109,8 @@ def prove(
         # nothing below ~512 points
         and max(r1cs.num_vars, params.domain_size - 1) >= 512
     )
-    if not staged_path and not hasattr(engine, "msm_g1"):
-        engine = HostEngine()  # the device engine serves staged sizes only
+    if not staged_path and hasattr(engine, "stage_params"):
+        engine = HostEngine()  # a device engine serves staged sizes only
 
     if staged_path:
         # device-resident pk: queries staged once per process (cached
@@ -118,10 +118,15 @@ def prove(
         h = engine.h_coeffs_limbs(r1cs, z, domain)  # stays on the device
         staged = engine.stage_params(params, r1cs)
         z_l = engine.witness_limbs_dev(z)
-        a_acc, b_acc_g1, l_acc = engine.msm_g1_many(
-            staged["g1abl"], [z_l, z_l, z_l[:, ni:]],
-        )
-        h_acc = engine.msm_g1_many(staged["g1h"], [h])[0]
+        if "g1abl" in staged:  # batch-affine tree staging: h separate
+            a_acc, b_acc_g1, l_acc = engine.msm_g1_many(
+                staged["g1abl"], [z_l, z_l, z_l[:, ni:]],
+            )
+            h_acc = engine.msm_g1_many(staged["g1h"], [h])[0]
+        else:  # dense: the four G1 queries stacked, one kernel
+            a_acc, b_acc_g1, l_acc, h_acc = engine.msm_g1_many(
+                staged["g1x4"], [z_l, z_l, z_l[:, ni:], h],
+            )
         b_acc_g2 = engine.msm_g2_many(staged["b_g2x"], [z_l])[0]
     else:
         h = engine.h_coeffs(r1cs, z, domain)
