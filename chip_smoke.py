@@ -13,20 +13,26 @@ Phases:
      discrete logs, driven through GpuEngine.stage_params and
      groth16.prove; every kernel launch counted; the proof, each of the
      five MSMs and h(x) checked exactly on the host; stage times (CUDA
-     events, one warm-up, median of 3) printed as one JSON line;
+     events, one warm-up, median of 3) printed as one JSON line; h(x)
+     runs the four-step NTT, one 3-leg transform of it split step by
+     step (prefix, tail stages, twiddle transpose, tensor code);
   3. the dense path at full width: the same at 2^13 constraints, where
      the padded queries stay below TREE_MIN and the four G1 MSMs run as
      one stacked dense MSM; then the same prove through
      GpuEngine(msm_style="fused") (radix 4), checked against the same
      proof, and its MSMs checked and timed; one JSON line;
   4. a real 510-constraint proof (host setup with fixed toxic waste,
-     GpuEngine prove, dense path) that the pairing check accepts;
+     GpuEngine prove, dense path, radix-2 NTT below FOURSTEP_MIN) that
+     the pairing check accepts; its launches count as a path;
   5. each kernel against its plain PyTorch version on the shapes of the
      path that runs it, exact equality (integers mod p), timed beside
-     its bound; printed as one JSON line {"kernels": [...]};
+     its bound; printed as one JSON line {"kernels": [...]}; then one
+     NTT through both routes (radix-2, four-step) at sizes from 2^9 to
+     2^20, equal results, timed (the 2^17 line's "ntt_routes_ms");
   6. the card's name and power limit, then the result line.
 Launches are counted per path (each path's staging and first prove)
-and every kernel must launch on at least one path.
+and every kernel must launch on at least one path; the four-step's
+kernels on both the tree and the dense path.
 
 Exits non-zero without a CUDA card, without the package beside it, or
 when any phase fails.
@@ -59,6 +65,9 @@ ADD_MULS = {False: 12, True: 3 * 14}
 SEED = 20261016
 LOG2N = 17        # the tree path
 LOG2N_DENSE = 13  # the dense path (padded queries below TREE_MIN)
+# NTT sizes at which both routes of engine/ntt.py are timed: around
+# FOURSTEP_MIN, both rungs' domains, and 2^20, where the tail runs
+ROUTE_LOG2 = (9, 10, 11, 12, 14, 18, 20)
 
 
 def log(msg: str) -> None:
@@ -345,6 +354,7 @@ def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
     t = {}
     legs, t["h.matvec3"] = timer(lambda: eng._legs(r1cs, z_l, domain.size))
     x = torch.stack(legs, dim=1)
+    t.update(fourstep_breakdown(timer, dom, x))
     x, t["h.intt3"] = timer(lambda: NTT.intt(dom, x))
     x, t["h.coset_ntt3"] = timer(lambda: NTT.coset_ntt(dom, x))
     hc, t["h.combine"] = timer(lambda: FR.mul(
@@ -358,6 +368,41 @@ def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
         t.update(dense_breakdown(timer, eng, staged["g1x4"],
                                  [z_l, z_l, z_l[:, ni:], h], "g1x4"))
         t.update(dense_breakdown(timer, eng, staged["b_g2x"], [z_l], "b2"))
+    return t
+
+
+def fourstep_breakdown(timer, dom, x):
+    """One 3-leg forward transform (no scaling) of x (16, 3, n) whole,
+    then step by step: the tensor code (repacking to and from l32),
+    the prefix launches, the tail stage launches (none where m_fuse =
+    S) and the twiddle transpose."""
+    import torch
+
+    from za_tpu_torch.engine import field as F, ntt as NTT
+
+    fs = dom.fourstep
+    assert fs is not None, f"2^{dom.size.bit_length() - 1}: no four-step"
+    want, total = timer(lambda: NTT.ntt(dom, x))
+    t = {"h.ntt3": total, "h.ntt3.prefix": 0.0, "h.ntt3.tail": 0.0}
+    a, t["h.ntt3.tensor"] = timer(
+        lambda: F.pack(x).reshape(8, 3, fs.n2, fs.n1))
+
+    def sub(a, tw, S):
+        m = NTT.prefix_rows(S, a.shape[3])
+        assert m >= 4, "the prefix kernel does not run"
+        a, dt = timer(lambda: NTT.ntt_prefix(a, tw, m))
+        t["h.ntt3.prefix"] += dt
+        if m < S:
+            a, dt = timer(lambda: NTT.ntt_stages(a, tw, 2 * m))
+            t["h.ntt3.tail"] += dt
+        return a
+
+    a = sub(a, fs.t2_fwd, fs.n2)
+    a, t["h.ntt3.twiddle"] = timer(lambda: NTT.ntt_twiddle(a, fs.inter_fwd))
+    a = sub(a, fs.t1_fwd, fs.n1)
+    y, dt = timer(lambda: F.unpack(a.reshape(8, 3, dom.size)))
+    t["h.ntt3.tensor"] += dt
+    assert torch.equal(y, want), "four-step steps differ from NTT.ntt"
     return t
 
 
@@ -418,6 +463,8 @@ def dense_breakdown(timer, eng, tabs, scal, tag):
 
 
 def real_proof():
+    """-> (the prove's launches, its domain size)."""
+    from za_tpu_torch.engine import _build
     from za_tpu_torch.engine.engine import GpuEngine
     from za_tpu_torch.groth16 import generate_parameters, prove, verify_proof
 
@@ -426,12 +473,15 @@ def real_proof():
     params = generate_parameters(r1cs, tau=11, alpha=3, beta=5, gamma=7,
                                  delta=9)
     t1 = time.time()
+    _build.reset_launches()
     proof = prove(params, r1cs, z, r=13, s=17, engine=GpuEngine())
+    launches = launch_counts()
     assert "g1x4" in params._staged_cache[1], "dense staged branch not taken"
     ok = verify_proof(params.vk, proof, z[1:r1cs.num_inputs])
     log(f"510-constraint proof: setup {t1 - t0:.1f}s, prove+verify "
         f"{time.time() - t1:.1f}s, verifies={ok}")
     assert ok, "the 510-constraint proof does not verify"
+    return launches, params.domain_size
 
 
 # -- phase 5: kernels against their plain versions ----------------------------------
@@ -458,6 +508,13 @@ def bound(bytes_moved: int, muls: int):
     tb = bytes_moved / HBM_BYTES_PER_S
     to = muls * MADS_PER_MUL / INT32_OPS_PER_S
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def dit_muls(S: int, m: int) -> int:
+    """Multiplications of the DIT stages 2..m of a length-S transform,
+    per lane: a butterfly whose twiddle is w^0 = 1 needs none, so stage
+    h (half-length) of each m-row segment multiplies m/2 - m/(2h)."""
+    return S // m * (m // 2 * (m.bit_length() - 1) - (m - 1))
 
 
 def compare(torch, name, kern, plain, args, reps: int = 3):
@@ -488,9 +545,10 @@ def compare(torch, name, kern, plain, args, reps: int = 3):
     return out_k, ms, plain_ms, err
 
 
-def kernels_vs_plain(torch, tctx, dctx, launches):
+def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
     """tctx: the tree path's engine and staged tables (2^17); dctx: the
-    dense path's, default and fused style (2^13)."""
+    dense path's, default and fused style (2^13); small_domain: the
+    510-constraint check's domain size."""
     from za_tpu_torch.engine import cuda_tree as CT, ec, msm as MSM
     from za_tpu_torch.engine import msm_dense as MD, msm_tree as MT
     from za_tpu_torch.engine import ntt as NTT
@@ -586,17 +644,40 @@ def kernels_vs_plain(torch, tctx, dctx, launches):
             f"radix {radix} M={M} W={W}", ms, pms, err,
             nbytes(*wsum, *outs), ADD_MULS[is_g2] * (bits + 1) * W * M)
 
-    dom = eng._domain(1 << (LOG2N + 1))
-    x = rand_fq(torch, (3, dom.size), gen)   # also canonical mod r
+    # the four-step's kernels at the 2^17 rung (domain 2^18), the first
+    # sub-NTT's shape: 3 legs x n2 rows x n1 lanes
+    ntt_src = "za_tpu_torch/csrc/ntt.cu"
+    fs = eng._domain(1 << (LOG2N + 1)).fourstep
+    x = rand_fq(torch, (3, fs.n2, fs.n1), gen)   # also canonical mod r
+    m = NTT.prefix_rows(fs.n2, fs.n1)
+    outs, ms, pms, err = compare(
+        torch, "ntt_prefix_fr", lambda a, t: (NTT.ntt_prefix(a, t, m),),
+        lambda a, t: (NTT.ntt_prefix_plain(a, t, m),), (x, fs.t2_fwd),
+        reps=5)
+    row("ntt_prefix_fr", ntt_src, "za_tpu/engine/pallas_ntt.py:181",
+        f"3 x {fs.n2} x {fs.n1}, m_fuse {m}", ms, pms, err,
+        nbytes(x, outs[0], fs.t2_fwd), 3 * fs.n1 * dit_muls(fs.n2, m))
+    outs, ms, pms, err = compare(
+        torch, "ntt_twiddle_fr", lambda a, w: (NTT.ntt_twiddle(a, w),),
+        lambda a, w: (NTT.ntt_twiddle_plain(a, w),), (x, fs.inter_fwd),
+        reps=5)
+    # inter[k2, j1] = w^(k2 j1) is 1 in row 0 and column 0
+    row("ntt_twiddle_fr", ntt_src, "za_tpu/engine/ntt_rns.py:276",
+        f"3 x {fs.n2} x {fs.n1}", ms, pms, err,
+        nbytes(x, fs.inter_fwd, outs[0]), 3 * (fs.n2 - 1) * (fs.n1 - 1))
+
+    # the stage kernel where it runs on a path: the 510-constraint
+    # check's radix-2 transforms (3 legs x 2^k, one lane)
+    dom = NTT.DeviceDomain(small_domain, "cuda")
+    x = rand_fq(torch, (3, dom.size, 1), gen)
     outs, ms, pms, err = compare(
         torch, "ntt_stage_fr", lambda a, t: (NTT.ntt_stages(a, t),),
-        lambda a, t: (NTT.ntt_stages_plain(a, t),), (x, dom.w_fwd), reps=2)
-    stages = LOG2N + 1
-    row("ntt_stage_fr", "za_tpu_torch/csrc/ntt.cu",
-        "za_tpu/engine/ntt_rns.py:156", f"3 x 2^{stages}",
-        ms / stages, pms / stages, err,
-        nbytes(x, outs[0]) + nbytes(dom.w_fwd),
-        x[0].numel() // 2)
+        lambda a, t: (NTT.ntt_stages_plain(a, t),), (x, dom.w_fwd), reps=5)
+    stages = dom.size.bit_length() - 1
+    row("ntt_stage_fr", ntt_src, "za_tpu/engine/ntt_rns.py:156",
+        f"3 x 2^{stages} x 1", ms / stages, pms / stages, err,
+        nbytes(x, outs[0], dom.w_fwd),
+        3 * dit_muls(dom.size, dom.size) // stages)
 
     for is_g2 in (False, True):
         g = "g2" if is_g2 else "g1"
@@ -625,6 +706,47 @@ def kernels_vs_plain(torch, tctx, dctx, launches):
             f"{8 * npts} points", ms, pms, err, nbytes(*coords, *outs),
             5 * fmul * nz + fermat)
     return rows
+
+
+def ntt_routes(torch, cached):
+    """One 3-leg forward transform (l32, no scaling) through both routes
+    of engine/ntt.py at each 2^k of ROUTE_LOG2: radix-2 (a one-lane
+    sub-NTT: gather, k stage launches) and the four-step; the results
+    must be equal.  CUDA-event ms, median of 5 after a warm-up; where
+    the prefix's budget cuts a sub-NTT short (2^20), one tail stage
+    launch timed alone.  cached: {n: FourStepTables} the paths built."""
+    from za_tpu_torch.engine import ntt as NTT
+    from za_tpu_torch.groth16.domain import Domain
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    out = {}
+    for k in ROUTE_LOG2:
+        n = 1 << k
+        host = Domain(n)
+        fs = cached.get(n) or NTT.FourStepTables(host, "cuda")
+        tw = NTT._twiddles(host.omega, n // 2, "cuda")
+        x = rand_fq(torch, (3, n), gen)
+        routes = {
+            "radix2": lambda: NTT.sub_ntt(
+                x.unsqueeze(-1), tw, n).reshape(8, 3, n),
+            "fourstep": lambda: NTT.fourstep_core(
+                x, *fs.tables(False), fs.n1, fs.n2)}
+        ys, ms = {}, {}
+        for name, fn in routes.items():
+            ys[name] = fn()
+            ms[name] = statistics.median(
+                timer(fn)[1] for _ in range(5)) * 1e3
+        assert torch.equal(ys["radix2"], ys["fourstep"]), f"2^{k}: routes"
+        m = NTT.prefix_rows(fs.n2, fs.n1)
+        if m < fs.n2:   # the first sub-NTT's tail, its first stage
+            a = NTT.ntt_prefix(x.reshape(8, 3, fs.n2, fs.n1), fs.t2_fwd, m)
+            ms["tail_stage"] = statistics.median(
+                timer(lambda: NTT.NTT_STAGE(a, fs.t2_fwd, 3, fs.n2, fs.n1,
+                                            m))[1] for _ in range(5)) * 1e3
+        out[f"2^{k}"] = ms
+        log(f"NTT routes at 2^{k} (3 legs): {ms}")
+    return out
 
 
 def main() -> int:
@@ -662,20 +784,30 @@ def main() -> int:
     assert tree["route"] == "tree", "2^17 did not take the tree"
     dense, dense_launches, dctx = prove_path(torch, timer, LOG2N_DENSE)
     assert dense["route"] == "dense", "2^13 did not take the dense path"
+    check_launches, small_domain = real_proof()
     per_path = {"tree": tree_launches["default"],
                 "dense": dense_launches["default"],
-                "fused": dense_launches["fused"]}
+                "fused": dense_launches["fused"],
+                "check510": check_launches}
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in _build.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels launched on no path: {missing}"
-    real_proof()
-    rows = kernels_vs_plain(torch, tctx, dctx, launches)
+    for path in ("tree", "dense"):
+        idle = [k for k in ("ntt_prefix_fr", "ntt_twiddle_fr")
+                if per_path[path][k] == 0]
+        assert not idle, f"{path}: h(x) did not run the four-step: {idle}"
+    rows = kernels_vs_plain(torch, tctx, dctx, small_domain, launches)
+    tree["ntt_routes_ms"] = ntt_routes(torch, {
+        d: ctx["eng"]._domain(d).fourstep
+        for d, ctx in ((1 << (LOG2N + 1), tctx),
+                       (1 << (LOG2N_DENSE + 1), dctx))})
 
     for result in (tree, dense):
         result.update({"device": torch.cuda.get_device_name(0),
                        "card": card})
-    tree.update({"build_s": build_s, "smoke_s": time.time() - t_start})
+    tree.update({"build_s": build_s, "smoke_s": time.time() - t_start,
+                 "check510_launches": check_launches})
     print(json.dumps(tree))
     print(json.dumps(dense))
     print(json.dumps({"kernels": rows}))

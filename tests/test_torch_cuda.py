@@ -46,10 +46,64 @@ def test_ec_kernels_match_plain(gen, is_g2):
 
 
 def test_ntt_stage_kernel_matches_plain(gen):
+    """L = 1 (the radix-2 transform) and L > 1 from a mid-transform
+    start (the four-step's tail stages)."""
     dom = NTT.DeviceDomain(1 << 10, "cuda")
-    x = _rand_fq((3, 1 << 10), gen)   # top limb < 0x3064: canonical mod r
+    x = _rand_fq((3, 1 << 10, 1), gen)  # top limb < 0x3064: canonical mod r
     assert torch.equal(NTT.ntt_stages(x, dom.w_fwd),
                        NTT.ntt_stages_plain(x, dom.w_fwd))
+    x = _rand_fq((3, 1 << 10, 24), gen)
+    assert torch.equal(NTT.ntt_stages(x, dom.w_fwd, 64),
+                       NTT.ntt_stages_plain(x, dom.w_fwd, 64))
+
+
+@pytest.mark.parametrize("S,L,m", [(512, 512, 512), (256, 64, 16),
+                                   (64, 8, 4)])
+def test_ntt_prefix_kernel_matches_plain(gen, S, L, m):
+    """The 2^18 sub-NTT shape, a partial prefix and the smallest one."""
+    tw = NTT._twiddles(NTT.Domain(S).omega, S // 2, "cuda")
+    x = _rand_fq((3, S, L), gen)
+    assert torch.equal(NTT.ntt_prefix(x, tw, m),
+                       NTT.ntt_prefix_plain(x, tw, m))
+
+
+def test_ntt_prefix_refuses_a_block_over_shared_memory(gen):
+    """1024 rows x 8 lanes x 32 B = 256 KB: more than a block may hold.
+    The wrapper raises, counts no launch, and the next launch runs."""
+    S = 1024
+    tw = NTT._twiddles(NTT.Domain(S).omega, S // 2, "cuda")
+    x = _rand_fq((1, S, 8), gen)
+    before = NTT.NTT_PREFIX.launches
+    with pytest.raises(RuntimeError, match="ntt_prefix_fr"):
+        NTT.ntt_prefix(x, tw, S)
+    assert NTT.NTT_PREFIX.launches == before
+    assert torch.equal(NTT.ntt_prefix(x, tw, S // 2),
+                       NTT.ntt_prefix_plain(x, tw, S // 2))
+
+
+def test_ntt_twiddle_kernel_matches_plain(gen):
+    """n2 = 64 rows, n1 = 128 columns (the 2^13 split) and a ragged
+    shape that no tile divides."""
+    fs = NTT.DeviceDomain(1 << 13, "cuda").fourstep
+    a = _rand_fq((3, fs.n2, fs.n1), gen)
+    assert torch.equal(NTT.ntt_twiddle(a, fs.inter_inv),
+                       NTT.ntt_twiddle_plain(a, fs.inter_inv))
+    a, inter = _rand_fq((2, 40, 72), gen), _rand_fq((40, 72), gen)
+    assert torch.equal(NTT.ntt_twiddle(a, inter),
+                       NTT.ntt_twiddle_plain(a, inter))
+
+
+def test_fourstep_kernels_match_plain(gen):
+    """A whole 2^12 transform: sub_ntt / twiddle / sub_ntt on the card
+    against the same steps' plain versions."""
+    dom = NTT.DeviceDomain(1 << 12, "cuda")
+    fs = dom.fourstep
+    x = _rand_fq((3, dom.size), gen)
+    got = NTT.fourstep_core(x, *fs.tables(True), fs.n1, fs.n2)
+    a = NTT.sub_ntt_plain(x.reshape(8, 3, fs.n2, fs.n1), fs.t2_inv, fs.n2)
+    a = NTT.sub_ntt_plain(NTT.ntt_twiddle_plain(a, fs.inter_inv),
+                          fs.t1_inv, fs.n1)
+    assert torch.equal(got, a.reshape(8, 3, dom.size))
 
 
 @pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])

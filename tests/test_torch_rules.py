@@ -53,7 +53,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
              "tree_level_g2", "ec_add_g1", "ec_add_g2", "to_affine_g1",
              "to_affine_g2", "horner_g1", "horner_g2", "ntt_stage_fr",
              "dense_window_sums_g1", "dense_window_sums_g2",
-             "dense4_window_sums_g1", "dense4_window_sums_g2"}
+             "dense4_window_sums_g1", "dense4_window_sums_g2",
+             "ntt_prefix_fr", "ntt_twiddle_fr"}
     assert names <= set(_build.KERNELS)
     for name in names:
         k = _build.KERNELS[name]
