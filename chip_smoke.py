@@ -15,7 +15,9 @@ Phases:
      five MSMs and h(x) checked exactly on the host; stage times (CUDA
      events, one warm-up, median of 3) printed as one JSON line; h(x)
      runs the four-step NTT, one 3-leg transform of it split step by
-     step (prefix, tail stages, twiddle transpose, tensor code);
+     step (prefix, tail stages, twiddle transpose, tensor code); each
+     MSM split step by step (digits, level 0, levels, carry, lane fold,
+     Horner);
   3. the dense path at full width: the same at 2^13 constraints, where
      the padded queries stay below TREE_MIN and the four G1 MSMs run as
      one stacked dense MSM; then the same prove through
@@ -26,7 +28,8 @@ Phases:
      the pairing check accepts; its launches count as a path;
   5. each kernel against its plain PyTorch version on the shapes of the
      path that runs it, exact equality (integers mod p), timed beside
-     its bound; printed as one JSON line {"kernels": [...]}; then one
+     its bound; the tree levels at every level of one 2^17 chunk
+     ("per_level_ms"); printed as one JSON line {"kernels": [...]}; then one
      NTT through both routes (radix-2, four-step) at sizes from 2^9 to
      2^20, equal results, timed (the 2^17 line's "ntt_routes_ms");
   6. the card's name and power limit, then the result line.
@@ -342,9 +345,8 @@ def prove_path(torch, timer, log2n: int):
 
 
 def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
-    """Where h(x) and the G1 group MSM (and, dense, the G2 MSM) spend
-    their time: the engine's steps timed one by one (CUDA events, each
-    ending in a sync)."""
+    """Where h(x) and each MSM spend their time: the engine's steps
+    timed one by one (CUDA events, each ending in a sync)."""
     import torch
 
     from za_tpu_torch.engine import field as F, ntt as NTT
@@ -362,8 +364,10 @@ def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
     _, t["h.coset_intt"] = timer(lambda: FR.from_mont(NTT.coset_intt(dom, hc)))
     ni = r1cs.num_inputs
     if "g1abl" in staged:
-        t.update(tree_breakdown(timer, eng, staged["g1abl"],
-                                [z_l, z_l, z_l[:, ni:]], "g1abl"))
+        for tag, scal in (("g1abl", [z_l, z_l, z_l[:, ni:]]), ("g1h", [h]),
+                          ("b2", [z_l])):
+            st = staged["b_g2x" if tag == "b2" else tag]
+            t.update(tree_breakdown(timer, eng, st, scal, tag))
     else:
         t.update(dense_breakdown(timer, eng, staged["g1x4"],
                                  [z_l, z_l, z_l[:, ni:], h], "g1x4"))
@@ -407,9 +411,12 @@ def fourstep_breakdown(timer, dom, x):
 
 
 def tree_breakdown(timer, eng, tabs, scal, tag):
+    """digits, then per chunk level 0, the levels and the carry (summed
+    over the chunks), lane fold, Horner."""
     from za_tpu_torch.engine import cuda_tree as CT, ec, msm as MSM
     from za_tpu_torch.engine import msm_tree as MT
 
+    g2 = tabs.is_g2
     t = {}
     sc = eng._scalars(tabs, scal)
     d, t[f"{tag}.digits"] = timer(lambda: CT.window_digits(tabs, sc))
@@ -418,25 +425,25 @@ def tree_breakdown(timer, eng, tabs, scal, tag):
         t[f"{tag}.{k}"] = 0.0
     for c in range(tabs.chunks):
         (x, y, inf), dt = timer(
-            lambda: CT.tree_level0(tabs.tx[c], tabs.ty[c], d[c], False))
+            lambda: CT.tree_level0(tabs.tx[c], tabs.ty[c], d[c], g2))
         t[f"{tag}.level0"] += dt
 
         def levels(x=x, y=y, inf=inf):
             while x.shape[-1] > CT.TAIL:
-                x, y, inf = CT.tree_level(x, y, inf, False)
+                x, y, inf = CT.tree_level(x, y, inf, g2)
             return x, y, inf
 
         (x, y, inf), dt = timer(levels)
         t[f"{tag}.levels"] += dt
 
         def carry(x=x, y=y, inf=inf, acc=acc):
-            p = MT.proj_of_affine(x, y, inf, False)
-            return p if acc is None else ec.ec_add(acc, p, False)
+            p = MT.proj_of_affine(x, y, inf, g2)
+            return p if acc is None else ec.ec_add(acc, p, g2)
 
         acc, dt = timer(carry)
         t[f"{tag}.carry"] += dt
-    w, t[f"{tag}.lane_fold"] = timer(lambda: MSM.lane_fold(acc, False))
-    _, t[f"{tag}.horner"] = timer(lambda: MSM.horner_windows(w, False, 4))
+    w, t[f"{tag}.lane_fold"] = timer(lambda: MSM.lane_fold(acc, g2))
+    _, t[f"{tag}.horner"] = timer(lambda: MSM.horner_windows(w, g2, 4))
     return t
 
 
@@ -588,15 +595,27 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         row(f"tree_level0_{g}", tree_src, refs[0],
             f"2^{LOG2N} chunk M={tabs.m} S={tabs.chunk_cols}", ms, pms, err,
             nbytes(tabs.tx[0], tabs.ty[0], d, x, y, inf), 6 * fmul * live)
-        args = (x, y, inf, is_g2)
-        (x2, y2, inf2), ms, pms, err = compare(
-            torch, f"tree_level_{g}", CT.tree_level, MT.tree_level_plain,
-            args)
-        h = x.shape[-1] // 2
-        live = int((~(inf[..., :h] | inf[..., h:])).sum())
+        # every level of the chunk, n = S/2 points down to 2 TAIL; the
+        # row is the widest, per_level_ms all of them
+        levels = []
+        while x.shape[-1] > CT.TAIL:
+            (x2, y2, inf2), ms, pms, err = compare(
+                torch, f"tree_level_{g}", CT.tree_level, MT.tree_level_plain,
+                (x, y, inf, is_g2), reps=10)
+            h = x.shape[-1] // 2
+            live = int((~(inf[..., :h] | inf[..., h:])).sum())
+            levels.append({"n": x.shape[-1], "ms": ms, "plain_ms": pms,
+                           "err": err, "bytes": nbytes(x, y, inf, x2, y2, inf2),
+                           "muls": 6 * fmul * live})
+            x, y, inf = x2, y2, inf2
+        top = levels[0]
         row(f"tree_level_{g}", tree_src, refs[1],
-            f"2^{LOG2N} M={tabs.m} n={x.shape[-1]}", ms, pms, err,
-            nbytes(x, y, inf, x2, y2, inf2), 6 * fmul * live)
+            f"2^{LOG2N} M={tabs.m} n={top['n']}", top["ms"],
+            top["plain_ms"], top["err"], top["bytes"], top["muls"])
+        rows[-1]["per_level_ms"] = [
+            {"n": lv["n"], "ms": lv["ms"],
+             "bound_ms": bound(lv["bytes"], lv["muls"])[0]} for lv in levels]
+        log(f"tree_level_{g} per level: {rows[-1]['per_level_ms']}")
 
     # the dense window sums at the 2^13 shapes, both radices
     dense_src = "za_tpu_torch/csrc/dense.cu"
@@ -776,7 +795,8 @@ def main() -> int:
     log(f"kernels built in {build_s:.1f}s: {built}")
     for f in sorted(_build.build_dir().glob("*.log")):
         for line in f.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 log(f"{f.stem}: {line.strip()}")
 
     timer = Timer(torch)

@@ -2,9 +2,12 @@
 PyTorch version on the same inputs, exact equality.  Skips without a
 card (the full-width comparison is chip_smoke.py's)."""
 
+import random
+
 import pytest
 import torch
 
+from za_tpu_torch.curve import Q
 from za_tpu_torch.engine import cuda_tree as CT, ec, field as F
 from za_tpu_torch.engine import msm as MSM, msm_dense as MD
 from za_tpu_torch.engine import msm_tree as MT, ntt as NTT
@@ -135,3 +138,58 @@ def test_dense_kernels_match_plain(gen, is_g2, radix):
                       device="cuda").to(torch.int8)
     assert _same(MD.dense_window_sums(tabs, d, L),
                  MD.dense_window_sums_plain(tabs, d, L))
+
+
+def test_tree_level_g1_edge_blocks(gen):
+    """n/2 = 2348 pairs per row: three blocks of up to 1024 pairs, the
+    last one ragged.  Row 0: block 0 has no live pair (its product is
+    1), block 1 one.  Row 1: each block's one live pair has the
+    denominator 1, q - 1 (as residues) and R mod q (the field's one),
+    so the inversion sees exactly these values."""
+    rng = random.Random(5)
+    half, W = 2 * 1024 + 300, 2
+    x = [[rng.randrange(Q) for _ in range(2 * half)] for _ in range(W)]
+    y = [[rng.randrange(Q) for _ in range(2 * half)] for _ in range(W)]
+    inf = [[False] * (2 * half) for _ in range(W)]
+    # pairs (p, p + half): in blocks 0 and 1 of row 0 and all of row 1
+    # every pair has an operand at infinity (left, right or both) ...
+    for w in range(W):
+        for p in range(2 * 1024 if w == 0 else half):
+            side = rng.randrange(3)
+            inf[w][p] = side != 1
+            inf[w][p + half] = side != 0
+    # ... but these
+    live = {(0, 1500): None, (1, 7): 1, (1, 1030): Q - 1,
+            (1, 2100): (1 << 256) % Q}
+    for (w, p), den in live.items():
+        inf[w][p] = inf[w][p + half] = False
+        if den is not None:
+            x[w][p + half] = (x[w][p] + den) % Q
+    for p in range(2 * 1024, half):   # block 2 of row 0: 1 in 10 at inf
+        inf[0][p] = rng.random() < 0.1
+
+    def dev(v):
+        a = torch.from_numpy(F.ints_to_l32([c for row in v for c in row]))
+        return a.reshape(8, 1, W, 2 * half).cuda()
+
+    args = (dev(x), dev(y), torch.tensor(inf).reshape(1, W, 2 * half).cuda(),
+            False)
+    assert _same(CT.tree_level(*args), MT.tree_level_plain(*args))
+
+
+@pytest.mark.parametrize("M", [1, 3])
+@pytest.mark.parametrize("bits", [4, 2])
+def test_horner_g2_identity_windows(gen, bits, M):
+    """Window sums at the identity (0 : 1 : 0): M = 3 has MSM 0 all
+    identity, MSM 1 only its first window read (the top one), MSM 2 only
+    its last (window 0); M = 1 only its first."""
+    W = MSM.WINDOWS[bits]
+    w = [_rand_fq((2, M, W), gen) for _ in range(3)]
+    ident = ec.identity_like(w[0], True)
+    where = [slice(W - 1, W)] if M == 1 else [
+        slice(None), slice(W - 1, W), slice(0, 1)]
+    for m, sel in enumerate(where):
+        for c, i in zip(w, ident):
+            c[:, :, m, sel] = i[:, :, m, sel]
+    assert _same(MSM.horner_windows(w, True, bits),
+                 MSM.horner_windows_plain(w, True, bits))

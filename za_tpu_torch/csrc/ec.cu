@@ -5,9 +5,15 @@
 // {1P..8P} table build at staging, the per-chunk projective carry and
 // the lane fold of the tree MSM.
 // horner: the window combine sum_w 2^(bits w) S_w of M MSMs in one
-// launch, one thread per MSM (320 dependent adds each at radix 16, 381
-// at radix 4): as that many ec_add launches on a few points it cost
-// more in launches than in arithmetic.  The group law is curve.cuh's.
+// launch (320 dependent adds each at radix 16, 381 at radix 4): as that
+// many ec_add launches on a few points it cost more in launches than in
+// arithmetic.  The group law is curve.cuh's.  horner_g1 runs one thread
+// per MSM.  horner_g2 did too, and its time was that thread's chain:
+// 42 dependent Fq products per add, 15.25 ms at radix 16 and 18.13 ms at
+// radix 4 for one MSM.  It now runs one warp per MSM that spreads each
+// add's products over the lanes (horner_warp_kernel), three product
+// latencies per add: 1.29-1.33 and 1.55-1.56 ms (NVIDIA H100 80GB HBM3,
+// 700 W).
 // In the reference all of these are XLA code (za_tpu/engine/ec.py
 // point_add, msm.build_multiples, msm.lane_fold, msm.horner_windows),
 // not Pallas kernels.
@@ -79,6 +85,142 @@ __global__ void horner_kernel(const uint32_t* __restrict__ WX,
   store(X, M, m, x);
   store(Y, M, m, y);
   store(Z, M, m, z);
+}
+
+// Horner over G2 window sums, one warp per MSM.  The chain is the
+// same (bits doublings and one add per window, each RCB algorithm 7),
+// but each group operation's Fq products run on separate lanes: its
+// three product levels (6, 2 and 6 Fq2 products, each Fq2 product as
+// four Fq sub-products on four lanes: 24, 8, 24 lanes) each take one
+// product's latency, and the additions between them run on one lane
+// per output component.  Operands pass through the warp's scratch in
+// shared memory (slots of one Fq, below), __syncwarp between stages.
+// Every value is canonical, so the coordinates equal horner_kernel's
+// (and the plain version's) bit for bit.
+namespace hw {
+constexpr int ZERO = 0;  // 0, 1: an Fq2 zero (the absent operand)
+constexpr int P = 2;     // the accumulator X, Y, Z (c0, c1 each): 2..7
+constexpr int Q = 8;     // the window sum S_w: 8..13
+constexpr int B3 = 14;   // 3b: 14, 15
+constexpr int L1 = 16;   // level-1 sub-products: 16..39
+constexpr int C1 = 40;   // 3 t0, t1, t2, t3, t4, y3: 40..51
+constexpr int L2 = 52;   // level-2 sub-products: 52..59
+constexpr int C2 = 60;   // 3b y3, t1 - 3b t2, t1 + 3b t2: 60..65
+constexpr int L3 = 66;   // level-3 sub-products: 66..89
+constexpr int SLOTS = 90;
+
+// level 1: X1 X2, Y1 Y2, Z1 Z2, (X1+Y1)(X2+Y2), (Y1+Z1)(Y2+Z2),
+// (X1+Z1)(X2+Z2): the two coordinates summed (offsets from P or Q;
+// -1 none), the same on both sides
+__device__ const int8_t L1_OPS[6][2] = {{0, -1}, {2, -1}, {4, -1},
+                                        {0, 2},  {2, 4},  {0, 4}};
+// level 3 (a, b): t4 3b y3, t3 t1', 3b y3 3 t0, t1' Z3, 3 t0 t3, Z3 t4
+__device__ const int8_t L3_OPS[6][2] = {
+    {C1 + 8, C2 + 0}, {C1 + 6, C2 + 2}, {C2 + 0, C1 + 0},
+    {C2 + 2, C2 + 4}, {C1 + 0, C1 + 6}, {C2 + 4, C1 + 8}};
+// combine stages: Fq2 value v = keep[v] + sum of +-K_j over the terms
+// +-(j + 1) of row v (0: none), K_j the stage's j-th Fq2 product
+__device__ const int8_t C1_TERMS[6][3] = {
+    {1, 1, 1}, {2, 0, 0}, {3, 0, 0},  // 3 t0, t1, t2
+    {4, -1, -2}, {5, -2, -3}, {6, -1, -3}};  // m3 - t0 - t1, m4 - t1 - t2,
+                                             // m5 - t0 - t2
+__device__ const int8_t C2_TERMS[3][3] = {{2, 0, 0}, {-1, 0, 0}, {1, 0, 0}};
+__device__ const int8_t C2_KEEP[3] = {ZERO, C1 + 2, C1 + 2};  // +t1
+__device__ const int8_t C3_TERMS[3][3] = {
+    {2, -1, 0}, {4, 3, 0}, {6, 5, 0}};  // X3, Y3, Z3
+
+// Lane l < 4 np: sub-product q = l & 3 of Fq2 product j = l >> 2,
+// A_ca B_cb with (ca, cb) = (0,0), (1,1), (0,1), (1,0); A = s[a1] + s[a2]
+// and B = s[b1] + s[b2] as Fq2 values (slots of their c0).
+__device__ __forceinline__ void product(Fq* s, int out, int np, int lane,
+                                        int a1, int a2, int b1, int b2) {
+  const int q = lane & 3, ca = q & 1, cb = (q ^ (q >> 1)) & 1;
+  const Fq r = mul(add(s[a1 + ca], s[a2 + ca]), add(s[b1 + cb], s[b2 + cb]));
+  if (lane < 4 * np) s[out + lane] = r;
+}
+
+// Lane l < 2 nv: component c = l & 1 of value v = l >> 1 (see C1_TERMS),
+// with K_j = (S_4j - S_4j+1, S_4j+2 + S_4j+3) from the sub-products at L.
+__device__ __forceinline__ void combine(Fq* s, int out, int nv, int lane,
+                                        int L, const int8_t (*terms)[3],
+                                        const int8_t* keep) {
+  const int v = min(lane >> 1, nv - 1), c = lane & 1;
+  Fq r = s[(keep ? keep[v] : ZERO) + c];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int e = terms[v][i];
+    const int at = e ? L + 4 * ((e < 0 ? -e : e) - 1) + 2 * c : ZERO;
+    const Fq k = c ? add(s[at], s[at + 1]) : sub(s[at], s[at + 1]);
+    r = e < 0 ? sub(r, k) : add(r, k);
+  }
+  if (lane < 2 * nv) s[out + lane] = r;
+}
+
+// acc = acc + (the Fq2 point at slot qb: P doubles, Q adds S_w)
+__device__ __noinline__ void point_add(Fq* s, int qb, int lane) {
+  const int j = min(lane >> 2, 5);
+  const int o1 = L1_OPS[j][0], o2 = L1_OPS[j][1];
+  product(s, L1, 6, lane, P + o1, o2 < 0 ? ZERO : P + o2, qb + o1,
+          o2 < 0 ? ZERO : qb + o2);
+  __syncwarp();
+  combine(s, C1, 6, lane, L1, C1_TERMS, nullptr);
+  __syncwarp();
+  product(s, L2, 2, lane, B3, ZERO, (lane >> 2) & 1 ? C1 + 10 : C1 + 4,
+          ZERO);  // 3b t2, 3b y3
+  __syncwarp();
+  combine(s, C2, 3, lane, L2, C2_TERMS, C2_KEEP);
+  __syncwarp();
+  product(s, L3, 6, lane, L3_OPS[j][0], ZERO, L3_OPS[j][1], ZERO);
+  __syncwarp();
+  combine(s, P, 3, lane, L3, C3_TERMS, nullptr);
+  __syncwarp();
+}
+}  // namespace hw
+
+// Input (8, 2, M, W) limb planes, output (8, 2, M); block m is MSM m.
+__global__ void __launch_bounds__(32)
+horner_warp_kernel(const uint32_t* __restrict__ WX,
+                   const uint32_t* __restrict__ WY,
+                   const uint32_t* __restrict__ WZ, uint32_t* __restrict__ X,
+                   uint32_t* __restrict__ Y, uint32_t* __restrict__ Z, int M,
+                   int W, int bits) {
+  __shared__ Fq s[hw::SLOTS];
+  const int lane = threadIdx.x, m = blockIdx.x;
+  const size_t plane = (size_t)M * W;
+  // word k < 48 of the six Fq of a point: coordinate k / 16, component
+  // (k / 8) & 1, limb k & 7 (lanes take k = lane and lane + 32)
+  if (lane < 16) {
+    const Fq2 b = b3<Fq2>();
+    s[lane >> 3].v[lane & 7] = 0u;                     // ZERO
+    s[hw::B3 + (lane >> 3)].v[lane & 7] =
+        (lane >> 3) ? b.c1.v[lane & 7] : b.c0.v[lane & 7];
+  }
+  for (int k = lane; k < 48; k += 32)  // (0 : 1 : 0)
+    s[hw::P + (k >> 3)].v[k & 7] = (k >> 3) == 2 ? QParams::one(k & 7) : 0u;
+  __syncwarp();
+#pragma unroll 1
+  for (int w = W - 1; w >= 0; --w) {
+    uint32_t sw[2];  // S_w, loaded while the doublings run
+    for (int i = 0; i < 2; ++i) {
+      const int k = lane + 32 * i;
+      if (k < 48) {
+        const uint32_t* src = (k >> 4) == 0 ? WX : (k >> 4) == 1 ? WY : WZ;
+        sw[i] = src[(2 * (k & 7) + ((k >> 3) & 1)) * plane + m * W + w];
+      }
+    }
+#pragma unroll 1
+    for (int d = 0; d < bits; ++d) hw::point_add(s, hw::P, lane);
+    for (int i = 0; i < 2; ++i) {
+      const int k = lane + 32 * i;
+      if (k < 48) s[hw::Q + (k >> 3)].v[k & 7] = sw[i];
+    }
+    __syncwarp();
+    hw::point_add(s, hw::Q, lane);
+  }
+  for (int k = lane; k < 48; k += 32) {
+    uint32_t* dst = (k >> 4) == 0 ? X : (k >> 4) == 1 ? Y : Z;
+    dst[(2 * (k & 7) + ((k >> 3) & 1)) * M + m] = s[hw::P + (k >> 3)].v[k & 7];
+  }
 }
 
 constexpr int AFF_TB = 128;  // threads per to_affine block
@@ -190,7 +332,12 @@ int horner_g1(const void* WX, const void* WY, const void* WZ, void* X,
 
 int horner_g2(const void* WX, const void* WY, const void* WZ, void* X,
               void* Y, void* Z, int M, int W, int bits, void* stream) {
-  return za::launch_horner<za::Fq2>(WX, WY, WZ, X, Y, Z, M, W, bits, stream);
+  if (M > 0) {
+    za::horner_warp_kernel<<<M, 32, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)WX, (const uint32_t*)WY, (const uint32_t*)WZ,
+        (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, M, W, bits);
+  }
+  return (int)cudaGetLastError();
 }
 
 int to_affine_g1(const void* X, const void* Y, const void* Z, void* x,

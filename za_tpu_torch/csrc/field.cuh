@@ -17,6 +17,13 @@
 // madc.hi.cc) so no carry ever leaves a chain.  Inputs are canonical
 // and p < 2^254, so every intermediate fits in nine words and one final
 // conditional subtraction makes the result canonical.
+//
+// Inversion: block_inverse batch-inverts a block's values with one
+// single-thread inversion, which the rest of the block waits for.  inv
+// (Fermat) is 364 dependent products, ~0.20 ms on the card: a floor of
+// ~0.23 ms under every wave of tree-level blocks, whatever they held.
+// inv_gcd (Bernstein-Yang divsteps on machine words) gives the same
+// value from short word operations; tree_level_g1 uses it.
 
 #pragma once
 
@@ -37,6 +44,12 @@ struct QParams {  // BN254 base field q
     constexpr uint32_t v[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du,
                                0x0a78eb28u, 0x7879462cu, 0x666ea36fu,
                                0x9a07df2fu, 0x0e0a77c1u};
+    return v[i];
+  }
+  __device__ static __forceinline__ uint32_t r3(int i) {  // R^3 mod q
+    constexpr uint32_t v[8] = {0xda1530dfu, 0xb1cd6dafu, 0xa7283db6u,
+                               0x62f210e6u, 0x0ada0afbu, 0xef7f0b0cu,
+                               0x2d592544u, 0x20fd6e90u};
     return v[i];
   }
 };
@@ -272,6 +285,177 @@ __device__ __noinline__ Fp<P> inv(const Fp<P>& a) {
   return acc;
 }
 
+// -- inversion by Bernstein-Yang divsteps (safegcd) ---------------------------
+//
+// The Fermat inverse above is 364 dependent Montgomery products in one
+// thread.  inv_gcd computes the same canonical value from divsteps on
+// machine words: 20 batches of 30 (590 suffice below 2^256), each
+// batch's 2x2 transition matrix built from the low 30 bits of f and g
+// alone and then applied to the full f, g (divided by 2^30 exactly) and
+// to the coefficients d, e mod p (made divisible by 2^30 with a multiple
+// of p).  Values are nine signed 30-bit limbs in int32, sums in int64:
+// the signed30 layout of libsecp256k1's modinv32.  Invariants: d x = f,
+// e x = g (mod p); at the end g = 0, f = +-1, so x^-1 = +-d.  The input
+// is the Montgomery form aR, so x^-1 = a^-1 R^-1 and one Montgomery
+// product with R^3 mod p gives a^-1 R.  0 -> 0.
+// tests/test_torch_inverse.py holds a step-for-step model of it.
+
+constexpr int32_t M30 = 0x3fffffff;
+
+struct S30 {
+  int32_t v[9];  // sum v[i] 2^(30 i); v[0..7] in [0, 2^30) between steps
+};
+
+__device__ __forceinline__ S30 to_s30(const uint32_t w[8]) {
+  S30 r;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const int word = 30 * i / 32, sh = 30 * i % 32;
+    uint32_t lo = w[word] >> sh;
+    if (sh > 2 && word < 7) lo |= w[word + 1] << (32 - sh);
+    r.v[i] = (int32_t)(lo & M30);
+  }
+  return r;
+}
+
+// canonical limbs in [0, 2^30), value < 2^256
+__device__ __forceinline__ void from_s30(const S30& a, uint32_t w[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int i = 32 * j / 30, sh = 32 * j % 30;
+    w[j] = ((uint32_t)a.v[i] >> sh) | ((uint32_t)a.v[i + 1] << (30 - sh));
+  }
+}
+
+// 30 divsteps on the low words f0 (odd) and g0; zeta = -(delta + 1/2).
+// Returns the new zeta; t = (u, v, q, r) with 2^30 (f', g') = t (f, g).
+__device__ __forceinline__ int32_t divsteps_30(int32_t zeta, uint32_t f0,
+                                               uint32_t g0, int32_t t[4]) {
+  uint32_t u = 1, v = 0, q = 0, r = 1, f = f0, g = g0;
+#pragma unroll
+  for (int i = 0; i < 30; ++i) {
+    uint32_t c1 = (uint32_t)(zeta >> 31);  // zeta < 0
+    const uint32_t c2 = 0u - (g & 1u);     // g odd
+    const uint32_t x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    c1 &= c2;                              // swap: zeta < 0 and g odd
+    zeta = (zeta ^ (int32_t)c1) - 1;
+    f += g & c1;
+    u += q & c1;
+    v += r & c1;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t[0] = (int32_t)u;
+  t[1] = (int32_t)v;
+  t[2] = (int32_t)q;
+  t[3] = (int32_t)r;
+  return zeta;
+}
+
+// (f, g) <- t (f, g) / 2^30, exact
+__device__ __forceinline__ void update_fg_30(S30& f, S30& g,
+                                             const int32_t t[4]) {
+  int64_t cf = (int64_t)t[0] * f.v[0] + (int64_t)t[1] * g.v[0];
+  int64_t cg = (int64_t)t[2] * f.v[0] + (int64_t)t[3] * g.v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    cf += (int64_t)t[0] * f.v[i] + (int64_t)t[1] * g.v[i];
+    cg += (int64_t)t[2] * f.v[i] + (int64_t)t[3] * g.v[i];
+    f.v[i - 1] = (int32_t)cf & M30;
+    g.v[i - 1] = (int32_t)cg & M30;
+    cf >>= 30;
+    cg >>= 30;
+  }
+  f.v[8] = (int32_t)cf;
+  g.v[8] = (int32_t)cg;
+}
+
+// (d, e) <- (t (d, e) + p (md, me)) / 2^30, md, me chosen so the division
+// is exact; d, e stay in (-2p, p)
+template <class P>
+__device__ __forceinline__ void update_de_30(S30& d, S30& e,
+                                             const int32_t t[4],
+                                             const S30& p) {
+  const uint32_t pinv = (0u - P::np0) & M30;  // p^-1 mod 2^30
+  const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+  int32_t md = (t[0] & sd) + (t[1] & se);
+  int32_t me = (t[2] & sd) + (t[3] & se);
+  int64_t cd = (int64_t)t[0] * d.v[0] + (int64_t)t[1] * e.v[0];
+  int64_t ce = (int64_t)t[2] * d.v[0] + (int64_t)t[3] * e.v[0];
+  md -= (int32_t)((pinv * (uint32_t)cd + (uint32_t)md) & M30);
+  me -= (int32_t)((pinv * (uint32_t)ce + (uint32_t)me) & M30);
+  cd += (int64_t)p.v[0] * md;
+  ce += (int64_t)p.v[0] * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    cd += (int64_t)t[0] * d.v[i] + (int64_t)t[1] * e.v[i] +
+          (int64_t)p.v[i] * md;
+    ce += (int64_t)t[2] * d.v[i] + (int64_t)t[3] * e.v[i] +
+          (int64_t)p.v[i] * me;
+    d.v[i - 1] = (int32_t)cd & M30;
+    e.v[i - 1] = (int32_t)ce & M30;
+    cd >>= 30;
+    ce >>= 30;
+  }
+  d.v[8] = (int32_t)cd;
+  e.v[8] = (int32_t)ce;
+}
+
+// a in (-2p, p) with limbs in (-2^30, 2^30) -> sign * a mod p in [0, p)
+__device__ __forceinline__ void normalize_30(S30& a, int32_t sign,
+                                             const S30& p) {
+  int32_t add = a.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) a.v[i] += p.v[i] & add;
+  const int32_t ng = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) a.v[i] = (a.v[i] ^ ng) - ng;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    a.v[i + 1] += a.v[i] >> 30;
+    a.v[i] &= M30;
+  }
+  add = a.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) a.v[i] += p.v[i] & add;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    a.v[i + 1] += a.v[i] >> 30;
+    a.v[i] &= M30;
+  }
+}
+
+template <class P>
+__device__ __noinline__ Fp<P> inv_gcd(const Fp<P>& a) {
+  uint32_t pw[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) pw[i] = P::p(i);
+  const S30 p = to_s30(pw);
+  S30 d = {{0}}, e = {{1}}, f = p, g = to_s30(a.v);
+  int32_t zeta = -1;  // delta = 1/2
+#pragma unroll 1
+  for (int i = 0; i < 20; ++i) {
+    int32_t t[4];
+    zeta = divsteps_30(zeta, (uint32_t)f.v[0], (uint32_t)g.v[0], t);
+    update_de_30<P>(d, e, t, p);
+    update_fg_30(f, g, t);
+  }
+  normalize_30(d, f.v[8], p);
+  Fp<P> x, r3;
+  from_s30(d, x.v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r3.v[i] = P::r3(i);
+  return mul(x, r3);
+}
+
 // -- Fq2 ----------------------------------------------------------------------
 
 __device__ __forceinline__ Fq2 add(const Fq2& a, const Fq2& b) {
@@ -302,12 +486,25 @@ __device__ __noinline__ Fq2 inv(const Fq2& a) {
 
 // -- block-wide batch inversion ------------------------------------------------
 
+// The single-element inversion block_inverse runs on one thread: Fermat
+// (any field) or Gcd (Fq, Fr).
+struct Fermat {
+  template <class F>
+  __device__ static __forceinline__ F inv(const F& a) { return za::inv(a); }
+};
+struct Gcd {
+  template <class P>
+  __device__ static __forceinline__ Fp<P> inv(const Fp<P>& a) {
+    return inv_gcd(a);
+  }
+};
+
 // Every thread of a block of TB threads (a power of two) passes a
 // nonzero acc and gets acc^-1 back, for one Fermat per block: a product
 // tree over the thread values in shared memory (tree: 2 TB elements),
 // one thread inverts the root, the tree is unwound
 // (inv(left) = inv(parent) * right).  About 3 multiplications per thread.
-template <class F, int TB>
+template <class F, int TB, class Inv = Fermat>
 __device__ __forceinline__ F block_inverse(const F& acc, F* tree) {
   const int t = threadIdx.x;
   tree[TB + t] = acc;
@@ -316,7 +513,7 @@ __device__ __forceinline__ F block_inverse(const F& acc, F* tree) {
     if (t < s) tree[s + t] = mul(tree[2 * (s + t)], tree[2 * (s + t) + 1]);
     __syncthreads();
   }
-  if (t == 0) tree[1] = inv(tree[1]);
+  if (t == 0) tree[1] = Inv::inv(tree[1]);
   __syncthreads();
   for (int s = 1; s < TB; s <<= 1) {
     if (t < s) {

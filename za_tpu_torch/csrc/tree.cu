@@ -25,7 +25,7 @@
 // thread t walks pairs t, t + TB, ... (coalesced across the warp),
 // keeping the exclusive prefix products of its denominators.  The
 // block multiplies the thread totals in a shared-memory product tree,
-// one thread inverts the root by Fermat, the tree is unwound
+// one thread inverts the root, the tree is unwound
 // (inv(left) = inv(parent) * right), and each thread walks its pairs
 // backwards, emitting per-pair inverses and the affine adds.  Nothing
 // crosses blocks, so no second pass.
@@ -36,12 +36,26 @@
 // one out.  The design spends ~2 extra multiplications per thread on
 // the shared tree and one Fermat (~380 multiplications) per block of
 // TB * K pairs; K is chosen so that these stay a few per cent.
+//
+// What bounds these kernels is not that work but each block's serial
+// chain: the product tree, the one-thread Fermat (364 dependent
+// products, ~0.20 ms) and, as the per-level times read, walks unrolled
+// into more code than an SM's instruction cache holds.  For
+// tree_level_g1 a wave of blocks cost ~0.23 ms however few pairs it
+// held: one 2^17 chunk's levels, n = 2^14 ... 2^8, took 1.462 ... 0.231
+// ms (NVIDIA H100 80GB HBM3, 700 W).
+// tree_level_g1 therefore has its own kernel: the root is inverted by
+// inv_gcd (field.cuh) and both walks are loops over prefix products
+// kept in shared memory (96 registers, five blocks per SM): 0.424 ms at
+// n = 2^14, 0.046-0.090 ms for n = 2^11 ... 2^8.  The other three still
+// run the template with Fermat.
 
 #include "field.cuh"
 
 namespace za {
 
 constexpr int TB = 128;  // threads per block (a power of two)
+constexpr int G1_K = 8;  // pairs per thread of tree_level_g1
 
 // Operands of pair p of row r.  Level 0: tables (8 entries, E planes,
 // M, n) and digits (W, M, n); otherwise points (E planes, M * W, n)
@@ -152,6 +166,69 @@ tree_level_kernel(Level<F, L0> lv, uint32_t* __restrict__ x3,
   }
 }
 
+// tree_level_g1's kernel: the level above on Fq, with the root inverted
+// by inv_gcd and both walks rolled into loops (prefix products in shared
+// memory), so that a block's serial chain is short and its code small.
+__global__ void __launch_bounds__(TB)
+tree_level_g1_kernel(Level<Fq, false> lv, uint32_t* __restrict__ x3,
+                     uint32_t* __restrict__ y3, uint8_t* __restrict__ inf3) {
+  constexpr int K = G1_K;
+  __shared__ Fq tree[2 * TB];
+  __shared__ uint32_t pre[K][8][TB];  // exclusive prefix products
+  const int t = threadIdx.x;
+  const int r = blockIdx.y;
+  const long half = lv.n / 2;
+  const long p0 = (long)blockIdx.x * TB * K;
+  const size_t out_plane = (size_t)lv.M * lv.W * half;
+
+  Fq acc = one<Fq>();
+#pragma unroll 1  // unrolled, the two walks outgrow the instruction cache
+  for (int j = 0; j < K; ++j) {
+    const long p = p0 + (long)j * TB + t;
+#pragma unroll
+    for (int l = 0; l < 8; ++l) pre[j][l][t] = acc.v[l];
+    if (p < half) {
+      Fq x1, x2, y1, y2;
+      bool i1, i2;
+      lv.operands(r, p, false, x1, x2, y1, y2, i1, i2);
+      if (!(i1 || i2)) acc = mul(acc, sub(x2, x1));
+    }
+  }
+
+  Fq inv_acc = block_inverse<Fq, TB, Gcd>(acc, tree);
+
+#pragma unroll 1
+  for (int j = K - 1; j >= 0; --j) {
+    const long p = p0 + (long)j * TB + t;
+    if (p >= half) continue;
+    Fq x1, x2, y1, y2;
+    bool i1, i2;
+    lv.operands(r, p, true, x1, x2, y1, y2, i1, i2);
+    Fq xo, yo;
+    if (i1) {
+      xo = x2;
+      yo = y2;
+    } else if (i2) {
+      xo = x1;
+      yo = y1;
+    } else {
+      Fq pj;
+#pragma unroll
+      for (int l = 0; l < 8; ++l) pj.v[l] = pre[j][l][t];
+      const Fq den = sub(x2, x1);
+      const Fq dinv = mul(inv_acc, pj);
+      inv_acc = mul(inv_acc, den);
+      const Fq lam = mul(sub(y2, y1), dinv);
+      xo = sub(sub(sqr(lam), x1), x2);
+      yo = sub(mul(lam, sub(x1, xo)), y1);
+    }
+    const size_t o = (size_t)r * half + p;
+    store(x3, out_plane, o, xo);
+    store(y3, out_plane, o, yo);
+    inf3[o] = (uint8_t)(i1 && i2);
+  }
+}
+
 template <class F, bool L0, int K>
 int launch(const void* xa, const void* ya, const void* inf, const void* d,
            void* x3, void* y3, void* inf3, int M, int W, int n,
@@ -184,8 +261,15 @@ int tree_level0_g1(const void* tabx, const void* taby, const void* d,
 // x, y: (8, M, W, n) int32; inf: (M, W, n) u8 -> halved
 int tree_level_g1(const void* x, const void* y, const void* inf, void* x3,
                   void* y3, void* inf3, int M, int W, int n, void* stream) {
-  return za::launch<za::Fq, false, 8>(x, y, inf, nullptr, x3, y3, inf3, M,
-                                      W, n, stream);
+  const long half = n / 2, per = (long)za::TB * za::G1_K;
+  if (half > 0 && M > 0 && W > 0) {
+    za::Level<za::Fq, false> lv{(const uint32_t*)x, (const uint32_t*)y,
+                                (const uint8_t*)inf, nullptr, M, W, n};
+    dim3 grid((unsigned)((half + per - 1) / per), (unsigned)(M * W));
+    za::tree_level_g1_kernel<<<grid, za::TB, 0, (cudaStream_t)stream>>>(
+        lv, (uint32_t*)x3, (uint32_t*)y3, (uint8_t*)inf3);
+  }
+  return (int)cudaGetLastError();
 }
 
 // tabx, taby: (8, 16, M, S): limb plane 2j + c holds limb j of component c
