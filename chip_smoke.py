@@ -29,7 +29,9 @@ Phases:
   5. each kernel against its plain PyTorch version on the shapes of the
      path that runs it, exact equality (integers mod p), timed beside
      its bound; the tree levels at every level of one 2^17 chunk
-     ("per_level_ms"); printed as one JSON line {"kernels": [...]}; then one
+     ("per_level_ms"); the tree kernels' registers and spill bytes from
+     the build's ptxas log ("regs", "spill_bytes"); printed as one JSON
+     line {"kernels": [...]}; then one
      NTT through both routes (radix-2, four-step) at sizes from 2^9 to
      2^20, equal results, timed (the 2^17 line's "ntt_routes_ms");
   6. the card's name and power limit, then the result line.
@@ -64,6 +66,19 @@ MADS_PER_MUL = 4 * 8 * 8
 # doublings and an add, no multiplication; in G2 it is a full Fq2
 # constant.  An Fq2 multiplication is 3 Fq ones.
 ADD_MULS = {False: 12, True: 3 * 14}
+
+# the __global__ function behind each tree entry point of csrc/tree.cu,
+# as ptxas names it, up to its last template argument:
+# tree_level_kernel<Fq, true, 8>, tree_level_rolled_kernel<Fq, false, 8,
+# ...>, <Fq2, true, 4, ...> and <Fq2, false, 4, ...>
+TREE_FN = {
+    "tree_level0_g1":
+        "_ZN2za17tree_level_kernelINS_2FpINS_7QParamsEEELb1ELi8E",
+    "tree_level_g1":
+        "_ZN2za24tree_level_rolled_kernelINS_2FpINS_7QParamsEEELb0ELi8E",
+    "tree_level0_g2": "_ZN2za24tree_level_rolled_kernelINS_3Fq2ELb1ELi4E",
+    "tree_level_g2": "_ZN2za24tree_level_rolled_kernelINS_3Fq2ELb0ELi4E",
+}
 
 SEED = 20261016
 LOG2N = 17        # the tree path
@@ -524,6 +539,26 @@ def dit_muls(S: int, m: int) -> int:
     return S // m * (m // 2 * (m.bit_length() - 1) - (m - 1))
 
 
+def ptxas_usage(log_text: str, prefix: str) -> dict:
+    """{"regs", "spill_bytes"} of the entry function whose mangled name
+    starts with prefix, from nvcc's -Xptxas -v log: its registers and
+    the bytes of its spill stores and loads per thread."""
+    import re
+
+    for part in log_text.split("Compiling entry function '")[1:]:
+        fn = part.split("'", 1)[0]
+        if not fn.startswith(prefix):
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"Function properties for " + re.escape(fn)
+                          + r"\s+\d+ bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", part)
+        assert regs and spill, f"ptxas log: no usage for {fn}"
+        return {"regs": int(regs.group(1)),
+                "spill_bytes": int(spill.group(1)) + int(spill.group(2))}
+    raise AssertionError(f"ptxas log: no entry function {prefix}...")
+
+
 def compare(torch, name, kern, plain, args, reps: int = 3):
     """Run kernel and plain version on the same inputs; exact check;
     CUDA-event times (kernel: mean of reps after a warm-up)."""
@@ -556,7 +591,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
     """tctx: the tree path's engine and staged tables (2^17); dctx: the
     dense path's, default and fused style (2^13); small_domain: the
     510-constraint check's domain size."""
-    from za_tpu_torch.engine import cuda_tree as CT, ec, msm as MSM
+    from za_tpu_torch.engine import _build, cuda_tree as CT, ec, msm as MSM
     from za_tpu_torch.engine import msm_dense as MD, msm_tree as MT
     from za_tpu_torch.engine import ntt as NTT
 
@@ -577,6 +612,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
             f"{b_ms:.3f} ms by {by}), launches {launches[name]}")
 
     tree_src = "za_tpu_torch/csrc/tree.cu"
+    tree_log = (_build.build_dir() / "tree.log").read_text()
     for is_g2, tabs, scal, refs in (
         (False, staged["g1abl"], [z_l, z_l, z_l[:, 2:]],
          ("za_tpu/engine/pallas_tree.py:534", "za_tpu/engine/pallas_tree.py:303")),
@@ -595,6 +631,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         row(f"tree_level0_{g}", tree_src, refs[0],
             f"2^{LOG2N} chunk M={tabs.m} S={tabs.chunk_cols}", ms, pms, err,
             nbytes(tabs.tx[0], tabs.ty[0], d, x, y, inf), 6 * fmul * live)
+        rows[-1].update(ptxas_usage(tree_log, TREE_FN[f"tree_level0_{g}"]))
         # every level of the chunk, n = S/2 points down to 2 TAIL; the
         # row is the widest, per_level_ms all of them
         levels = []
@@ -612,6 +649,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         row(f"tree_level_{g}", tree_src, refs[1],
             f"2^{LOG2N} M={tabs.m} n={top['n']}", top["ms"],
             top["plain_ms"], top["err"], top["bytes"], top["muls"])
+        rows[-1].update(ptxas_usage(tree_log, TREE_FN[f"tree_level_{g}"]))
         rows[-1]["per_level_ms"] = [
             {"n": lv["n"], "ms": lv["ms"],
              "bound_ms": bound(lv["bytes"], lv["muls"])[0]} for lv in levels]

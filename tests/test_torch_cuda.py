@@ -4,6 +4,7 @@ card (the full-width comparison is chip_smoke.py's)."""
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -140,41 +141,82 @@ def test_dense_kernels_match_plain(gen, is_g2, radix):
                  MD.dense_window_sums_plain(tabs, d, L))
 
 
-def test_tree_level_g1_edge_blocks(gen):
-    """n/2 = 2348 pairs per row: three blocks of up to 1024 pairs, the
-    last one ragged.  Row 0: block 0 has no live pair (its product is
-    1), block 1 one.  Row 1: each block's one live pair has the
-    denominator 1, q - 1 (as residues) and R mod q (the field's one),
-    so the inversion sees exactly these values."""
+# pairs per block of the tree-level kernels: TB * K in csrc/tree.cu
+BLOCK_PAIRS = {False: 128 * 8, True: 128 * 4}
+
+
+def _dev_points(vals, is_g2, W, n):
+    """W rows of n Fq (G1) or (c0, c1) (G2) ints -> (8, *E, 1, W, n)."""
+    flat = [v for row in vals for v in row]
+    a = (np.stack([F.ints_to_l32([v[c] for v in flat]) for c in (0, 1)],
+                  axis=1) if is_g2 else F.ints_to_l32(flat))
+    return torch.from_numpy(a).reshape(a.shape[:-1] + (1, W, n)).cuda()
+
+
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_tree_level_edge_blocks(gen, is_g2):
+    """n/2 = 2 B + 300 pairs per row (B pairs a block): three blocks,
+    the last one ragged.  Row 0: block 0 has no live pair (its product
+    is 1), block 1 one.  Row 1: each block's one live pair has the
+    denominator 1, q - 1 (as residues) and R mod q (the field's one) in
+    G1; 1, q - 1 and i (c0 = 0, c1 = R mod q) in G2, so the inversion
+    sees exactly these values (in G2 through their norms)."""
     rng = random.Random(5)
-    half, W = 2 * 1024 + 300, 2
-    x = [[rng.randrange(Q) for _ in range(2 * half)] for _ in range(W)]
-    y = [[rng.randrange(Q) for _ in range(2 * half)] for _ in range(W)]
+    B = BLOCK_PAIRS[is_g2]
+    half, W = 2 * B + 300, 2
+
+    def rand():
+        return (rng.randrange(Q), rng.randrange(Q)) if is_g2 else \
+            rng.randrange(Q)
+
+    x = [[rand() for _ in range(2 * half)] for _ in range(W)]
+    y = [[rand() for _ in range(2 * half)] for _ in range(W)]
     inf = [[False] * (2 * half) for _ in range(W)]
     # pairs (p, p + half): in blocks 0 and 1 of row 0 and all of row 1
     # every pair has an operand at infinity (left, right or both) ...
     for w in range(W):
-        for p in range(2 * 1024 if w == 0 else half):
+        for p in range(2 * B if w == 0 else half):
             side = rng.randrange(3)
             inf[w][p] = side != 1
             inf[w][p + half] = side != 0
     # ... but these
-    live = {(0, 1500): None, (1, 7): 1, (1, 1030): Q - 1,
-            (1, 2100): (1 << 256) % Q}
+    dens = ([(1, 0), (Q - 1, 0), (0, (1 << 256) % Q)] if is_g2 else
+            [1, Q - 1, (1 << 256) % Q])
+    live = {(0, B + 476): None, (1, 7): dens[0], (1, B + 6): dens[1],
+            (1, 2 * B + 52): dens[2]}
     for (w, p), den in live.items():
         inf[w][p] = inf[w][p + half] = False
-        if den is not None:
+        if den is None:
+            continue
+        if is_g2:
+            x[w][p + half] = tuple((a + b) % Q for a, b in zip(x[w][p], den))
+        else:
             x[w][p + half] = (x[w][p] + den) % Q
-    for p in range(2 * 1024, half):   # block 2 of row 0: 1 in 10 at inf
+    for p in range(2 * B, half):   # block 2 of row 0: 1 in 10 at inf
         inf[0][p] = rng.random() < 0.1
 
-    def dev(v):
-        a = torch.from_numpy(F.ints_to_l32([c for row in v for c in row]))
-        return a.reshape(8, 1, W, 2 * half).cuda()
-
-    args = (dev(x), dev(y), torch.tensor(inf).reshape(1, W, 2 * half).cuda(),
-            False)
+    args = (_dev_points(x, is_g2, W, 2 * half),
+            _dev_points(y, is_g2, W, 2 * half),
+            torch.tensor(inf).reshape(1, W, 2 * half).cuda(), is_g2)
     assert _same(CT.tree_level(*args), MT.tree_level_plain(*args))
+
+
+def test_tree_level0_g2_ragged_and_idle_blocks(gen):
+    """S/2 = 512 + 212 pairs per row, not a multiple of the G2 block's
+    512; in row 1 every left digit of block 0 is zero (each pair takes
+    its right operand, the block's product is 1), in row 2 every digit
+    of the ragged block 1 on both sides."""
+    M, W, half = 1, 3, BLOCK_PAIRS[True] + 212
+    S = 2 * half
+    tx = _rand_fq((MT.HALF, 2, M, S), gen).movedim(0, 1).contiguous()
+    ty = _rand_fq((MT.HALF, 2, M, S), gen).movedim(0, 1).contiguous()
+    d = torch.randint(-8, 9, (W, M, S), generator=gen,
+                      device="cuda").to(torch.int8)
+    d[1, :, :BLOCK_PAIRS[True]] = 0
+    d[2, :, BLOCK_PAIRS[True]:half] = 0
+    d[2, :, half + BLOCK_PAIRS[True]:] = 0
+    assert _same(CT.tree_level0(tx, ty, d, True),
+                 MT.tree_level0_plain(tx, ty, d, True))
 
 
 @pytest.mark.parametrize("M", [1, 3])

@@ -1,5 +1,7 @@
 """The kernels' field inversion (csrc/field.cuh inv_gcd): a step-for-step
-model in Python, held against Fermat's a^(q-2) mod q.
+model in Python, held against Fermat's a^(q-2) mod q; and the Fq2
+inversion through the norm (Gcd for Fq2, block_inverse_gcd), modelled on
+it and held against the host Fq2 inverse.
 
 The model keeps the kernel's arithmetic: nine signed 30-bit limbs in
 int32 words, int64 sums (checked for overflow), 32-bit wrap-around in
@@ -14,7 +16,7 @@ from pathlib import Path
 
 import pytest
 
-from za_tpu.curve import Q
+from za_tpu.curve import Fq2, Q
 
 HEADER = (Path(__file__).resolve().parent.parent / "za_tpu_torch" / "csrc"
           / "field.cuh").read_text()
@@ -217,3 +219,103 @@ def test_montgomery_forms_at_the_edges():
 
 def test_zero_maps_to_zero():
     assert inv_gcd(0) == 0
+
+
+# -- Fq2 through the norm ----------------------------------------------------
+
+RINV = pow(R, -1, Q)
+ONE_M = R % Q   # the field's one in Montgomery form
+
+
+def mont(a: int, b: int) -> int:
+    """The kernels' mul: a b R^-1 mod q on Montgomery forms."""
+    return a * b * RINV % Q
+
+
+def norm_m(a):
+    """norm(a) = a0^2 + a1^2 on Montgomery forms (two sqr, one add)."""
+    return (mont(a[0], a[0]) + mont(a[1], a[1])) % Q
+
+
+def conj_scale(a, s):
+    return mont(a[0], s), (-mont(a[1], s)) % Q
+
+
+def to_m(c0: int, c1: int):
+    return c0 * R % Q, c1 * R % Q
+
+
+def _host_inverse_m(c0: int, c1: int):
+    h = Fq2(c0, c1).inv()
+    assert Fq2(c0, c1) * h == Fq2.one()
+    return to_m(h.c0, h.c1)
+
+
+def _check_fq2(c0: int, c1: int):
+    a = to_m(c0, c1)
+    assert conj_scale(a, inv_gcd(norm_m(a))) == _host_inverse_m(c0, c1)
+
+
+def test_fq2_inverse_of_a_seeded_batch():
+    rng = random.Random(20261018)
+    for _ in range(60):
+        _check_fq2(rng.randrange(Q), rng.randrange(1, Q))
+
+
+@pytest.mark.parametrize("c0,c1", [
+    (5, 0), (Q - 1, 0), (0, 5), (0, Q - 1), (1, 0), (0, 1), (Q - 1, Q - 1),
+    (1, Q - 1), (Q - 1, 1), (1, 1), (RINV, 0), (0, RINV),
+], ids=["c1=0", "c1=0,c0=q-1", "c0=0", "c0=0,c1=q-1", "one", "i", "q-1,q-1",
+        "1,q-1", "q-1,1", "1+i", "mont-one", "mont-i"])
+def test_fq2_inverse_of_edge_values(c0, c1):
+    _check_fq2(c0, c1)
+
+
+def block_inverse_fq2(accs):
+    """block_inverse_gcd<TB> on Fq2, thread by thread: the norms go
+    into a product tree over 2 TB slots, inv_gcd inverts the root, the
+    tree is unwound (inv(left) = inv(parent) * right) and each thread
+    returns conj(acc) N(acc)^-1."""
+    tb = len(accs)
+    tree = [0] * (2 * tb)
+    for t, a in enumerate(accs):
+        tree[tb + t] = norm_m(a)
+    s = tb // 2
+    while s >= 1:
+        for t in range(s):
+            tree[s + t] = mont(tree[2 * (s + t)], tree[2 * (s + t) + 1])
+        s //= 2
+    tree[1] = inv_gcd(tree[1])
+    s = 1
+    while s < tb:
+        for t in range(s):
+            nd = s + t
+            iv, lft, rgt = tree[nd], tree[2 * nd], tree[2 * nd + 1]
+            tree[2 * nd], tree[2 * nd + 1] = mont(iv, rgt), mont(iv, lft)
+        s *= 2
+    return [conj_scale(a, tree[tb + t]) for t, a in enumerate(accs)]
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_norm_tree_block_inversion(seed):
+    """128 thread values, some the field's one (a thread with no live
+    pair), some with a zero component, some with q - 1 components: each
+    gets its exact inverse."""
+    rng = random.Random(seed)
+    vals = []
+    for t in range(128):
+        kind = t % 8
+        if kind == 0:
+            vals.append((1, 0))
+        elif kind == 1:
+            vals.append((0, rng.randrange(1, Q)))
+        elif kind == 2:
+            vals.append((rng.randrange(1, Q), 0))
+        elif kind == 3:
+            vals.append((Q - 1, rng.choice([0, 1, Q - 1])))
+        else:
+            vals.append((rng.randrange(Q), rng.randrange(1, Q)))
+    rng.shuffle(vals)
+    got = block_inverse_fq2([to_m(*v) for v in vals])
+    assert got == [_host_inverse_m(*v) for v in vals]
+    assert got[vals.index((1, 0))] == (ONE_M, 0)

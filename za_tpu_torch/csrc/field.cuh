@@ -20,10 +20,14 @@
 //
 // Inversion: block_inverse batch-inverts a block's values with one
 // single-thread inversion, which the rest of the block waits for.  inv
-// (Fermat) is 364 dependent products, ~0.20 ms on the card: a floor of
-// ~0.23 ms under every wave of tree-level blocks, whatever they held.
-// inv_gcd (Bernstein-Yang divsteps on machine words) gives the same
-// value from short word operations; tree_level_g1 uses it.
+// (Fermat) is 364 dependent products, ~0.20 ms on the card (NVIDIA H100
+// 80GB HBM3, 700 W): a floor of 0.23-0.32 ms under every wave of
+// tree-level blocks, whatever they held.  inv_gcd (Bernstein-Yang
+// divsteps on machine words) gives the same value from short word
+// operations.  Users: block_inverse_gcd (inv_gcd at the root, Fq2
+// through the norm) in tree_level_g1, tree_level_g2 and tree_level0_g2;
+// block_inverse with Fermat in tree_level0_g1, to_affine_g1 and
+// to_affine_g2.
 
 #pragma once
 
@@ -478,16 +482,23 @@ __device__ __forceinline__ Fq2 sqr(const Fq2& a) { return mul(a, a); }
 __device__ __forceinline__ bool is_zero(const Fq2& a) {
   return is_zero(a.c0) && is_zero(a.c1);
 }
-// (a0 + a1 i)^-1 = (a0 - a1 i) / (a0^2 + a1^2): one base-field Fermat
+// The norm N(a) = a0^2 + a1^2 = a conj(a) lies in Fq and is nonzero for
+// a != 0 (-1 is not a square mod q), so (a0 + a1 i)^-1 = conj(a) N(a)^-1:
+// one base-field inversion.
+__device__ __forceinline__ Fq norm(const Fq2& a) {
+  return add(sqr(a.c0), sqr(a.c1));
+}
+__device__ __forceinline__ Fq2 conj_scale(const Fq2& a, const Fq& s) {
+  return Fq2{mul(a.c0, s), neg(mul(a.c1, s))};
+}
 __device__ __noinline__ Fq2 inv(const Fq2& a) {
-  Fq ninv = inv(add(sqr(a.c0), sqr(a.c1)));
-  return Fq2{mul(a.c0, ninv), neg(mul(a.c1, ninv))};
+  return conj_scale(a, inv(norm(a)));
 }
 
 // -- block-wide batch inversion ------------------------------------------------
 
 // The single-element inversion block_inverse runs on one thread: Fermat
-// (any field) or Gcd (Fq, Fr).
+// or Gcd (inv_gcd; Fq2 through the norm), for any field.
 struct Fermat {
   template <class F>
   __device__ static __forceinline__ F inv(const F& a) { return za::inv(a); }
@@ -496,6 +507,9 @@ struct Gcd {
   template <class P>
   __device__ static __forceinline__ Fp<P> inv(const Fp<P>& a) {
     return inv_gcd(a);
+  }
+  __device__ static __forceinline__ Fq2 inv(const Fq2& a) {
+    return conj_scale(a, inv_gcd(norm(a)));
   }
 };
 
@@ -527,6 +541,19 @@ __device__ __forceinline__ F block_inverse(const F& acc, F* tree) {
     __syncthreads();
   }
   return tree[TB + t];
+}
+
+// block_inverse with inv_gcd at the root, the tree always on Fq (tree:
+// 2 TB elements of Fq).  Fq2 values go in as their norms, one Fq
+// product per tree level in place of an Fq2 product's three, and come
+// back as conj(acc) N(acc)^-1: 2 squarings and 2 products more a thread.
+template <int TB>
+__device__ __forceinline__ Fq block_inverse_gcd(const Fq& acc, Fq* tree) {
+  return block_inverse<Fq, TB, Gcd>(acc, tree);
+}
+template <int TB>
+__device__ __forceinline__ Fq2 block_inverse_gcd(const Fq2& acc, Fq* tree) {
+  return conj_scale(acc, block_inverse<Fq, TB, Gcd>(norm(acc), tree));
 }
 
 // -- loads and stores of limb planes ------------------------------------------

@@ -34,28 +34,37 @@
 // (1 forward, 2 unwinding, 3 in the add) = ~1.5k 32-bit multiply-adds
 // for G1, x3 for G2 (Karatsuba); bytes per pair are two points in and
 // one out.  The design spends ~2 extra multiplications per thread on
-// the shared tree and one Fermat (~380 multiplications) per block of
-// TB * K pairs; K is chosen so that these stay a few per cent.
+// the shared tree and one inversion per block of TB * K pairs.
 //
-// What bounds these kernels is not that work but each block's serial
-// chain: the product tree, the one-thread Fermat (364 dependent
-// products, ~0.20 ms) and, as the per-level times read, walks unrolled
-// into more code than an SM's instruction cache holds.  For
-// tree_level_g1 a wave of blocks cost ~0.23 ms however few pairs it
-// held: one 2^17 chunk's levels, n = 2^14 ... 2^8, took 1.462 ... 0.231
-// ms (NVIDIA H100 80GB HBM3, 700 W).
-// tree_level_g1 therefore has its own kernel: the root is inverted by
-// inv_gcd (field.cuh) and both walks are loops over prefix products
-// kept in shared memory (96 registers, five blocks per SM): 0.424 ms at
-// n = 2^14, 0.046-0.090 ms for n = 2^11 ... 2^8.  The other three still
-// run the template with Fermat.
+// What bounded the first version (tree_level_kernel) was not that work
+// but each block's serial chain: the product tree, the one-thread
+// Fermat (364 dependent products, ~0.20 ms) and walks unrolled into
+// more code than an SM's instruction cache holds, a floor of 0.23-0.32
+// ms under every wave of blocks whatever it held (NVIDIA H100 80GB
+// HBM3, 700 W).  tree_level_g1, tree_level_g2 and tree_level0_g2 run
+// tree_level_rolled_kernel instead: the root inverted by inv_gcd (G2
+// through the norm, so the tree runs on Fq), both walks loops over
+// prefix products kept in shared memory, registers capped for G1_BLOCKS
+// or G2_BLOCKS blocks per SM.  On one 2^17 chunk (same card):
+// tree_level_g1 0.43 ms at n = 2^14, 0.05-0.11 ms for n = 2^12 ... 2^8;
+// tree_level_g2 1.80 -> 0.41 ms at n = 2^14, 0.44 -> 0.16 ms at 2^12
+// and 0.07-0.10 ms below; tree_level0_g2 3.81 -> 0.83 ms.  A G2 block
+// alone on an SM takes ~0.055 ms plus ~0.011 ms for each pair a thread
+// holds (four at K = 4): the chain of dependent Fq2 products.
+// tree_level0_g1 still runs tree_level_kernel with Fermat.
 
 #include "field.cuh"
 
 namespace za {
 
 constexpr int TB = 128;  // threads per block (a power of two)
-constexpr int G1_K = 8;  // pairs per thread of tree_level_g1
+// Pairs per thread and blocks per SM of the rolled kernels; the blocks
+// cap the registers at 65536 / (TB * blocks).  G1 fits five in 96
+// registers; G2 four in 128 with 150-300 bytes of spills, which measured
+// faster than 170-182 registers without (two blocks per SM), 168 (three)
+// and 96 (five), and than K = 2.
+constexpr int G1_K = 8, G1_BLOCKS = 5;  // tree_level_g1
+constexpr int G2_K = 4, G2_BLOCKS = 4;  // tree_level0_g2, tree_level_g2
 
 // Operands of pair p of row r.  Level 0: tables (8 entries, E planes,
 // M, n) and digits (W, M, n); otherwise points (E planes, M * W, n)
@@ -166,45 +175,47 @@ tree_level_kernel(Level<F, L0> lv, uint32_t* __restrict__ x3,
   }
 }
 
-// tree_level_g1's kernel: the level above on Fq, with the root inverted
-// by inv_gcd and both walks rolled into loops (prefix products in shared
-// memory), so that a block's serial chain is short and its code small.
-__global__ void __launch_bounds__(TB)
-tree_level_g1_kernel(Level<Fq, false> lv, uint32_t* __restrict__ x3,
-                     uint32_t* __restrict__ y3, uint8_t* __restrict__ inf3) {
-  constexpr int K = G1_K;
+// The level above with the root inverted by inv_gcd (for Fq2 through the
+// norm: block_inverse_gcd) and both walks rolled into loops over prefix
+// products kept in shared memory, so that a block's serial chain is
+// short and its code small.  Shared memory: K * Planes<F>::n * TB words
+// of prefixes and 2 TB Fq of tree, 40 KB for G1 (K = 8) and G2 (K = 4).
+template <class F, bool L0, int K, int BLOCKS>
+__global__ void __launch_bounds__(TB, BLOCKS)
+tree_level_rolled_kernel(Level<F, L0> lv, uint32_t* __restrict__ x3,
+                         uint32_t* __restrict__ y3,
+                         uint8_t* __restrict__ inf3) {
   __shared__ Fq tree[2 * TB];
-  __shared__ uint32_t pre[K][8][TB];  // exclusive prefix products
+  __shared__ uint32_t pre[K][Planes<F>::n][TB];  // exclusive prefixes
   const int t = threadIdx.x;
   const int r = blockIdx.y;
   const long half = lv.n / 2;
   const long p0 = (long)blockIdx.x * TB * K;
   const size_t out_plane = (size_t)lv.M * lv.W * half;
 
-  Fq acc = one<Fq>();
+  F acc = one<F>();
 #pragma unroll 1  // unrolled, the two walks outgrow the instruction cache
   for (int j = 0; j < K; ++j) {
     const long p = p0 + (long)j * TB + t;
-#pragma unroll
-    for (int l = 0; l < 8; ++l) pre[j][l][t] = acc.v[l];
+    store(&pre[j][0][0], TB, t, acc);
     if (p < half) {
-      Fq x1, x2, y1, y2;
+      F x1, x2, y1, y2;
       bool i1, i2;
       lv.operands(r, p, false, x1, x2, y1, y2, i1, i2);
       if (!(i1 || i2)) acc = mul(acc, sub(x2, x1));
     }
   }
 
-  Fq inv_acc = block_inverse<Fq, TB, Gcd>(acc, tree);
+  F inv_acc = block_inverse_gcd<TB>(acc, tree);
 
 #pragma unroll 1
   for (int j = K - 1; j >= 0; --j) {
     const long p = p0 + (long)j * TB + t;
     if (p >= half) continue;
-    Fq x1, x2, y1, y2;
+    F x1, x2, y1, y2;
     bool i1, i2;
     lv.operands(r, p, true, x1, x2, y1, y2, i1, i2);
-    Fq xo, yo;
+    F xo, yo;
     if (i1) {
       xo = x2;
       yo = y2;
@@ -212,13 +223,12 @@ tree_level_g1_kernel(Level<Fq, false> lv, uint32_t* __restrict__ x3,
       xo = x1;
       yo = y1;
     } else {
-      Fq pj;
-#pragma unroll
-      for (int l = 0; l < 8; ++l) pj.v[l] = pre[j][l][t];
-      const Fq den = sub(x2, x1);
-      const Fq dinv = mul(inv_acc, pj);
+      F pj;
+      load(pj, &pre[j][0][0], TB, t);
+      const F den = sub(x2, x1);
+      const F dinv = mul(inv_acc, pj);
       inv_acc = mul(inv_acc, den);
-      const Fq lam = mul(sub(y2, y1), dinv);
+      const F lam = mul(sub(y2, y1), dinv);
       xo = sub(sub(sqr(lam), x1), x2);
       yo = sub(mul(lam, sub(x1, xo)), y1);
     }
@@ -229,17 +239,21 @@ tree_level_g1_kernel(Level<Fq, false> lv, uint32_t* __restrict__ x3,
   }
 }
 
+template <class F, bool L0>
+using LevelKernel = void (*)(Level<F, L0>, uint32_t*, uint32_t*, uint8_t*);
+
+// One launch of kern over M * W rows of n points (blocks of TB * K pairs)
 template <class F, bool L0, int K>
-int launch(const void* xa, const void* ya, const void* inf, const void* d,
-           void* x3, void* y3, void* inf3, int M, int W, int n,
-           void* stream) {
+int launch(LevelKernel<F, L0> kern, const void* xa, const void* ya,
+           const void* inf, const void* d, void* x3, void* y3, void* inf3,
+           int M, int W, int n, void* stream) {
   const long half = n / 2;
   if (half > 0 && M > 0 && W > 0) {
     Level<F, L0> lv{(const uint32_t*)xa, (const uint32_t*)ya,
                     (const uint8_t*)inf, (const int8_t*)d, M, W, n};
     dim3 grid((unsigned)((half + (long)TB * K - 1) / ((long)TB * K)),
               (unsigned)(M * W));
-    tree_level_kernel<F, L0, K><<<grid, TB, 0, (cudaStream_t)stream>>>(
+    kern<<<grid, TB, 0, (cudaStream_t)stream>>>(
         lv, (uint32_t*)x3, (uint32_t*)y3, (uint8_t*)inf3);
   }
   return (int)cudaGetLastError();
@@ -249,41 +263,44 @@ int launch(const void* xa, const void* ya, const void* inf, const void* d,
 
 extern "C" {
 
+using za::Fq;
+using za::Fq2;
+
 // tabx, taby: (8, 8, M, S) int32 (entry, limb plane, query, column);
 // d: (64, M, S) int8 -> x3, y3: (8, M, 64, S/2), inf3: (M, 64, S/2) u8
 int tree_level0_g1(const void* tabx, const void* taby, const void* d,
                    void* x3, void* y3, void* inf3, int M, int W, int S,
                    void* stream) {
-  return za::launch<za::Fq, true, 8>(tabx, taby, nullptr, d, x3, y3, inf3,
-                                     M, W, S, stream);
+  return za::launch<Fq, true, 8>(za::tree_level_kernel<Fq, true, 8>, tabx,
+                                 taby, nullptr, d, x3, y3, inf3, M, W, S,
+                                 stream);
 }
 
 // x, y: (8, M, W, n) int32; inf: (M, W, n) u8 -> halved
 int tree_level_g1(const void* x, const void* y, const void* inf, void* x3,
                   void* y3, void* inf3, int M, int W, int n, void* stream) {
-  const long half = n / 2, per = (long)za::TB * za::G1_K;
-  if (half > 0 && M > 0 && W > 0) {
-    za::Level<za::Fq, false> lv{(const uint32_t*)x, (const uint32_t*)y,
-                                (const uint8_t*)inf, nullptr, M, W, n};
-    dim3 grid((unsigned)((half + per - 1) / per), (unsigned)(M * W));
-    za::tree_level_g1_kernel<<<grid, za::TB, 0, (cudaStream_t)stream>>>(
-        lv, (uint32_t*)x3, (uint32_t*)y3, (uint8_t*)inf3);
-  }
-  return (int)cudaGetLastError();
+  constexpr int K = za::G1_K, B = za::G1_BLOCKS;
+  return za::launch<Fq, false, K>(
+      za::tree_level_rolled_kernel<Fq, false, K, B>, x, y, inf, nullptr, x3,
+      y3, inf3, M, W, n, stream);
 }
 
 // tabx, taby: (8, 16, M, S): limb plane 2j + c holds limb j of component c
 int tree_level0_g2(const void* tabx, const void* taby, const void* d,
                    void* x3, void* y3, void* inf3, int M, int W, int S,
                    void* stream) {
-  return za::launch<za::Fq2, true, 4>(tabx, taby, nullptr, d, x3, y3, inf3,
-                                      M, W, S, stream);
+  constexpr int K = za::G2_K, B = za::G2_BLOCKS;
+  return za::launch<Fq2, true, K>(
+      za::tree_level_rolled_kernel<Fq2, true, K, B>, tabx, taby, nullptr, d,
+      x3, y3, inf3, M, W, S, stream);
 }
 
 int tree_level_g2(const void* x, const void* y, const void* inf, void* x3,
                   void* y3, void* inf3, int M, int W, int n, void* stream) {
-  return za::launch<za::Fq2, false, 4>(x, y, inf, nullptr, x3, y3, inf3, M,
-                                       W, n, stream);
+  constexpr int K = za::G2_K, B = za::G2_BLOCKS;
+  return za::launch<Fq2, false, K>(
+      za::tree_level_rolled_kernel<Fq2, false, K, B>, x, y, inf, nullptr, x3,
+      y3, inf3, M, W, n, stream);
 }
 
 }  // extern "C"
