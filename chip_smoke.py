@@ -13,7 +13,11 @@ Phases:
      discrete logs, driven through GpuEngine.stage_params and
      groth16.prove; every kernel launch counted; the proof, each of the
      five MSMs and h(x) checked exactly on the host; stage times (CUDA
-     events, one warm-up, median of 3) printed as one JSON line; h(x)
+     events, one warm-up, median of 3) printed as one JSON line, with
+     the staging's curve checks of the raw queries run again apart on
+     the same coordinates and timed ("curve_check_s"), and the same pk
+     staged anew with the check on and off in turns
+     ("stage_check_on_off_s"); h(x)
      runs the four-step NTT, one 3-leg transform of it split step by
      step (prefix, tail stages, twiddle transpose, tensor code); each
      MSM split step by step (digits, level 0, levels, carry, lane fold,
@@ -25,12 +29,17 @@ Phases:
      proof, and its MSMs checked and timed; one JSON line;
   4. a real 510-constraint proof (host setup with fixed toxic waste,
      GpuEngine prove, dense path, radix-2 NTT below FOURSTEP_MIN) that
-     the pairing check accepts; its launches count as a path;
+     the pairing check accepts; its launches count as a path; then the
+     2^13 pk with one raw G1 point off the curve, and with one raw G2
+     point off the twist: staging must raise FormatError for each
+     (the 2^13 line's "off_curve_refused");
   5. each kernel against its plain PyTorch version on the shapes of the
      path that runs it, exact equality (integers mod p), timed beside
      its bound; the tree levels at every level of one 2^17 chunk
-     ("per_level_ms"); the tree kernels' registers and spill bytes from
-     the build's ptxas log ("regs", "spill_bytes"); printed as one JSON
+     ("per_level_ms"); the tree and Horner kernels' registers and spill
+     bytes from the build's ptxas logs ("regs", "spill_bytes"), the
+     Horner rows' time per complete add of one MSM's chain
+     ("us_per_add"); printed as one JSON
      line {"kernels": [...]}; then one
      NTT through both routes (radix-2, four-step) at sizes from 2^9 to
      2^20, equal results, timed (the 2^17 line's "ntt_routes_ms");
@@ -67,17 +76,20 @@ MADS_PER_MUL = 4 * 8 * 8
 # constant.  An Fq2 multiplication is 3 Fq ones.
 ADD_MULS = {False: 12, True: 3 * 14}
 
-# the __global__ function behind each tree entry point of csrc/tree.cu,
-# as ptxas names it, up to its last template argument:
-# tree_level_kernel<Fq, true, 8>, tree_level_rolled_kernel<Fq, false, 8,
-# ...>, <Fq2, true, 4, ...> and <Fq2, false, 4, ...>
-TREE_FN = {
+# the __global__ function behind each tree and Horner entry point of
+# csrc/tree.cu and csrc/ec.cu, as ptxas names it, up to its last
+# template argument: tree_level_rolled_kernel<Fq, true, 8, ...>,
+# <Fq, false, 8, ...>, <Fq2, true, 4, ...> and <Fq2, false, 4, ...>;
+# horner_warp_g1_kernel, horner_warp_g2_kernel
+KERNEL_FN = {
     "tree_level0_g1":
-        "_ZN2za17tree_level_kernelINS_2FpINS_7QParamsEEELb1ELi8E",
+        "_ZN2za24tree_level_rolled_kernelINS_2FpINS_7QParamsEEELb1ELi8E",
     "tree_level_g1":
         "_ZN2za24tree_level_rolled_kernelINS_2FpINS_7QParamsEEELb0ELi8E",
     "tree_level0_g2": "_ZN2za24tree_level_rolled_kernelINS_3Fq2ELb1ELi4E",
     "tree_level_g2": "_ZN2za24tree_level_rolled_kernelINS_3Fq2ELb0ELi4E",
+    "horner_g1": "_ZN2za21horner_warp_g1_kernelE",
+    "horner_g2": "_ZN2za21horner_warp_g2_kernelE",
 }
 
 SEED = 20261016
@@ -235,7 +247,9 @@ def prove_path(torch, timer, log2n: int):
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    staged, stage_s = timer(lambda: eng.stage_params(params, r1cs))
+    (staged, stage_s), check_s, checks = timed_curve_checks(
+        torch, lambda: timer(lambda: eng.stage_params(params, r1cs)))
+    assert checks > 0, "staging checked no raw query against the curve"
     proof, prove_cold_s = timer(
         lambda: prove(params, r1cs, z, r=r_, s=s_, engine=eng))
     launches = {"default": launch_counts()}
@@ -276,6 +290,8 @@ def prove_path(torch, timer, log2n: int):
     eng.r1cs_satisfied(r1cs, z_l)
     sat_ok, sat_s = timer(lambda: eng.r1cs_satisfied(r1cs, z_l))
     peak = torch.cuda.max_memory_allocated()
+    # after the launch counts and the peak: the restagings add to neither
+    check_ab = stage_check_on_off(timer, params, r1cs)
 
     # exact checks on the host
     t0 = time.time()
@@ -330,13 +346,17 @@ def prove_path(torch, timer, log2n: int):
         "runs_s": totals,
         "warmup_s": warm,
         "stage_s": stage_s,
+        "curve_check_s": check_s,
+        "curve_checks": checks,
+        "stage_check_on_off_s": check_ab,
         "prove_cold_s": prove_cold_s,
         "sat_check_s": sat_s,
         "constraints": n,
         "domain": m,
         "peak_mem_bytes": peak,
     }
-    ctx = {"eng": eng, "staged": staged, "z_l": z_l, "h": out["h"]}
+    ctx = {"eng": eng, "staged": staged, "z_l": z_l, "h": out["h"],
+           "params": params, "r1cs": r1cs}
     if not tree:
         # the same prove at radix 4, staged anew by a fused-style engine
         feng = GpuEngine(msm_style="fused")
@@ -357,6 +377,78 @@ def prove_path(torch, timer, log2n: int):
             f"launches {launches['fused']}")
     result["launches"] = launches
     return result, launches, ctx
+
+
+def timed_curve_checks(torch, fn):
+    """fn() with the coordinates of every staging curve check
+    (engine.ec.on_curve) kept, then each check run again on them apart,
+    timed by CUDA events -> (fn's result, seconds in the checks, number
+    of checks).  Keeping them adds no sync to fn, so its time is read as
+    the parent's was."""
+    from za_tpu_torch.engine import ec
+
+    inner, kept = ec.on_curve, []
+
+    def keep(*args):
+        kept.append(args)
+        return inner(*args)
+
+    ec.on_curve = keep
+    try:
+        out = fn()
+    finally:
+        ec.on_curve = inner
+    timer = Timer(torch)
+    spent = [timer(lambda: inner(*args).all())[1] for args in kept]
+    return out, sum(spent), len(spent)
+
+
+def stage_check_on_off(timer, params, r1cs) -> dict:
+    """Staging of the same raw pk by fresh engines with the curve check
+    on and off, in turns (on, off, off, on) -> {"on": [s, s], "off":
+    [s, s]}; the check is switched off by treating no query as raw."""
+    import dataclasses
+
+    import za_tpu_torch.engine.engine as E
+
+    raw, out = E._raw, {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        if mode == "off":
+            E._raw = lambda queries: False
+        try:
+            fresh = dataclasses.replace(params)  # no staging cache
+            _, dt = timer(lambda: E.GpuEngine().stage_params(fresh, r1cs))
+        finally:
+            E._raw = raw
+        out[mode].append(dt)
+    return out
+
+
+def off_curve_refused(params, r1cs) -> dict:
+    """Copies of a raw pk with one point moved off the curve (G1: y of
+    a's column 1) or off the twist (G2: y.c0 of b_g2's column 1, the
+    low bit of each flipped) -> {group: FormatError text}; staging must
+    raise for each."""
+    import dataclasses
+
+    from za_tpu_torch.engine.engine import GpuEngine
+    from za_tpu_torch.groth16.convert import FormatError, G1_KEYS, G2_KEYS
+
+    out = {}
+    for g, name, key, keys in (("g1", "a", "y", G1_KEYS),
+                               ("g2", "b_g2", "y0", G2_KEYS)):
+        q = getattr(params, name)
+        arrs = {k: getattr(q, k).copy() for k in keys}
+        arrs[key][0, 1] ^= 1
+        bad = dataclasses.replace(params, **{name: type(q)(**arrs)})
+        try:
+            GpuEngine().stage_params(bad, r1cs)
+        except FormatError as exc:
+            out[g] = str(exc)
+        assert out.get(g) == f"pk {g} query point not on curve", \
+            f"an off-curve raw {g} point staged: {out.get(g)!r}"
+    log(f"off-curve raw points refused: {out}")
+    return out
 
 
 def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
@@ -631,7 +723,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         row(f"tree_level0_{g}", tree_src, refs[0],
             f"2^{LOG2N} chunk M={tabs.m} S={tabs.chunk_cols}", ms, pms, err,
             nbytes(tabs.tx[0], tabs.ty[0], d, x, y, inf), 6 * fmul * live)
-        rows[-1].update(ptxas_usage(tree_log, TREE_FN[f"tree_level0_{g}"]))
+        rows[-1].update(ptxas_usage(tree_log, KERNEL_FN[f"tree_level0_{g}"]))
         # every level of the chunk, n = S/2 points down to 2 TAIL; the
         # row is the widest, per_level_ms all of them
         levels = []
@@ -649,7 +741,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         row(f"tree_level_{g}", tree_src, refs[1],
             f"2^{LOG2N} M={tabs.m} n={top['n']}", top["ms"],
             top["plain_ms"], top["err"], top["bytes"], top["muls"])
-        rows[-1].update(ptxas_usage(tree_log, TREE_FN[f"tree_level_{g}"]))
+        rows[-1].update(ptxas_usage(tree_log, KERNEL_FN[f"tree_level_{g}"]))
         rows[-1]["per_level_ms"] = [
             {"n": lv["n"], "ms": lv["ms"],
              "bound_ms": bound(lv["bytes"], lv["muls"])[0]} for lv in levels]
@@ -684,6 +776,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
     # Horner at radix 16 on the tree path's window sums (M = 3 and 1),
     # then on the dense path's (g1x4 at radix 16, both at radix 4)
     ec_src = "za_tpu_torch/csrc/ec.cu"
+    ec_log = (_build.build_dir() / "ec.log").read_text()
     for is_g2, tabs, scal in ((True, staged["b_g2x"], [z_l]),
                               (False, staged["g1abl"],
                                [z_l, z_l, z_l[:, 2:]])):
@@ -700,6 +793,9 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         row(f"horner_{g}", ec_src, "za_tpu/engine/msm.py:698",
             f"radix {radix} M={M} W={W}", ms, pms, err,
             nbytes(*wsum, *outs), ADD_MULS[is_g2] * (bits + 1) * W * M)
+        # one MSM's chain: bits doublings and one add per window
+        rows[-1]["us_per_add"] = ms * 1e3 / ((bits + 1) * W)
+        rows[-1].update(ptxas_usage(ec_log, KERNEL_FN[f"horner_{g}"]))
 
     # the four-step's kernels at the 2^17 rung (domain 2^18), the first
     # sub-NTT's shape: 3 legs x n2 rows x n1 lanes
@@ -843,6 +939,8 @@ def main() -> int:
     dense, dense_launches, dctx = prove_path(torch, timer, LOG2N_DENSE)
     assert dense["route"] == "dense", "2^13 did not take the dense path"
     check_launches, small_domain = real_proof()
+    dense["off_curve_refused"] = off_curve_refused(dctx["params"],
+                                                   dctx["r1cs"])
     per_path = {"tree": tree_launches["default"],
                 "dense": dense_launches["default"],
                 "fused": dense_launches["fused"],

@@ -141,7 +141,8 @@ def test_dense_kernels_match_plain(gen, is_g2, radix):
                  MD.dense_window_sums_plain(tabs, d, L))
 
 
-# pairs per block of the tree-level kernels: TB * K in csrc/tree.cu
+# pairs per block of the tree kernels: TB * G1_K, TB * G2_K in
+# csrc/tree.cu
 BLOCK_PAIRS = {False: 128 * 8, True: 128 * 4}
 
 
@@ -201,37 +202,50 @@ def test_tree_level_edge_blocks(gen, is_g2):
     assert _same(CT.tree_level(*args), MT.tree_level_plain(*args))
 
 
-def test_tree_level0_g2_ragged_and_idle_blocks(gen):
-    """S/2 = 512 + 212 pairs per row, not a multiple of the G2 block's
-    512; in row 1 every left digit of block 0 is zero (each pair takes
-    its right operand, the block's product is 1), in row 2 every digit
-    of the ragged block 1 on both sides."""
-    M, W, half = 1, 3, BLOCK_PAIRS[True] + 212
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_tree_level0_g2_ragged_and_idle_blocks(gen, is_g2):
+    """S/2 = B + 212 pairs per row (B pairs a block: 1024 in G1, 512 in
+    G2), not a multiple of B; in row 1 every left digit of block 0 is
+    zero (each pair takes its right operand, the block's product is 1),
+    in row 2 every digit of the ragged block 1 on both sides."""
+    E = (2,) if is_g2 else ()
+    B = BLOCK_PAIRS[is_g2]
+    M, W, half = 1, 3, B + 212
     S = 2 * half
-    tx = _rand_fq((MT.HALF, 2, M, S), gen).movedim(0, 1).contiguous()
-    ty = _rand_fq((MT.HALF, 2, M, S), gen).movedim(0, 1).contiguous()
+    tx = _rand_fq((MT.HALF,) + E + (M, S), gen).movedim(0, 1).contiguous()
+    ty = _rand_fq((MT.HALF,) + E + (M, S), gen).movedim(0, 1).contiguous()
     d = torch.randint(-8, 9, (W, M, S), generator=gen,
                       device="cuda").to(torch.int8)
-    d[1, :, :BLOCK_PAIRS[True]] = 0
-    d[2, :, BLOCK_PAIRS[True]:half] = 0
-    d[2, :, half + BLOCK_PAIRS[True]:] = 0
-    assert _same(CT.tree_level0(tx, ty, d, True),
-                 MT.tree_level0_plain(tx, ty, d, True))
+    d[1, :, :B] = 0
+    d[2, :, B:half] = 0
+    d[2, :, half + B:] = 0
+    assert _same(CT.tree_level0(tx, ty, d, is_g2),
+                 MT.tree_level0_plain(tx, ty, d, is_g2))
 
 
 @pytest.mark.parametrize("M", [1, 3])
 @pytest.mark.parametrize("bits", [4, 2])
-def test_horner_g2_identity_windows(gen, bits, M):
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_horner_g2_identity_windows(gen, is_g2, bits, M):
     """Window sums at the identity (0 : 1 : 0): M = 3 has MSM 0 all
     identity, MSM 1 only its first window read (the top one), MSM 2 only
     its last (window 0); M = 1 only its first."""
     W = MSM.WINDOWS[bits]
-    w = [_rand_fq((2, M, W), gen) for _ in range(3)]
-    ident = ec.identity_like(w[0], True)
+    E = (2,) if is_g2 else ()
+    w = [_rand_fq(E + (M, W), gen) for _ in range(3)]
+    ident = ec.identity_like(w[0], is_g2)
     where = [slice(W - 1, W)] if M == 1 else [
         slice(None), slice(W - 1, W), slice(0, 1)]
     for m, sel in enumerate(where):
         for c, i in zip(w, ident):
-            c[:, :, m, sel] = i[:, :, m, sel]
-    assert _same(MSM.horner_windows(w, True, bits),
-                 MSM.horner_windows_plain(w, True, bits))
+            c[..., m, sel] = i[..., m, sel]
+    assert _same(MSM.horner_windows(w, is_g2, bits),
+                 MSM.horner_windows_plain(w, is_g2, bits))
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+def test_horner_g1_four_msms(gen, bits):
+    """M = 4, the dense path's stacked g1x4, at both radices."""
+    w = [_rand_fq((4, MSM.WINDOWS[bits]), gen) for _ in range(3)]
+    assert _same(MSM.horner_windows(w, False, bits),
+                 MSM.horner_windows_plain(w, False, bits))

@@ -7,13 +7,14 @@
 // horner: the window combine sum_w 2^(bits w) S_w of M MSMs in one
 // launch (320 dependent adds each at radix 16, 381 at radix 4): as that
 // many ec_add launches on a few points it cost more in launches than in
-// arithmetic.  The group law is curve.cuh's.  horner_g1 runs one thread
-// per MSM.  horner_g2 did too, and its time was that thread's chain:
-// 42 dependent Fq products per add, 15.25 ms at radix 16 and 18.13 ms at
-// radix 4 for one MSM.  It now runs one warp per MSM that spreads each
-// add's products over the lanes (horner_warp_kernel), three product
-// latencies per add: 1.29-1.33 and 1.55-1.56 ms (NVIDIA H100 80GB HBM3,
-// 700 W).
+// arithmetic.  The group law is curve.cuh's.  Run by one thread per
+// MSM, its time was that thread's chain of dependent Fq products: 42 an
+// add in G2 (15.25 ms at radix 16, 18.13 ms at radix 4), 14 in G1 (3.2
+// and 4.5 ms, ~10 us an add).  Both now run one warp per MSM that
+// spreads each add's products over the lanes (horner_warp_g1_kernel,
+// horner_warp_g2_kernel): two product latencies an add in G1 (0.73-0.76
+// and 0.89 ms, ~2.3 us an add), three in G2 (1.29-1.33 and 1.55-1.59
+// ms); NVIDIA H100 80GB HBM3, 700 W.
 // In the reference all of these are XLA code (za_tpu/engine/ec.py
 // point_add, msm.build_multiples, msm.lane_fold, msm.horner_windows),
 // not Pallas kernels.
@@ -55,49 +56,142 @@ __global__ void ec_add_kernel(const uint32_t* __restrict__ X1,
   store(Z3, n, i, z3);
 }
 
-// Horner over the window sums of M MSMs: one thread per MSM walks the
-// W windows MSB first, acc = 2^bits acc + S_w (bits doublings through
-// the complete add, then one add; bits = 4 for signed radix-16, 2 for
-// radix-4).  Input (E, M, W), output (E, M).
-template <class F>
-__global__ void horner_kernel(const uint32_t* __restrict__ WX,
-                              const uint32_t* __restrict__ WY,
-                              const uint32_t* __restrict__ WZ,
-                              uint32_t* __restrict__ X,
-                              uint32_t* __restrict__ Y,
-                              uint32_t* __restrict__ Z, int M, int W,
-                              int bits) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const size_t plane = (size_t)M * W;
-  F x = zero<F>(), y = one<F>(), z = zero<F>();
-#pragma unroll 1
-  for (int w = W - 1; w >= 0; --w) {
-#pragma unroll 1
-    for (int k = 0; k < bits; ++k) point_add(x, y, z, x, y, z, x, y, z);
-    F sx, sy, sz;
-    const size_t idx = (size_t)m * W + w;
-    load(sx, WX, plane, idx);
-    load(sy, WY, plane, idx);
-    load(sz, WZ, plane, idx);
-    point_add(x, y, z, sx, sy, sz, x, y, z);
-  }
-  store(X, M, m, x);
-  store(Y, M, m, y);
-  store(Z, M, m, z);
+// Horner over the window sums of M MSMs, one warp per MSM: the chain
+// walks the W windows MSB first, acc = 2^bits acc + S_w (bits doublings
+// through the complete add, then one add; bits = 4 for signed
+// radix-16, 2 for radix-4).  Each complete add (RCB algorithm 7) runs
+// in stages, operands passing through the warp's slots in shared memory
+// (one Fq each), __syncwarp between stages: six independent Fq
+// products on six lanes, a combine on one lane per value, six more
+// products, a combine into X3, Y3, Z3.  In G1 3b = 9, so the products
+// by 3b are three doublings and an add inside the first combine: two
+// product latencies an add.  Every value is canonical, so the
+// coordinates equal the plain version's bit for bit.
+namespace hw1 {
+constexpr int ZERO = 0;   // an Fq zero (the absent operand)
+constexpr int P = 1;      // the accumulator X, Y, Z: 1..3
+constexpr int Q = 4;      // the window sum S_w: 4..6
+constexpr int L1 = 7;     // level-1 products: 7..12
+constexpr int C1 = 13;    // 3 t0, t3, t4, 3b y3, t1', Z3': 13..18
+constexpr int L3 = 19;    // level-3 products: 19..24
+constexpr int SLOTS = 25;
+
+// level 1: X1 X2, Y1 Y2, Z1 Z2, (X1+Y1)(X2+Y2), (Y1+Z1)(Y2+Z2),
+// (X1+Z1)(X2+Z2): the two coordinates summed (offsets from P or Q;
+// -1 none), the same on both sides
+__device__ const int8_t L1_OPS[6][2] = {{0, -1}, {1, -1}, {2, -1},
+                                        {0, 1},  {1, 2},  {0, 2}};
+// level 3 (a, b): t4 3b y3, t3 t1', 3b y3 3 t0, t1' Z3', 3 t0 t3, Z3' t4
+__device__ const int8_t L3_OPS[6][2] = {
+    {C1 + 2, C1 + 3}, {C1 + 1, C1 + 4}, {C1 + 3, C1 + 0},
+    {C1 + 4, C1 + 5}, {C1 + 0, C1 + 1}, {C1 + 5, C1 + 2}};
+// combine stages: value v = 9^NINE[v] (sum of +-K_j over the terms
+// +-(j + 1) of row v) +- K_j of POST[v] (0: none), K_j the stage's
+// j-th product
+__device__ const int8_t C1_TERMS[6][3] = {
+    {1, 1, 1}, {4, -1, -2}, {5, -2, -3},  // 3 t0, m3 - t0 - t1, m4 - t1 - t2
+    {6, -1, -3}, {-3, 0, 0}, {3, 0, 0}};  // m5 - t0 - t2, -t2, t2
+__device__ const int8_t C1_NINE[6] = {0, 0, 0, 1, 1, 1};
+__device__ const int8_t C1_POST[6] = {0, 0, 0, 0, 2, 2};  // t1' = t1 - 9 t2,
+                                                          // Z3' = t1 + 9 t2
+__device__ const int8_t C3_TERMS[3][3] = {
+    {2, -1, 0}, {4, 3, 0}, {6, 5, 0}};  // X3, Y3, Z3
+
+// Lane l < 6: product l, (s[a1] + s[a2]) (s[b1] + s[b2]).
+__device__ __forceinline__ void product(Fq* s, int out, int lane, int a1,
+                                        int a2, int b1, int b2) {
+  const Fq r = mul(add(s[a1], s[a2]), add(s[b1], s[b2]));
+  if (lane < 6) s[out + lane] = r;
 }
 
-// Horner over G2 window sums, one warp per MSM.  The chain is the
-// same (bits doublings and one add per window, each RCB algorithm 7),
-// but each group operation's Fq products run on separate lanes: its
+// r +- K_j for the term e = +-(j + 1) of the products at L (0: r)
+__device__ __forceinline__ Fq term(const Fq* s, int L, const Fq& r, int e) {
+  const Fq& k = s[e ? L + (e < 0 ? -e : e) - 1 : ZERO];
+  return e < 0 ? sub(r, k) : add(r, k);
+}
+
+// Lane l < nv: value v = l of the stage (see C1_TERMS).
+__device__ __forceinline__ void combine(Fq* s, int out, int nv, int lane,
+                                        int L, const int8_t (*terms)[3],
+                                        const int8_t* nine,
+                                        const int8_t* post) {
+  const int v = min(lane, nv - 1);
+  Fq r = s[ZERO];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r = term(s, L, r, terms[v][i]);
+  if (nine && nine[v]) {  // 9 r = 8 r + r
+    Fq r8 = add(r, r);
+    r8 = add(r8, r8);
+    r8 = add(r8, r8);
+    r = add(r8, r);
+  }
+  if (post) r = term(s, L, r, post[v]);
+  if (lane < nv) s[out + lane] = r;
+}
+
+// acc = acc + (the point at slot qb: P doubles, Q adds S_w)
+__device__ __noinline__ void point_add(Fq* s, int qb, int lane) {
+  const int j = min(lane, 5);
+  const int o1 = L1_OPS[j][0], o2 = L1_OPS[j][1];
+  product(s, L1, lane, P + o1, o2 < 0 ? ZERO : P + o2, qb + o1,
+          o2 < 0 ? ZERO : qb + o2);
+  __syncwarp();
+  combine(s, C1, 6, lane, L1, C1_TERMS, C1_NINE, C1_POST);
+  __syncwarp();
+  product(s, L3, lane, L3_OPS[j][0], ZERO, L3_OPS[j][1], ZERO);
+  __syncwarp();
+  combine(s, P, 3, lane, L3, C3_TERMS, nullptr, nullptr);
+  __syncwarp();
+}
+}  // namespace hw1
+
+// Input (8, M, W) limb planes, output (8, M); block m is MSM m.
+__global__ void __launch_bounds__(32)
+horner_warp_g1_kernel(const uint32_t* __restrict__ WX,
+                      const uint32_t* __restrict__ WY,
+                      const uint32_t* __restrict__ WZ,
+                      uint32_t* __restrict__ X, uint32_t* __restrict__ Y,
+                      uint32_t* __restrict__ Z, int M, int W, int bits) {
+  __shared__ Fq s[hw1::SLOTS];
+  const int lane = threadIdx.x, m = blockIdx.x;
+  const size_t plane = (size_t)M * W;
+  // word k = lane < 24 of the three Fq of a point: coordinate k / 8,
+  // limb k & 7
+  const int c = lane >> 3, j = lane & 7;
+  if (lane < 8) s[hw1::ZERO].v[j] = 0u;
+  if (lane < 24)  // (0 : 1 : 0)
+    s[hw1::P + c].v[j] = c == 1 ? QParams::one(j) : 0u;
+  __syncwarp();
+#pragma unroll 1
+  for (int w = W - 1; w >= 0; --w) {
+    uint32_t sw = 0u;  // S_w, loaded while the doublings run
+    if (lane < 24) {
+      const uint32_t* src = c == 0 ? WX : c == 1 ? WY : WZ;
+      sw = src[j * plane + (size_t)m * W + w];
+    }
+#pragma unroll 1
+    for (int d = 0; d < bits; ++d) hw1::point_add(s, hw1::P, lane);
+    if (lane < 24) s[hw1::Q + c].v[j] = sw;
+    __syncwarp();
+    hw1::point_add(s, hw1::Q, lane);
+  }
+  if (lane < 24) {
+    uint32_t* dst = c == 0 ? X : c == 1 ? Y : Z;
+    dst[(size_t)j * M + m] = s[hw1::P + c].v[j];
+  }
+}
+
+// Horner over G2 window sums, one warp per MSM.  The chain is G1's
+// (bits doublings and one add per window, each RCB algorithm 7); each
+// group operation's Fq products run on separate lanes: its
 // three product levels (6, 2 and 6 Fq2 products, each Fq2 product as
 // four Fq sub-products on four lanes: 24, 8, 24 lanes) each take one
 // product's latency, and the additions between them run on one lane
 // per output component.  Operands pass through the warp's scratch in
 // shared memory (slots of one Fq, below), __syncwarp between stages.
-// Every value is canonical, so the coordinates equal horner_kernel's
-// (and the plain version's) bit for bit.
-namespace hw {
+// Every value is canonical, so the coordinates equal the plain
+// version's bit for bit.
+namespace hw2 {
 constexpr int ZERO = 0;  // 0, 1: an Fq2 zero (the absent operand)
 constexpr int P = 2;     // the accumulator X, Y, Z (c0, c1 each): 2..7
 constexpr int Q = 8;     // the window sum S_w: 8..13
@@ -175,16 +269,16 @@ __device__ __noinline__ void point_add(Fq* s, int qb, int lane) {
   combine(s, P, 3, lane, L3, C3_TERMS, nullptr);
   __syncwarp();
 }
-}  // namespace hw
+}  // namespace hw2
 
 // Input (8, 2, M, W) limb planes, output (8, 2, M); block m is MSM m.
 __global__ void __launch_bounds__(32)
-horner_warp_kernel(const uint32_t* __restrict__ WX,
+horner_warp_g2_kernel(const uint32_t* __restrict__ WX,
                    const uint32_t* __restrict__ WY,
                    const uint32_t* __restrict__ WZ, uint32_t* __restrict__ X,
                    uint32_t* __restrict__ Y, uint32_t* __restrict__ Z, int M,
                    int W, int bits) {
-  __shared__ Fq s[hw::SLOTS];
+  __shared__ Fq s[hw2::SLOTS];
   const int lane = threadIdx.x, m = blockIdx.x;
   const size_t plane = (size_t)M * W;
   // word k < 48 of the six Fq of a point: coordinate k / 16, component
@@ -192,11 +286,11 @@ horner_warp_kernel(const uint32_t* __restrict__ WX,
   if (lane < 16) {
     const Fq2 b = b3<Fq2>();
     s[lane >> 3].v[lane & 7] = 0u;                     // ZERO
-    s[hw::B3 + (lane >> 3)].v[lane & 7] =
+    s[hw2::B3 + (lane >> 3)].v[lane & 7] =
         (lane >> 3) ? b.c1.v[lane & 7] : b.c0.v[lane & 7];
   }
   for (int k = lane; k < 48; k += 32)  // (0 : 1 : 0)
-    s[hw::P + (k >> 3)].v[k & 7] = (k >> 3) == 2 ? QParams::one(k & 7) : 0u;
+    s[hw2::P + (k >> 3)].v[k & 7] = (k >> 3) == 2 ? QParams::one(k & 7) : 0u;
   __syncwarp();
 #pragma unroll 1
   for (int w = W - 1; w >= 0; --w) {
@@ -209,17 +303,17 @@ horner_warp_kernel(const uint32_t* __restrict__ WX,
       }
     }
 #pragma unroll 1
-    for (int d = 0; d < bits; ++d) hw::point_add(s, hw::P, lane);
+    for (int d = 0; d < bits; ++d) hw2::point_add(s, hw2::P, lane);
     for (int i = 0; i < 2; ++i) {
       const int k = lane + 32 * i;
-      if (k < 48) s[hw::Q + (k >> 3)].v[k & 7] = sw[i];
+      if (k < 48) s[hw2::Q + (k >> 3)].v[k & 7] = sw[i];
     }
     __syncwarp();
-    hw::point_add(s, hw::Q, lane);
+    hw2::point_add(s, hw2::Q, lane);
   }
   for (int k = lane; k < 48; k += 32) {
     uint32_t* dst = (k >> 4) == 0 ? X : (k >> 4) == 1 ? Y : Z;
-    dst[(2 * (k & 7) + ((k >> 3) & 1)) * M + m] = s[hw::P + (k >> 3)].v[k & 7];
+    dst[(2 * (k & 7) + ((k >> 3) & 1)) * M + m] = s[hw2::P + (k >> 3)].v[k & 7];
   }
 }
 
@@ -282,18 +376,6 @@ int launch_add(const void* X1, const void* Y1, const void* Z1,
   return (int)cudaGetLastError();
 }
 
-template <class F>
-int launch_horner(const void* WX, const void* WY, const void* WZ, void* X,
-                  void* Y, void* Z, int M, int W, int bits, void* stream) {
-  if (M > 0) {
-    const int tb = 32;
-    horner_kernel<F><<<(M + tb - 1) / tb, tb, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)WX, (const uint32_t*)WY, (const uint32_t*)WZ,
-        (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, M, W, bits);
-  }
-  return (int)cudaGetLastError();
-}
-
 template <class F, int K>
 int launch_affine(const void* X, const void* Y, const void* Z, void* x,
                   void* y, int n, void* stream) {
@@ -327,13 +409,18 @@ int ec_add_g2(const void* X1, const void* Y1, const void* Z1, const void* X2,
 
 int horner_g1(const void* WX, const void* WY, const void* WZ, void* X,
               void* Y, void* Z, int M, int W, int bits, void* stream) {
-  return za::launch_horner<za::Fq>(WX, WY, WZ, X, Y, Z, M, W, bits, stream);
+  if (M > 0) {
+    za::horner_warp_g1_kernel<<<M, 32, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)WX, (const uint32_t*)WY, (const uint32_t*)WZ,
+        (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, M, W, bits);
+  }
+  return (int)cudaGetLastError();
 }
 
 int horner_g2(const void* WX, const void* WY, const void* WZ, void* X,
               void* Y, void* Z, int M, int W, int bits, void* stream) {
   if (M > 0) {
-    za::horner_warp_kernel<<<M, 32, 0, (cudaStream_t)stream>>>(
+    za::horner_warp_g2_kernel<<<M, 32, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)WX, (const uint32_t*)WY, (const uint32_t*)WZ,
         (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, M, W, bits);
   }

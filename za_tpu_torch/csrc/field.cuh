@@ -25,9 +25,8 @@
 // tree-level blocks, whatever they held.  inv_gcd (Bernstein-Yang
 // divsteps on machine words) gives the same value from short word
 // operations.  Users: block_inverse_gcd (inv_gcd at the root, Fq2
-// through the norm) in tree_level_g1, tree_level_g2 and tree_level0_g2;
-// block_inverse with Fermat in tree_level0_g1, to_affine_g1 and
-// to_affine_g2.
+// through the norm) in the four tree kernels; block_inverse with Fermat
+// only in to_affine_g1 and to_affine_g2.
 
 #pragma once
 

@@ -23,12 +23,15 @@
 //
 // Design.  A block owns a contiguous slice of TB * K pairs of one row;
 // thread t walks pairs t, t + TB, ... (coalesced across the warp),
-// keeping the exclusive prefix products of its denominators.  The
-// block multiplies the thread totals in a shared-memory product tree,
-// one thread inverts the root, the tree is unwound
+// keeping the exclusive prefix products of its denominators in shared
+// memory.  The block multiplies the thread totals in a shared-memory
+// product tree, one thread inverts the root by inv_gcd (G2 through the
+// norm, so the tree runs on Fq), the tree is unwound
 // (inv(left) = inv(parent) * right), and each thread walks its pairs
-// backwards, emitting per-pair inverses and the affine adds.  Nothing
-// crosses blocks, so no second pass.
+// backwards, emitting per-pair inverses and the affine adds.  Both
+// walks are loops (not unrolled), and the registers are capped for a
+// given number of blocks per SM.  Nothing crosses blocks, so no second
+// pass.
 //
 // Bound: integer multiplies.  Per pair about 6 field multiplications
 // (1 forward, 2 unwinding, 3 in the add) = ~1.5k 32-bit multiply-adds
@@ -36,22 +39,18 @@
 // one out.  The design spends ~2 extra multiplications per thread on
 // the shared tree and one inversion per block of TB * K pairs.
 //
-// What bounded the first version (tree_level_kernel) was not that work
-// but each block's serial chain: the product tree, the one-thread
-// Fermat (364 dependent products, ~0.20 ms) and walks unrolled into
-// more code than an SM's instruction cache holds, a floor of 0.23-0.32
-// ms under every wave of blocks whatever it held (NVIDIA H100 80GB
-// HBM3, 700 W).  tree_level_g1, tree_level_g2 and tree_level0_g2 run
-// tree_level_rolled_kernel instead: the root inverted by inv_gcd (G2
-// through the norm, so the tree runs on Fq), both walks loops over
-// prefix products kept in shared memory, registers capped for G1_BLOCKS
-// or G2_BLOCKS blocks per SM.  On one 2^17 chunk (same card):
-// tree_level_g1 0.43 ms at n = 2^14, 0.05-0.11 ms for n = 2^12 ... 2^8;
+// What bounded the first version was not that work but each block's
+// serial chain: the product tree, a one-thread Fermat root (364
+// dependent products, ~0.20 ms) and walks unrolled into more code than
+// an SM's instruction cache holds, a floor of 0.23-0.32 ms under every
+// wave of blocks whatever it held (NVIDIA H100 80GB HBM3, 700 W).  With
+// inv_gcd and rolled walks (same card, one 2^17 chunk): tree_level_g1
+// 1.40 -> 0.43 ms at n = 2^14, 0.05-0.11 ms for n = 2^12 ... 2^8;
 // tree_level_g2 1.80 -> 0.41 ms at n = 2^14, 0.44 -> 0.16 ms at 2^12
-// and 0.07-0.10 ms below; tree_level0_g2 3.81 -> 0.83 ms.  A G2 block
-// alone on an SM takes ~0.055 ms plus ~0.011 ms for each pair a thread
-// holds (four at K = 4): the chain of dependent Fq2 products.
-// tree_level0_g1 still runs tree_level_kernel with Fermat.
+// and 0.07-0.10 ms below; tree_level0_g2 3.81 -> 0.83 ms;
+// tree_level0_g1 2.32 -> 0.97-0.98 ms.  A G2 block alone on
+// an SM takes ~0.055 ms plus ~0.011 ms for each pair a thread holds
+// (four at K = 4): the chain of dependent Fq2 products.
 
 #include "field.cuh"
 
@@ -62,8 +61,12 @@ constexpr int TB = 128;  // threads per block (a power of two)
 // cap the registers at 65536 / (TB * blocks).  G1 fits five in 96
 // registers; G2 four in 128 with 150-300 bytes of spills, which measured
 // faster than 170-182 registers without (two blocks per SM), 168 (three)
-// and 96 (five), and than K = 2.
-constexpr int G1_K = 8, G1_BLOCKS = 5;  // tree_level_g1
+// and 96 (five), and than K = 2.  G1 level 0 (digits, the gather from
+// eight entries) takes 110 registers at four blocks, which measured
+// faster than 96 at five, 80 with spills at six (shared memory holds
+// five) and than K = 4.
+constexpr int G1_K = 8, G1_BLOCKS = 5;  // tree_level_g1; K of level 0
+constexpr int G1_L0_BLOCKS = 4;         // tree_level0_g1
 constexpr int G2_K = 4, G2_BLOCKS = 4;  // tree_level0_g2, tree_level_g2
 
 // Operands of pair p of row r.  Level 0: tables (8 entries, E planes,
@@ -116,69 +119,10 @@ struct Level {
   }
 };
 
-template <class F, bool L0, int K>
-__global__ void __launch_bounds__(TB)
-tree_level_kernel(Level<F, L0> lv, uint32_t* __restrict__ x3,
-                  uint32_t* __restrict__ y3, uint8_t* __restrict__ inf3) {
-  __shared__ F tree[2 * TB];
-  const int t = threadIdx.x;
-  const int r = blockIdx.y;
-  const long half = lv.n / 2;
-  const long p0 = (long)blockIdx.x * TB * K;
-  const size_t out_plane = (size_t)lv.M * lv.W * half;
-
-  // forward: exclusive prefix products of this thread's denominators
-  F pre[K];
-  F acc = one<F>();
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const long p = p0 + (long)j * TB + t;
-    pre[j] = acc;
-    if (p < half) {
-      F x1, x2, y1, y2;
-      bool i1, i2;
-      lv.operands(r, p, false, x1, x2, y1, y2, i1, i2);
-      if (!(i1 || i2)) acc = mul(acc, sub(x2, x1));
-    }
-  }
-
-  // block product tree over the thread totals, one inversion, unwind
-  F inv_acc = block_inverse<F, TB>(acc, tree);  // (this thread's dens)^-1
-
-  // backward: per-pair inverses and the affine adds
-#pragma unroll
-  for (int j = K - 1; j >= 0; --j) {
-    const long p = p0 + (long)j * TB + t;
-    if (p >= half) continue;
-    F x1, x2, y1, y2;
-    bool i1, i2;
-    lv.operands(r, p, true, x1, x2, y1, y2, i1, i2);
-    F xo, yo;
-    if (i1) {
-      xo = x2;
-      yo = y2;
-    } else if (i2) {
-      xo = x1;
-      yo = y1;
-    } else {
-      const F den = sub(x2, x1);
-      const F dinv = mul(inv_acc, pre[j]);
-      inv_acc = mul(inv_acc, den);
-      const F lam = mul(sub(y2, y1), dinv);
-      xo = sub(sub(sqr(lam), x1), x2);
-      yo = sub(mul(lam, sub(x1, xo)), y1);
-    }
-    const size_t o = (size_t)r * half + p;
-    store(x3, out_plane, o, xo);
-    store(y3, out_plane, o, yo);
-    inf3[o] = (uint8_t)(i1 && i2);
-  }
-}
-
-// The level above with the root inverted by inv_gcd (for Fq2 through the
-// norm: block_inverse_gcd) and both walks rolled into loops over prefix
-// products kept in shared memory, so that a block's serial chain is
-// short and its code small.  Shared memory: K * Planes<F>::n * TB words
+// One level (Design above): the root inverted by inv_gcd (for Fq2
+// through the norm: block_inverse_gcd) and both walks rolled into loops
+// over prefix products kept in shared memory, so that a block's serial
+// chain is short and its code small.  Shared memory: K * Planes<F>::n * TB words
 // of prefixes and 2 TB Fq of tree, 40 KB for G1 (K = 8) and G2 (K = 4).
 template <class F, bool L0, int K, int BLOCKS>
 __global__ void __launch_bounds__(TB, BLOCKS)
@@ -271,9 +215,10 @@ using za::Fq2;
 int tree_level0_g1(const void* tabx, const void* taby, const void* d,
                    void* x3, void* y3, void* inf3, int M, int W, int S,
                    void* stream) {
-  return za::launch<Fq, true, 8>(za::tree_level_kernel<Fq, true, 8>, tabx,
-                                 taby, nullptr, d, x3, y3, inf3, M, W, S,
-                                 stream);
+  constexpr int K = za::G1_K, B = za::G1_L0_BLOCKS;
+  return za::launch<Fq, true, K>(
+      za::tree_level_rolled_kernel<Fq, true, K, B>, tabx, taby, nullptr, d,
+      x3, y3, inf3, M, W, S, stream);
 }
 
 // x, y: (8, M, W, n) int32; inf: (M, W, n) u8 -> halved

@@ -76,6 +76,24 @@ TO_AFFINE = {False: kernel("to_affine_g1", "ec", "pppppi"),
              True: kernel("to_affine_g2", "ec", "pppppi")}
 
 
+def on_curve(X, Y, Z, is_g2: bool) -> torch.Tensor:
+    """Whether each point of projective Montgomery l32 coordinates
+    satisfies Y^2 Z = X^3 + b Z^3 (b = 3 in G1, 3/(9+i) on the G2
+    twist), as a bool tensor over the points' axes on their device, with
+    no host read; the identity (0 : 1 : 0) does.  Tensor code, three
+    batched product layers: the staging check of raw pk queries (the
+    reference's engine _assert_g1_on_curve / _assert_g2_on_curve run it
+    in XLA)."""
+    fld = field_of(is_g2)
+    x, y, z = (F.unpack(c) for c in (X, Y, Z))
+    x2, y2, z2 = fld.mul_many([(x, x), (y, y), (z, z)])
+    x3, y2z, z3 = fld.mul_many([(x2, x), (y2, z), (z2, z)])
+    b = (fld.const(F.FQ.to_mont_int(B2.c0), F.FQ.to_mont_int(B2.c1), z3)
+         if is_g2 else fld.const(F.FQ.to_mont_int(3), z3))
+    eq = y2z == fld.add(x3, fld.mul(z3, b))
+    return eq.flatten(0, elem_axes(is_g2) - 1).all(0)
+
+
 def ec_add_plain(p, q, is_g2: bool):
     fld = field_of(is_g2)
     out = point_add(tuple(F.unpack(c) for c in p),

@@ -6,6 +6,10 @@ Provides the surface ``groth16.prove`` calls: ``stage_params``,
 ``msm_g1``, ``msm_g2``, plus the staging calls ``stage_g1_affine`` /
 ``stage_g2_affine`` (tree) and ``stage_g1_stacked`` /
 ``stage_g2_stacked`` (dense) for callers that stage queries themselves.
+Raw limb-array queries (``groth16.convert``) come without the host's
+per-point check, so staging checks their points against the curve on
+the device and raises ``FormatError`` (the reference's stage_params
+with ``curve_check``).
 
 MSM routing follows the reference's (za_tpu/engine/engine.py
 stage_params): a pk whose padded a/b1/l length reaches ``TREE_MIN``
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from ..curve import R
+from ..groth16 import convert as CV
 from ..groth16.domain import Domain
 from ..groth16.r1cs import R1CS
 from ..groth16.setup import expand_queries
@@ -43,6 +48,14 @@ TREE_MIN = 1 << 15
 
 # msm_style -> radix of the dense kernel
 STYLES = {None: 16, "fused": 4}
+
+
+def _raw(queries) -> bool:
+    """Whether staging checks these queries against the curve: raw
+    limb-array queries come without the host's per-point check; point
+    lists were checked when they were made."""
+    return any(isinstance(q, (CV.RawG1Query, CV.RawG2Query))
+               for q in queries)
 
 
 def _pad_pow2(n: int, floor: int = 8) -> int:
@@ -87,21 +100,41 @@ class GpuEngine:
         S = min(chunk or self.tree_chunk(n), _pad_pow2(n))
         return S, -(-n // S)
 
-    def _stage(self, coords, n: int, M: int, is_g2: bool, S: int,
+    def _mont(self, limbs: np.ndarray) -> torch.Tensor:
+        """(16, ...) plain host limbs -> (8, ...) l32 Montgomery."""
+        return F.pack(F.FQ.to_mont(self._put(limbs).to(F.I64)))
+
+    @staticmethod
+    def _assert_on_curve(ok: torch.Tensor | None, is_g2: bool) -> None:
+        """ok: a device flag, whether every checked point of one staging
+        call lies on the curve (None: nothing checked); read once, after
+        the call's last block, so the host prepares each block while the
+        card checks the last.  FormatError with the reference's text
+        unless it holds."""
+        if ok is not None and not bool(ok):
+            raise CV.FormatError(
+                f"pk {'g2' if is_g2 else 'g1'} query point not on curve")
+
+    def _stage(self, coords, queries, n: int, is_g2: bool, S: int,
                C: int) -> MT.AffineTables:
         """coords(lo, hi) -> host (X, Y, Z) blocks (16, [2,] M*(hi-lo))
         of plain limbs -> chunked affine tables, block by block."""
+        M = len(queries)
         block = S * max(STAGE_BLOCK[is_g2] // S, 1)
         E = (8, 2) if is_g2 else (8,)
         tx = torch.empty((C, MT.HALF) + E + (M, S), dtype=torch.int32,
                          device=self.device)
         ty = torch.empty_like(tx)
         ident = torch.empty((C, M, S), dtype=torch.bool, device=self.device)
+        ok = (torch.ones((), dtype=torch.bool, device=self.device)
+              if _raw(queries) else None)
         for lo in range(0, C * S, block):
             hi = min(lo + block, C * S)
             k = (hi - lo) // S
-            ax, ay, idm = MT.build_tables_block(
-                tuple(self._put(c) for c in coords(lo, hi)), is_g2)
+            pts = tuple(self._mont(c) for c in coords(lo, hi))
+            if ok is not None:
+                ok &= ec.on_curve(*pts, is_g2).all()
+            ax, ay, idm = MT.build_tables_block(pts, is_g2)
 
             def chunks(a):  # (..., M*(hi-lo)) -> (k, ..., M, S)
                 a = a.reshape(tuple(a.shape[:-1]) + (M, k, S))
@@ -110,6 +143,7 @@ class GpuEngine:
             tx[lo // S:lo // S + k] = chunks(ax)
             ty[lo // S:lo // S + k] = chunks(ay)
             ident[lo // S:lo // S + k] = chunks(idm)
+        self._assert_on_curve(ok, is_g2)
         return MT.AffineTables(tx=tx, ty=ty, ident=ident, n=n, is_g2=is_g2)
 
     def stage_g1_affine(self, queries,
@@ -124,7 +158,7 @@ class GpuEngine:
             return tuple(np.concatenate([c[i][:, lo:hi] for c in cols], 1)
                          for i in range(3))
 
-        return self._stage(coords, n, len(queries), False, S, C)
+        return self._stage(coords, queries, n, False, S, C)
 
     def stage_g2_affine(self, queries,
                         chunk: int | None = None) -> MT.AffineTables:
@@ -139,11 +173,7 @@ class GpuEngine:
             return tuple(np.stack([cat(i), cat(i + 1)], axis=1)
                          for i in (0, 2, 4))
 
-        return self._stage(coords, n, len(queries), True, S, C)
-
-    def _mont(self, limbs: np.ndarray) -> torch.Tensor:
-        """(16, ...) plain host limbs -> (8, ...) l32 Montgomery."""
-        return F.pack(F.FQ.to_mont(self._put(limbs).to(F.I64)))
+        return self._stage(coords, queries, n, True, S, C)
 
     def stage_g1_stacked(self, queries,
                          n_pad: int | None = None) -> MD.DenseTables:
@@ -154,7 +184,10 @@ class GpuEngine:
         cols = [_g1_coords(q, n) for q in queries]
         pts = [self._mont(np.concatenate([c[i] for c in cols], 1))
                .reshape(F.NL32, len(queries), n) for i in range(3)]
-        return MD.build_tables(pts, False, self.radix)
+        ok = ec.on_curve(*pts, False).all() if _raw(queries) else None
+        tables = MD.build_tables(pts, False, self.radix)
+        self._assert_on_curve(ok, False)
+        return tables
 
     def stage_g2_stacked(self, queries,
                          n_pad: int | None = None) -> MD.DenseTables:
@@ -168,8 +201,11 @@ class GpuEngine:
             both = np.stack([cat(i), cat(i + 1)], axis=1)  # (16, 2, M*n)
             return self._mont(both).reshape(F.NL32, 2, len(queries), n)
 
-        return MD.build_tables([coord(i) for i in (0, 2, 4)], True,
-                               self.radix)
+        pts = [coord(i) for i in (0, 2, 4)]
+        ok = ec.on_curve(*pts, True).all() if _raw(queries) else None
+        tables = MD.build_tables(pts, True, self.radix)
+        self._assert_on_curve(ok, True)
+        return tables
 
     def stage_params(self, params, r1cs: R1CS) -> dict:
         """Stage the pk queries once per process, cached on params under

@@ -73,7 +73,7 @@ def horner_windows_plain(wsum, is_g2: bool, bits: int):
 
 def horner_windows(wsum, is_g2: bool, bits: int):
     """Per-window sums, leaves (*E, M, W) with W = WINDOWS[bits] ->
-    sum_w 2^(bits w) S_w, leaves (*E, M): one launch, one thread per
+    sum_w 2^(bits w) S_w, leaves (*E, M): one launch, one warp per
     MSM."""
     if wsum[0].device.type == "cpu":
         return horner_windows_plain(wsum, is_g2, bits)

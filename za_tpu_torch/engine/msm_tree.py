@@ -74,10 +74,10 @@ class AffineTables:
 def build_tables_block(coords, is_g2: bool):
     """One column block of projective points -> affine tables.
 
-    coords: (X, Y, Z) as plain (non-Montgomery) 16-bit limbs, int
-    tensors (16, *C, N) with C = (2,) for G2.  Returns tx, ty
-    (HALF, 8, *C, N) int32 and the identity mask (N,) bool (Z == 0)."""
-    X, Y, Z = (F.pack(F.FQ.to_mont(c.to(F.I64))) for c in coords)
+    coords: (X, Y, Z) as Montgomery l32 int32 tensors (8, *C, N) with
+    C = (2,) for G2.  Returns tx, ty (HALF, 8, *C, N) int32 and the
+    identity mask (N,) bool (Z == 0)."""
+    X, Y, Z = coords
     ne = ec.elem_axes(is_g2)
     ident = (Z == 0).reshape(-1, Z.shape[-1]).all(dim=0)
     pts = [(X, Y, Z)]

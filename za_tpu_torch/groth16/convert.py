@@ -23,6 +23,13 @@ G1_KEYS = ("x", "y", "z")
 G2_KEYS = ("x0", "x1", "y0", "y1", "z0")
 
 
+class FormatError(Exception):
+    """A proving key whose contents break its format: the reference's
+    za_tpu/groth16/format.py FormatError.  Raw queries are parsed
+    without per-point checks; staging checks them against the curve
+    (engine.GpuEngine)."""
+
+
 class RawG1Query:
     """G1 query vector as projective limb arrays x, y, z (16, n)."""
 
