@@ -17,11 +17,14 @@ Phases:
      the staging's curve checks of the raw queries run again apart on
      the same coordinates and timed ("curve_check_s"), and the same pk
      staged anew with the check on and off in turns
-     ("stage_check_on_off_s"); h(x)
-     runs the four-step NTT, one 3-leg transform of it split step by
-     step (prefix, tail stages, twiddle transpose, tensor code); each
-     MSM split step by step (digits, level 0, levels, carry, lane fold,
-     Horner);
+     ("stage_check_on_off_s"); h(x) runs as kernels (the matvec, the
+     four-step NTT with the prefix's load and store modes), checked to
+     call no torch field product ("h_torch_ops"), split step by step
+     (matvec, iNTT, coset NTT, coset iNTT; one 3-leg transform into
+     prefix, tail stages, twiddle transpose), the plain matvec timed
+     leg by leg; each MSM split step by step (digits, level 0, levels,
+     carry, lane fold, Horner); launches of the first prove alone
+     ("launches_per_proof", staging excluded);
   3. the dense path at full width: the same at 2^13 constraints, where
      the padded queries stay below TREE_MIN and the four G1 MSMs run as
      one stacked dense MSM; then the same prove through
@@ -36,8 +39,11 @@ Phases:
   5. each kernel against its plain PyTorch version on the shapes of the
      path that runs it, exact equality (integers mod p), timed beside
      its bound; the tree levels at every level of one 2^17 chunk
-     ("per_level_ms"); the tree and Horner kernels' registers and spill
-     bytes from the build's ptxas logs ("regs", "spill_bytes"), the
+     ("per_level_ms"); the matvec at the 2^17 chain's three legs, the
+     NTT prefix in each mode (scale on load, combine on load, scale on
+     store); the tree, Horner, prefix and matvec kernels' registers and
+     spill bytes from the build's ptxas logs ("regs", "spill_bytes"),
+     every row's launches per 2^17 proof ("launches_per_proof"), the
      Horner rows' time per complete add of one MSM's chain
      ("us_per_add"); printed as one JSON
      line {"kernels": [...]}; then one
@@ -76,11 +82,12 @@ MADS_PER_MUL = 4 * 8 * 8
 # constant.  An Fq2 multiplication is 3 Fq ones.
 ADD_MULS = {False: 12, True: 3 * 14}
 
-# the __global__ function behind each tree and Horner entry point of
-# csrc/tree.cu and csrc/ec.cu, as ptxas names it, up to its last
-# template argument: tree_level_rolled_kernel<Fq, true, 8, ...>,
-# <Fq, false, 8, ...>, <Fq2, true, 4, ...> and <Fq2, false, 4, ...>;
-# horner_warp_g1_kernel, horner_warp_g2_kernel
+# the __global__ function behind each tree, Horner, prefix and matvec
+# entry point of csrc/tree.cu, csrc/ec.cu, csrc/ntt.cu and csrc/r1cs.cu,
+# as ptxas names it, up to its last template argument:
+# tree_level_rolled_kernel<Fq, true, 8, ...>, <Fq, false, 8, ...>,
+# <Fq2, true, 4, ...> and <Fq2, false, 4, ...>; horner_warp_g1_kernel,
+# horner_warp_g2_kernel; ntt_prefix_kernel; r1cs_matvec_kernel
 KERNEL_FN = {
     "tree_level0_g1":
         "_ZN2za24tree_level_rolled_kernelINS_2FpINS_7QParamsEEELb1ELi8E",
@@ -90,6 +97,8 @@ KERNEL_FN = {
     "tree_level_g2": "_ZN2za24tree_level_rolled_kernelINS_3Fq2ELb0ELi4E",
     "horner_g1": "_ZN2za21horner_warp_g1_kernelE",
     "horner_g2": "_ZN2za21horner_warp_g2_kernelE",
+    "ntt_prefix_fr": "_ZN2za17ntt_prefix_kernelE",
+    "r1cs_matvec_fr": "_ZN2za18r1cs_matvec_kernelE",
 }
 
 SEED = 20261016
@@ -213,7 +222,7 @@ def prove_path(torch, timer, log2n: int):
     from za_tpu_torch.curve import (
         G1_GEN, G2_GEN, R, g1_mul, g2_mul,
     )
-    from za_tpu_torch.engine import _build
+    from za_tpu_torch.engine import _build, ntt as NTT
     from za_tpu_torch.engine.engine import GpuEngine
     from za_tpu_torch.engine.field import limbs_to_ints
     from za_tpu_torch.groth16.domain import Domain
@@ -250,9 +259,16 @@ def prove_path(torch, timer, log2n: int):
     (staged, stage_s), check_s, checks = timed_curve_checks(
         torch, lambda: timer(lambda: eng.stage_params(params, r1cs)))
     assert checks > 0, "staging checked no raw query against the curve"
+    stage_launches = launch_counts()
+    _build.reset_launches()
+    modes0 = dict(NTT.PREFIX_LAUNCHES)
     proof, prove_cold_s = timer(
         lambda: prove(params, r1cs, z, r=r_, s=s_, engine=eng))
-    launches = {"default": launch_counts()}
+    per_proof = launch_counts()
+    per_proof.update({f"ntt_prefix_fr.{k}": v - modes0.get(k, 0)
+                      for k, v in NTT.PREFIX_LAUNCHES.items()})
+    launches = {"default": {k: v + stage_launches[k]
+                            for k, v in launch_counts().items()}}
     tree = "g1abl" in staged
     log(f"2^{log2n} run {time.time() - t0:.1f}s (stage {stage_s:.2f}s, "
         f"first prove {prove_cold_s:.2f}s, {'tree' if tree else 'dense'}); "
@@ -286,6 +302,8 @@ def prove_path(torch, timer, log2n: int):
         return st
 
     stages, totals, warm = median_runs(prove_compute)
+    torch_ops = h_torch_ops(eng, r1cs, z_l, domain)
+    assert not any(torch_ops.values()), f"h(x) ran tensor code: {torch_ops}"
     parts = breakdown(timer, eng, r1cs, z_l, domain, staged, out["h"])
     eng.r1cs_satisfied(r1cs, z_l)
     sat_ok, sat_s = timer(lambda: eng.r1cs_satisfied(r1cs, z_l))
@@ -351,12 +369,15 @@ def prove_path(torch, timer, log2n: int):
         "stage_check_on_off_s": check_ab,
         "prove_cold_s": prove_cold_s,
         "sat_check_s": sat_s,
+        "h_torch_ops": torch_ops,
+        "launches_per_proof": per_proof,
         "constraints": n,
         "domain": m,
         "peak_mem_bytes": peak,
     }
     ctx = {"eng": eng, "staged": staged, "z_l": z_l, "h": out["h"],
-           "params": params, "r1cs": r1cs}
+           "params": params, "r1cs": r1cs, "m": m,
+           "per_proof": per_proof}
     if not tree:
         # the same prove at radix 4, staged anew by a fused-style engine
         feng = GpuEngine(msm_style="fused")
@@ -451,24 +472,71 @@ def off_curve_refused(params, r1cs) -> dict:
     return out
 
 
+def h_torch_ops(eng, r1cs, z_l, domain) -> dict:
+    """One h_coeffs_limbs with the tensor code it must not run counted:
+    torch field products, the plain matvec, the NTT's tensor scaling
+    and the prefix modes' tensor versions -> {name: calls}."""
+    from za_tpu_torch.engine import field as F, ntt as NTT, r1cs as RC
+
+    calls = {}
+    patched = [(F.FR, "mul"), (NTT, "_scale"), (NTT, "load_plain"),
+               (NTT, "store_plain"), (NTT, "ntt_prefix_plain"),
+               (RC, "matvec_plain")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in patched]
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            if name in ("load_plain", "store_plain") and all(
+                    v is None or v is False for v in a[1:]):
+                return fn(*a, **k)  # the identity: no mode given
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return wrapped
+
+    for obj, name, fn in saved:
+        calls[name] = 0
+        setattr(obj, name, counting(name, fn))
+    try:
+        eng.h_coeffs_limbs(r1cs, z_l, domain)
+    finally:
+        for obj, name, fn in saved:
+            if obj is F.FR:
+                del obj.mul      # back to the class's method
+            else:
+                setattr(obj, name, fn)
+    return calls
+
+
 def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
     """Where h(x) and each MSM spend their time: the engine's steps
-    timed one by one (CUDA events, each ending in a sync)."""
+    timed one by one (CUDA events, each ending in a sync); the plain
+    matvec (torch code) leg by leg, each leg held equal to the
+    kernel's."""
     import torch
 
-    from za_tpu_torch.engine import field as F, ntt as NTT
+    from za_tpu_torch.engine import field as F, ntt as NTT, r1cs as RC
 
-    FR = F.FR
-    dom = eng._domain(domain.size)
+    m = domain.size
+    dom = eng._domain(m)
     t = {}
-    legs, t["h.matvec3"] = timer(lambda: eng._legs(r1cs, z_l, domain.size))
-    x = torch.stack(legs, dim=1)
-    t.update(fourstep_breakdown(timer, dom, x))
-    x, t["h.intt3"] = timer(lambda: NTT.intt(dom, x))
-    x, t["h.coset_ntt3"] = timer(lambda: NTT.coset_ntt(dom, x))
-    hc, t["h.combine"] = timer(lambda: FR.mul(
-        FR.sub(FR.mul(x[:, 0], x[:, 1]), x[:, 2]), dom.z_coset_inv))
-    _, t["h.coset_intt"] = timer(lambda: FR.from_mont(NTT.coset_intt(dom, hc)))
+    legs, t["h.matvec3"] = timer(lambda: eng._legs(r1cs, z_l, m))
+    csr = RC.r1cs_csr(r1cs, m, eng.device)
+    z32 = F.pack(z_l.to(F.I64))
+    for k, name in enumerate("AABC"):   # leg A twice: the first warms up
+        k = max(k - 1, 0)
+        lo, hi = (int(v) for v in csr.row_ptr[[k * m, (k + 1) * m]])
+        leg = RC.Csr(csr.row_ptr[k * m:(k + 1) * m + 1] - lo,
+                     csr.cols[lo:hi], csr.coeffs[:, lo:hi].contiguous(), m)
+        got, t[f"h.matvec_plain.{name}"] = timer(
+            lambda: RC.matvec_plain(leg, z32))
+        assert torch.equal(got[:, 0], legs[:, k]), f"matvec leg {name}"
+    t.update(fourstep_breakdown(timer, dom, legs))
+    x, t["h.intt3"] = timer(lambda: NTT.transform(dom, legs, True))
+    x, t["h.coset_ntt3"] = timer(
+        lambda: NTT.transform(dom, x, False, scale_in=dom.h_in))
+    hc, t["h.coset_intt"] = timer(lambda: NTT.transform(
+        dom, x, True, combine=True, scale_out=dom.h_out))
+    assert torch.equal(hc.reshape(F.NLIMBS, m)[:, :m - 1], h), "h steps"
     ni = r1cs.num_inputs
     if "g1abl" in staged:
         for tag, scal in (("g1abl", [z_l, z_l, z_l[:, ni:]]), ("g1h", [h]),
@@ -483,20 +551,18 @@ def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
 
 
 def fourstep_breakdown(timer, dom, x):
-    """One 3-leg forward transform (no scaling) of x (16, 3, n) whole,
-    then step by step: the tensor code (repacking to and from l32),
-    the prefix launches, the tail stage launches (none where m_fuse =
-    S) and the twiddle transpose."""
+    """One 3-leg forward transform (no modes) of the l32 legs x (8, 3,
+    n) whole, then step by step: the prefix launches, the tail stage
+    launches (none where m_fuse = S) and the twiddle transpose."""
     import torch
 
-    from za_tpu_torch.engine import field as F, ntt as NTT
+    from za_tpu_torch.engine import ntt as NTT
 
     fs = dom.fourstep
     assert fs is not None, f"2^{dom.size.bit_length() - 1}: no four-step"
-    want, total = timer(lambda: NTT.ntt(dom, x))
+    want, total = timer(lambda: NTT.transform(dom, x, False))
     t = {"h.ntt3": total, "h.ntt3.prefix": 0.0, "h.ntt3.tail": 0.0}
-    a, t["h.ntt3.tensor"] = timer(
-        lambda: F.pack(x).reshape(8, 3, fs.n2, fs.n1))
+    a = x.reshape(8, 3, fs.n2, fs.n1)
 
     def sub(a, tw, S):
         m = NTT.prefix_rows(S, a.shape[3])
@@ -511,9 +577,8 @@ def fourstep_breakdown(timer, dom, x):
     a = sub(a, fs.t2_fwd, fs.n2)
     a, t["h.ntt3.twiddle"] = timer(lambda: NTT.ntt_twiddle(a, fs.inter_fwd))
     a = sub(a, fs.t1_fwd, fs.n1)
-    y, dt = timer(lambda: F.unpack(a.reshape(8, 3, dom.size)))
-    t["h.ntt3.tensor"] += dt
-    assert torch.equal(y, want), "four-step steps differ from NTT.ntt"
+    assert torch.equal(a.reshape(8, 3, dom.size), want), \
+        "four-step steps differ from NTT.transform"
     return t
 
 
@@ -684,8 +749,8 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
     dense path's, default and fused style (2^13); small_domain: the
     510-constraint check's domain size."""
     from za_tpu_torch.engine import _build, cuda_tree as CT, ec, msm as MSM
-    from za_tpu_torch.engine import msm_dense as MD, msm_tree as MT
-    from za_tpu_torch.engine import ntt as NTT
+    from za_tpu_torch.engine import field as F, msm_dense as MD
+    from za_tpu_torch.engine import msm_tree as MT, ntt as NTT, r1cs as RC
 
     eng, staged, z_l = tctx["eng"], tctx["staged"], tctx["z_l"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -800,16 +865,52 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
     # the four-step's kernels at the 2^17 rung (domain 2^18), the first
     # sub-NTT's shape: 3 legs x n2 rows x n1 lanes
     ntt_src = "za_tpu_torch/csrc/ntt.cu"
-    fs = eng._domain(1 << (LOG2N + 1)).fourstep
+    ntt_log = (_build.build_dir() / "ntt.log").read_text()
+    dom = eng._domain(1 << (LOG2N + 1))
+    fs = dom.fourstep
     x = rand_fq(torch, (3, fs.n2, fs.n1), gen)   # also canonical mod r
     m = NTT.prefix_rows(fs.n2, fs.n1)
+    # no mode, then each mode on h(x)'s tables: the coset powers on the
+    # 3 legs; the combine of the 3 legs into 1; the store table on 1
+    prefix_cases = [
+        ("plain", x, {}, 3),
+        ("scale_in", x, {"scale_in": dom.h_in}, 3),
+        ("combine", x, {"combine": True}, 1),
+        ("scale_out", x[:, :1].contiguous(), {"scale_out": dom.h_out}, 1)]
+    for mode, xin, kw, legs_out in prefix_cases:
+        outs, ms, pms, err = compare(
+            torch, f"ntt_prefix_fr {mode}",
+            lambda a, t: (NTT.ntt_prefix(a, t, m, **kw),),
+            lambda a, t: (NTT.ntt_prefix_plain(a, t, m, **kw),),
+            (xin, fs.t2_fwd), reps=5)
+        tables = [v for v in kw.values() if torch.is_tensor(v)]
+        # one product per value for each mode (the combine's a b per
+        # output value) beside the butterflies
+        extra = 0 if mode == "plain" else legs_out * fs.n2 * fs.n1
+        row("ntt_prefix_fr", ntt_src, "za_tpu/engine/pallas_ntt.py:181",
+            f"{xin.shape[1]} x {fs.n2} x {fs.n1} -> {legs_out}, m_fuse {m}"
+            + ("" if mode == "plain" else f", {mode}"), ms, pms, err,
+            nbytes(xin, outs[0], fs.t2_fwd, *tables),
+            legs_out * fs.n1 * dit_muls(fs.n2, m) + extra)
+        rows[-1]["mode"] = mode
+        rows[-1].update(ptxas_usage(ntt_log, KERNEL_FN["ntt_prefix_fr"]))
+
+    # the matvec at the 2^17 chain: A (with the input rows), B, C in one
+    # launch
+    r1cs, z_l, mm = tctx["r1cs"], tctx["z_l"], tctx["m"]
+    csr = RC.r1cs_csr(r1cs, mm, "cuda")
+    z32 = F.pack(z_l.to(F.I64))
     outs, ms, pms, err = compare(
-        torch, "ntt_prefix_fr", lambda a, t: (NTT.ntt_prefix(a, t, m),),
-        lambda a, t: (NTT.ntt_prefix_plain(a, t, m),), (x, fs.t2_fwd),
-        reps=5)
-    row("ntt_prefix_fr", ntt_src, "za_tpu/engine/pallas_ntt.py:181",
-        f"3 x {fs.n2} x {fs.n1}, m_fuse {m}", ms, pms, err,
-        nbytes(x, outs[0], fs.t2_fwd), 3 * fs.n1 * dit_muls(fs.n2, m))
+        torch, "r1cs_matvec_fr", lambda c, z: (RC.matvec(c, z),),
+        lambda c, z: (RC.matvec_plain(c, z),), (csr, z32), reps=5)
+    nnz = csr.cols.numel()
+    row("r1cs_matvec_fr", "za_tpu_torch/csrc/r1cs.cu",
+        "za_tpu/engine/engine.py:1891",
+        f"2^{LOG2N} chain, 3 legs x {mm} rows, {nnz} entries", ms, pms, err,
+        nbytes(csr.row_ptr, csr.cols, csr.coeffs, z32, outs[0]), nnz)
+    rows[-1].update(ptxas_usage(
+        (_build.build_dir() / "r1cs.log").read_text(),
+        KERNEL_FN["r1cs_matvec_fr"]))
     outs, ms, pms, err = compare(
         torch, "ntt_twiddle_fr", lambda a, w: (NTT.ntt_twiddle(a, w),),
         lambda a, w: (NTT.ntt_twiddle_plain(a, w),), (x, fs.inter_fwd),
@@ -858,6 +959,14 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         row(f"to_affine_{g}", ec_src, "za_tpu/engine/msm_tree.py:422",
             f"{8 * npts} points", ms, pms, err, nbytes(*coords, *outs),
             5 * fmul * nz + fermat)
+    # launches of one prove at each rung, staging excluded
+    for r in rows:
+        key = r["name"]
+        if "mode" in r:
+            key = f"ntt_prefix_fr.{r['mode']}"
+        r["launches_per_proof"] = tctx["per_proof"].get(key, 0)
+        r[f"launches_per_proof_2^{LOG2N_DENSE}"] = dctx["per_proof"].get(
+            key, 0)
     return rows
 
 
@@ -949,10 +1058,12 @@ def main() -> int:
                 for k in _build.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels launched on no path: {missing}"
-    for path in ("tree", "dense"):
-        idle = [k for k in ("ntt_prefix_fr", "ntt_twiddle_fr")
-                if per_path[path][k] == 0]
-        assert not idle, f"{path}: h(x) did not run the four-step: {idle}"
+    for path, ctx in (("tree", tctx), ("dense", dctx)):
+        idle = [k for k in ("ntt_prefix_fr", "ntt_twiddle_fr",
+                            "r1cs_matvec_fr", "ntt_prefix_fr.scale_in",
+                            "ntt_prefix_fr.combine", "ntt_prefix_fr.scale_out")
+                if ctx["per_proof"].get(k, 0) == 0]
+        assert not idle, f"{path}: h(x) did not run on kernels: {idle}"
     rows = kernels_vs_plain(torch, tctx, dctx, small_domain, launches)
     tree["ntt_routes_ms"] = ntt_routes(torch, {
         d: ctx["eng"]._domain(d).fourstep

@@ -8,10 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from za_tpu_torch.curve import Q
+from za_tpu_torch.curve import Q, R
 from za_tpu_torch.engine import cuda_tree as CT, ec, field as F
 from za_tpu_torch.engine import msm as MSM, msm_dense as MD
-from za_tpu_torch.engine import msm_tree as MT, ntt as NTT
+from za_tpu_torch.engine import msm_tree as MT, ntt as NTT, r1cs as RC
 
 pytestmark = pytest.mark.cuda
 
@@ -72,8 +72,9 @@ def test_ntt_prefix_kernel_matches_plain(gen, S, L, m):
 
 
 def test_ntt_prefix_refuses_a_block_over_shared_memory(gen):
-    """1024 rows x 8 lanes x 32 B = 256 KB: more than a block may hold.
-    The wrapper raises, counts no launch, and the next launch runs."""
+    """m = 1024 rows: more than one prefix tile holds (PREFIX_ROWS,
+    whose 8 lanes x 32 B fill 128 KB of shared memory).  The wrapper
+    raises, counts no launch, and the next launch runs."""
     S = 1024
     tw = NTT._twiddles(NTT.Domain(S).omega, S // 2, "cuda")
     x = _rand_fq((1, S, 8), gen)
@@ -83,6 +84,70 @@ def test_ntt_prefix_refuses_a_block_over_shared_memory(gen):
     assert NTT.NTT_PREFIX.launches == before
     assert torch.equal(NTT.ntt_prefix(x, tw, S // 2),
                        NTT.ntt_prefix_plain(x, tw, S // 2))
+
+
+# (S, L, m) and the prefix modes: the 2^18 sub-NTT shape, S = 64 (one
+# pass of 3 stages, then 3 more), a partial prefix (m = 16) and m = 4
+# (one pass); the store mode only where the prefix ends the transform
+PREFIX_MODE_CASES = [
+    (S, L, m, mode)
+    for S, L, m in [(512, 512, 512), (64, 8, 64), (256, 64, 16), (32, 16, 4)]
+    for mode in ("scale_in", "combine", "scale_out", "combine+scale_out")
+    if "scale_out" not in mode or m == S]
+
+
+@pytest.mark.parametrize("S,L,m,mode", PREFIX_MODE_CASES)
+def test_ntt_prefix_modes_match_plain(gen, S, L, m, mode):
+    tw = NTT._twiddles(NTT.Domain(S).omega, S // 2, "cuda")
+    kw = {"combine": "combine" in mode}
+    for k in ("scale_in", "scale_out"):
+        if k in mode:
+            kw[k] = _rand_fq((S * L,), gen)
+    x = _rand_fq((6 if kw["combine"] else 2, S, L), gen)
+    before = dict(NTT.PREFIX_LAUNCHES)
+    got = NTT.ntt_prefix(x, tw, m, **kw)
+    assert NTT.PREFIX_LAUNCHES[mode] == before.get(mode, 0) + 1
+    want = NTT.ntt_prefix_plain(x, tw, m, **kw)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_h_transforms_match_plain(gen):
+    """h(x)'s three transforms at 2^12 (four-step, every prefix mode)
+    and 2^10 (radix-2, the modes as tensor code) against the plain
+    versions on the CPU."""
+    for size in (1 << 12, 1 << 10):
+        legs = _rand_fq((3, size), gen)
+        got = NTT.h_transforms(NTT.DeviceDomain(size, "cuda"), legs)
+        want = NTT.h_transforms(NTT.DeviceDomain(size, "cpu"), legs.cpu())
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+def _rows(rng, n, nv, long_rows):
+    """n rows of 0-3 entries, the rows in long_rows with that many."""
+    rows = []
+    for i in range(n):
+        k = long_rows.get(i, rng.randrange(4))
+        rows.append([(rng.randrange(nv), rng.randrange(R)) for _ in range(k)])
+    return rows
+
+
+def test_r1cs_matvec_kernel_matches_plain(gen):
+    """Short rows (one thread each), rows just over and far over
+    WARP_ROW (one warp each, two in one warp's 32 rows), a row of 5000,
+    empty rows and the rows past the constraints."""
+    rng = random.Random(3)
+    nv, n, m = 300, 900, 1024
+    w = RC.WARP_ROW
+    legs = (_rows(rng, n, nv, {5: w, 40: w + 1, 41: 3 * w, 700: 5000}),
+            _rows(rng, n - 100, nv, {}),
+            _rows(rng, n, nv, {0: 33, 31: 64}))
+    csr = RC.pack_csr(legs, m, "cuda")
+    z = _rand_fq((nv,), gen)
+    before = RC.R1CS_MATVEC.launches
+    got = RC.matvec(csr, z)
+    assert RC.R1CS_MATVEC.launches == before + 1
+    assert torch.equal(got.cpu(), RC.matvec_plain(
+        RC.pack_csr(legs, m, "cpu"), z.cpu()))
 
 
 def test_ntt_twiddle_kernel_matches_plain(gen):

@@ -11,17 +11,33 @@
 // ntt_prefix_fr replaces the reference's fused Pallas prefix
 // (za_tpu/engine/pallas_ntt.py sub_ntt_fused, _prefix_kernel): the bit
 // reversal along S and stages 2..m (m = m_fuse rows) in one pass.  One
-// block owns one segment of m rows x PREFIX_LANES lanes in dynamic shared
-// memory (limb planes, (8, m, PREFIX_LANES)); it loads row
-// bitrev_S(seg m + i) into slot i, so the reference's separate gather is
-// the load, runs the log2(m) stages with a barrier between them, and
-// writes rows seg m + i back.  Eight lanes of 4-byte limbs make each
-// row's load and store one 32-byte sector per plane.  Twiddles are read
-// as tw[j S / 2h] from the (L2-resident) table: the reference's
-// repeat-each-twiddle-L-times tiles were a Mosaic layout workaround.
-// Bound: operations, (S / m)(m / 2 log2(m) - (m - 1)) L multiplications
-// per transform (the butterflies whose twiddle is not w^0 = 1; 256
-// 32-bit multiply-adds each) against 64 B per value moved.
+// block owns a tile of rows = min(S, PREFIX_ROWS) rows x
+// PREFIX_BLOCK_LANES lanes (rows / m segments of m rows); row i of the
+// tile is gathered from row bitrev_S(tile rows + i), so the reference's
+// separate gather is the load.  Each thread holds PREFIX_EL = 4 values in
+// registers and runs the stages two at a time as radix-4 butterflies
+// there (the first pass on four consecutive rows, where the twiddles are
+// known per slot and the w^0 = 1 products are skipped; then rows at
+// stride 4, 16, 64, 256), with an exchange through shared memory between
+// passes (limb planes (8, rows, PREFIX_BLOCK_LANES), rows permuted so
+// that every exchange hits 32 banks): log2(m) = 9 stages take four
+// exchanges, not nine round trips.  The m/2 twiddles w_m^k are staged in
+// shared memory once.  The Montgomery product's latency bounds it: four
+// values a thread and four lanes a block (82 registers, 64 KB, 512
+// threads) beat eight values and eight lanes (128 registers, 128 KB) by
+// ~20% a proof (tools/torch_prefix_sweep.py).  Modes (flags, the torch
+// code at a transform's boundaries taken in): SCALE_IN multiplies each
+// value as it is gathered by a table indexed by its natural input index
+// (the coset powers of the forward coset NTT); COMBINE reads three legs
+// a, b, c at the same index and loads a b - c (h(x)'s combine, before
+// the coset iNTT); SCALE_OUT (m = S only) multiplies each output by a
+// table of plain values indexed by its natural output index, which
+// yields the plain product (the coset and 1/Z scalings and from_mont of
+// the coset iNTT in one product), and writes 16-bit plain limbs (16, B,
+// S, L).  Every mode is exact on canonical values.  Bound: operations,
+// (S / m)(m / 2 log2(m) - (m - 1)) L multiplications per transform (the
+// butterflies whose twiddle is not w^0 = 1; 256 32-bit multiply-adds
+// each), plus one per value per mode, against 64 B per value moved.
 //
 // ntt_twiddle_fr replaces XLA code of the reference's four-step
 // (ntt_rns.py _fourstep_core: mont_mul_rns by the inter-factor twiddles,
@@ -41,10 +57,19 @@
 
 namespace za {
 
-// lanes of one prefix block; engine/ntt.py's PREFIX_LANES, held equal
-// to it by a test
+// the prefix's lane tile: L is a multiple of it (engine/ntt.py's
+// PREFIX_LANES, held equal to it by a test); one block takes
+// PREFIX_BLOCK_LANES of its lanes
 constexpr int PREFIX_LANES = 8;
-constexpr int PREFIX_TB = 512;   // threads of one prefix block, at most
+constexpr int PREFIX_BLOCK_LANES = 4;
+constexpr int PREFIX_ROWS = 512;  // rows of one prefix tile, at most
+constexpr int PREFIX_LOG_EL = 2;  // a thread holds 2^this values and
+constexpr int PREFIX_EL = 1 << PREFIX_LOG_EL;  // runs that many stages a pass
+constexpr int PREFIX_TB = PREFIX_ROWS * PREFIX_BLOCK_LANES / PREFIX_EL;
+// ntt_prefix_fr modes (flags); engine/ntt.py's PREFIX_MODES
+constexpr int PREFIX_SCALE_IN = 1;
+constexpr int PREFIX_COMBINE = 2;
+constexpr int PREFIX_SCALE_OUT = 4;
 constexpr int TT = 32;           // edge of a twiddle-transpose tile
 constexpr int TT_ROWS = 8;       // thread rows of a transpose block
 
@@ -79,51 +104,154 @@ __global__ void ntt_stage_kernel(uint32_t* __restrict__ x,
   store(x, plane, i1, v);
 }
 
+// row of value idx of thread t (tile row) in a pass of s stages of
+// half-lengths 2^ld .. 2^(ld + s - 1): the thread holds PREFIX_EL >> s
+// groups of 2^s values at stride 2^ld
+__device__ __forceinline__ int pass_row(int t, int idx, int s, int ld) {
+  const int grp = t * (PREFIX_EL >> s) + (idx >> s);
+  const int e = idx & ((1 << s) - 1);
+  return ((grp >> ld) << (ld + s)) + (grp & ((1 << ld) - 1)) + (e << ld);
+}
+
+// slot of tile row r, lane l in a shared-memory plane: r's bit 3 XORed
+// into bit 0 and bit 4 into bits 1 and 2, so that the rows of one value
+// of one pass (stride 1 to 256) held by a warp's eight thread rows fall
+// on 32 banks (tests/test_torch_hpipe.py checks every exchange at m =
+// 512)
+__device__ __forceinline__ int tile_slot(int r, int l) {
+  return (r ^ ((r >> 3) & 1) ^ (((r >> 4) & 1) * 6)) * PREFIX_BLOCK_LANES
+         + l;
+}
+
+// s DIT stages of half-lengths 2^ld .. on the thread's values; tws holds
+// w_m^k, k < m / 2, as (8, m / 2).  The first pass (ld = 0) knows each
+// slot's twiddle and skips w^0 = 1.
+template <int s, bool first>
+__device__ __forceinline__ void pass_stages(Fr (&v)[PREFIX_EL],
+                                            const uint32_t* tws, int m,
+                                            int t, int ld) {
+  if (first) ld = 0;
+#pragma unroll
+  for (int q = 0; q < s; ++q) {
+    const int tstep = m >> (ld + q + 1);   // m / (2 half)
+#pragma unroll
+    for (int idx = 0; idx < PREFIX_EL; ++idx) {
+      const int e = idx & ((1 << s) - 1);
+      if (e & (1 << q)) continue;
+      const int elo = e & ((1 << q) - 1);
+      Fr& u = v[idx];
+      Fr& w = v[idx + (1 << q)];
+      if (first && elo == 0) {
+        const Fr wt = w;
+        w = sub(u, wt);
+        u = add(u, wt);
+        continue;
+      }
+      const int grp = t * (PREFIX_EL >> s) + (idx >> s);
+      const int j = (grp & ((1 << ld) - 1)) + (elo << ld);
+      Fr tw;
+#pragma unroll
+      for (int qq = 0; qq < 8; ++qq) tw.v[qq] = tws[qq * (m / 2) + j * tstep];
+      butterfly(u, w, tw);
+    }
+  }
+}
+
+// pass_stages for s <= PREFIX_LOG_EL, picked at run time (the clamps
+// keep the instances a smaller PREFIX_LOG_EL never takes well-formed)
+template <bool first>
+__device__ __forceinline__ void run_pass(Fr (&v)[PREFIX_EL],
+                                         const uint32_t* tws, int m, int t,
+                                         int s, int ld) {
+  constexpr int s3 = PREFIX_LOG_EL < 3 ? PREFIX_LOG_EL : 3;
+  constexpr int s2 = PREFIX_LOG_EL < 2 ? PREFIX_LOG_EL : 2;
+  if (s == 3) pass_stages<s3, first>(v, tws, m, t, ld);
+  else if (s == 2) pass_stages<s2, first>(v, tws, m, t, ld);
+  else pass_stages<1, first>(v, tws, m, t, ld);
+}
+
 __global__ void __launch_bounds__(PREFIX_TB)
 ntt_prefix_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-                  const uint32_t* __restrict__ tw, int B, int S, int L,
-                  int m, int log_s) {
-  extern __shared__ uint32_t sm[];  // (8, m, PREFIX_LANES)
-  const int tile = m * PREFIX_LANES;
-  const int seg = blockIdx.y;
-  const size_t plane = (size_t)B * S * L;
-  const size_t col0 = (size_t)blockIdx.z * S * L
-                      + (size_t)blockIdx.x * PREFIX_LANES;
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-    const int i = e / PREFIX_LANES, l = e % PREFIX_LANES;
-    const size_t src = col0 + (size_t)bitrev(seg * m + i, log_s) * L + l;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) sm[q * tile + e] = x[q * plane + src];
+                  const uint32_t* __restrict__ tw,
+                  const uint32_t* __restrict__ tin,
+                  const uint32_t* __restrict__ tout, int B, int S, int L,
+                  int m, int log_s, int rows, int mode) {
+  extern __shared__ uint32_t sm[];  // twiddles (8, m/2), tile (8, rows, lanes)
+  uint32_t* tws = sm;
+  uint32_t* tile = sm + 4 * m;
+  const int t = threadIdx.x / PREFIX_BLOCK_LANES;
+  const int lane = threadIdx.x % PREFIX_BLOCK_LANES;
+  for (int i = threadIdx.x; i < 4 * m; i += blockDim.x) {
+    const int q = i / (m / 2), k = i % (m / 2);
+    tws[i] = tw[(size_t)q * (S / 2) + (size_t)k * (S / m)];
   }
-  __syncthreads();
-  for (int h = 1; h < m; h <<= 1) {
-    const int step = S / (2 * h);
-    for (int p = threadIdx.x; p < tile / 2; p += blockDim.x) {
-      const int l = p % PREFIX_LANES, k = p / PREFIX_LANES;
-      const int g = k / h, j = k - g * h;
-      const int e0 = (2 * h * g + j) * PREFIX_LANES + l;
-      const int e1 = e0 + h * PREFIX_LANES;
-      Fr u, v, w;
+  const size_t sl = (size_t)S * L;       // values of one transform
+  const size_t plane_out = (size_t)B * sl;
+  const size_t plane_in = (mode & PREFIX_COMBINE) ? 3 * plane_out : plane_out;
+  const int row0 = blockIdx.y * rows;
+  const size_t col = (size_t)blockIdx.x * PREFIX_BLOCK_LANES + lane;
+  const size_t b = blockIdx.z;
+  Fr v[PREFIX_EL];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        u.v[q] = sm[q * tile + e0];
-        v.v[q] = sm[q * tile + e1];
-      }
-      load(w, tw, S / 2, (size_t)j * step);
-      butterfly(u, v, w);
+  for (int i = 0; i < PREFIX_EL; ++i) {
+    const size_t src =
+        (size_t)bitrev((unsigned)(row0 + PREFIX_EL * t + i), log_s) * L + col;
+    if (mode & PREFIX_COMBINE) {
+      Fr a, bb, c;
+      load(a, x, plane_in, 3 * b * sl + src);
+      load(bb, x, plane_in, (3 * b + 1) * sl + src);
+      load(c, x, plane_in, (3 * b + 2) * sl + src);
+      v[i] = sub(mul(a, bb), c);
+    } else {
+      load(v[i], x, plane_in, b * sl + src);
+    }
+    if (mode & PREFIX_SCALE_IN) {
+      Fr w;
+      load(w, tin, sl, src);
+      v[i] = mul(v[i], w);
+    }
+  }
+  __syncthreads();  // the twiddles
+  const int log_m = __ffs(m) - 1;
+  int s = log_m < PREFIX_LOG_EL ? log_m : PREFIX_LOG_EL, ld = 0;
+  run_pass<true>(v, tws, m, t, s, 0);
+  while (ld + s < log_m) {
+    const int ld2 = ld + s;
+    const int s2 = log_m - ld2 < PREFIX_LOG_EL ? log_m - ld2 : PREFIX_LOG_EL;
+    const int plane = rows * PREFIX_BLOCK_LANES;
+    __syncthreads();  // the last exchange's reads are done
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        sm[q * tile + e0] = u.v[q];
-        sm[q * tile + e1] = v.v[q];
-      }
+    for (int i = 0; i < PREFIX_EL; ++i) {
+      const int slot = tile_slot(pass_row(t, i, s, ld), lane);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) tile[q * plane + slot] = v[i].v[q];
     }
     __syncthreads();
-  }
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-    const int i = e / PREFIX_LANES, l = e % PREFIX_LANES;
-    const size_t dst = col0 + (size_t)(seg * m + i) * L + l;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) y[q * plane + dst] = sm[q * tile + e];
+    for (int i = 0; i < PREFIX_EL; ++i) {
+      const int slot = tile_slot(pass_row(t, i, s2, ld2), lane);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[i].v[q] = tile[q * plane + slot];
+    }
+    s = s2;
+    ld = ld2;
+    run_pass<false>(v, tws, m, t, s, ld);
+  }
+#pragma unroll
+  for (int i = 0; i < PREFIX_EL; ++i) {
+    const size_t dst = (size_t)(row0 + pass_row(t, i, s, ld)) * L + col;
+    if (mode & PREFIX_SCALE_OUT) {
+      Fr w;
+      load(w, tout, sl, dst);
+      const Fr p = mul(v[i], w);  // tout plain: the plain product
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        y[(2 * q) * plane_out + b * sl + dst] = p.v[q] & 0xffffu;
+        y[(2 * q + 1) * plane_out + b * sl + dst] = p.v[q] >> 16;
+      }
+    } else {
+      store(y, plane_out, b * sl + dst, v[i]);
+    }
   }
 }
 
@@ -183,14 +311,25 @@ int ntt_stage_fr(void* x, const void* tw, int B, int S, int L, int h,
 
 // x -> y: (8, B, S, L) int32, natural order along S in; out, the rows
 // bit-reversed along S and DIT stages 2..m applied.  tw: (8, S/2).
-// m: a power of two, 2 <= m <= S; L a multiple of PREFIX_LANES.
-int ntt_prefix_fr(const void* x, void* y, const void* tw, int B, int S,
-                  int L, int m, void* stream) {
-  if (!za::pow2(S) || !za::pow2(m) || m < 2 || m > S || L < 1
-      || L % za::PREFIX_LANES != 0 || B < 0)
+// m: a power of two, 2 <= m <= min(S, PREFIX_ROWS); S >= 8; L a multiple
+// of PREFIX_LANES.  mode: PREFIX_SCALE_IN (tin (8, S L) Montgomery,
+// multiplied in on load), PREFIX_COMBINE (x holds 3 B transforms, legs
+// 3b, 3b + 1, 3b + 2 loaded as a b - c), PREFIX_SCALE_OUT (m = S; tout
+// (8, S L) plain values multiplied in on store; y (16, B, S, L) 16-bit
+// plain limbs).  tin / tout are not read without their flag.
+int ntt_prefix_fr(const void* x, void* y, const void* tw, const void* tin,
+                  const void* tout, int B, int S, int L, int m, int mode,
+                  void* stream) {
+  const int rows = S < za::PREFIX_ROWS ? S : za::PREFIX_ROWS;
+  if (!za::pow2(S) || S < za::PREFIX_EL || !za::pow2(m) || m < 2
+      || m > rows || L < 1 || L % za::PREFIX_LANES != 0 || B < 0
+      || (mode & ~7) != 0 || ((mode & za::PREFIX_SCALE_OUT) && m != S))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
-  const int smem = 8 * m * za::PREFIX_LANES * (int)sizeof(uint32_t);
+  const bool exchange = m > za::PREFIX_EL;   // more than one pass
+  const int smem =
+      (4 * m + (exchange ? 8 * rows * za::PREFIX_BLOCK_LANES : 0))
+      * (int)sizeof(uint32_t);
   cudaError_t rc = cudaFuncSetAttribute(
       za::ntt_prefix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -198,13 +337,13 @@ int ntt_prefix_fr(const void* x, void* y, const void* tw, int B, int S,
     cudaGetLastError();  // clear it, or the next launch reports it
     return (int)rc;
   }
-  const int butterflies = m * za::PREFIX_LANES / 2;
-  const int tb = butterflies < za::PREFIX_TB ? butterflies : za::PREFIX_TB;
-  const dim3 grid((unsigned)(L / za::PREFIX_LANES), (unsigned)(S / m),
-                  (unsigned)B);
+  const int tb = rows * za::PREFIX_BLOCK_LANES / za::PREFIX_EL;
+  const dim3 grid((unsigned)(L / za::PREFIX_BLOCK_LANES),
+                  (unsigned)(S / rows), (unsigned)B);
   za::ntt_prefix_kernel<<<grid, tb, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, B, S, L, m,
-      __builtin_ctz((unsigned)S));
+      (const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw,
+      (const uint32_t*)tin, (const uint32_t*)tout, B, S, L, m,
+      __builtin_ctz((unsigned)S), rows, mode);
   return (int)cudaGetLastError();
 }
 

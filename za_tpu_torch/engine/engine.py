@@ -255,13 +255,11 @@ class GpuEngine:
         self._witness = (z, dev)  # holding z keeps its id valid
         return dev
 
-    def _z_mont(self, z) -> torch.Tensor:
-        return F.FR.to_mont(self.witness_limbs_dev(z).to(F.I64))
-
-    def _legs(self, r1cs: R1CS, z, m: int):
-        z_m = self._z_mont(z)
-        return tuple(RC.matvec(e, z_m, m)
-                     for e in RC.r1cs_entries(r1cs, self.device))
+    def _legs(self, r1cs: R1CS, z, m: int) -> torch.Tensor:
+        """The Az, Bz, Cz legs at domain size m, l32 (8, 3, m)
+        Montgomery, Az with the input-preservation rows."""
+        z32 = F.pack(self.witness_limbs_dev(z).to(F.I64))
+        return RC.matvec(RC.r1cs_csr(r1cs, m, self.device), z32)
 
     def r1cs_satisfied(self, r1cs: R1CS, z) -> bool:
         """Az o Bz == Cz on the device.  The Az/Bz/Cz legs are kept for
@@ -279,25 +277,19 @@ class GpuEngine:
 
     def h_coeffs_limbs(self, r1cs: R1CS, z, domain: Domain) -> torch.Tensor:
         """h_0..h_{m-2} as (16, m-1) int32 plain limbs on the device:
-        matvec -> iNTT -> coset NTT -> combine -> coset iNTT."""
+        matvec (r1cs_matvec_fr), then iNTT, coset NTT and coset iNTT
+        (NTT.h_transforms: the scalings, the combine and from_mont in the
+        prefix kernel's modes)."""
         m = domain.size
-        dom = self._domain(m)
         stash, self._sat_legs = self._sat_legs, None
         if stash is not None and stash[0] == (id(r1cs), id(z), m):
             legs = stash[1]
         else:
             legs = self._legs(r1cs, z, m)
-        x = torch.stack(legs, dim=1)                    # (16, 3, m)
-        # input-preservation rows (bellman layout): az[n + i] = z_i
-        n, ni = r1cs.num_constraints, r1cs.num_inputs
-        x[:, 0, n:n + ni] = self._z_mont(z)[:, :ni]
-        x = NTT.coset_ntt(dom, NTT.intt(dom, x))
-        hc = F.FR.sub(F.FR.mul(x[:, 0], x[:, 1]), x[:, 2])
-        hc = F.FR.mul(hc, dom.z_coset_inv)
-        h = F.FR.from_mont(NTT.coset_intt(dom, hc))
+        h = NTT.h_transforms(self._domain(m), legs)
         if bool(h[:, m - 1].any()):
             raise ValueError("h(x) degree overflow: witness unsatisfied?")
-        return h[:, :m - 1].to(torch.int32)
+        return h[:, :m - 1]
 
     def h_coeffs(self, r1cs: R1CS, z, domain: Domain) -> list[int]:
         return F.limbs_to_ints(self.h_coeffs_limbs(r1cs, z, domain).cpu())

@@ -14,11 +14,21 @@ The route depends on the size alone, so the CPU runs it too, through
 the plain versions.
 
 Smaller domains take the radix-2 transform, a sub-NTT of one lane: a
-bit-reversal gather, then one ``ntt_stage_fr`` launch per stage.  The
-coset and 1/n scalings are tensor code over ``engine.field`` (l16
-Montgomery limbs); in the four-step the inverse twiddles hold 1/n.
-Tables are built on the host once per domain size.  Mirrors
-``groth16.domain.Domain``, the host golden model.
+bit-reversal gather, then one ``ntt_stage_fr`` launch per stage.
+
+Transforms run on l32 (8, B, n) values (``transform``).  The prefix
+kernel takes in the code at a transform's boundaries: a scaling table on
+load (the coset powers), the combine a b - c of h(x)'s three legs on
+load, and on store a table of plain values with the output in 16-bit
+plain limbs (the inverse coset powers, 1/Z on the coset and from_mont
+in one product), so ``h_transforms`` is launches only on the four-step
+up to 2^18.  Where the prefix does not end a sub-NTT (tail stages above
+2^18) the store side, and on the radix-2 route both sides, run as
+tensor code over ``engine.field`` (``load_plain``, ``store_plain``).  In
+the four-step the inverse twiddles hold 1/n; radix-2 folds it into its
+tables.  Tables are built on the host once per domain size.  Mirrors
+``groth16.domain.Domain``, the host golden model; ``ntt``, ``intt``,
+``coset_ntt`` and ``coset_intt`` keep its l16 interface.
 """
 
 from __future__ import annotations
@@ -34,20 +44,33 @@ from ._build import kernel
 
 FR = F.FR
 NTT_STAGE = kernel("ntt_stage_fr", "ntt", "ppiiii")
-NTT_PREFIX = kernel("ntt_prefix_fr", "ntt", "pppiiii")
+NTT_PREFIX = kernel("ntt_prefix_fr", "ntt", "pppppiiiii")
 NTT_TWIDDLE = kernel("ntt_twiddle_fr", "ntt", "pppiii")
 
 #: domains at least this large take the four-step (the reference's
 #: FOURSTEP_MIN, ntt_rns.py)
 FOURSTEP_MIN = 1 << 12
 
-#: lanes of one ntt_prefix_fr block: PREFIX_LANES in csrc/ntt.cu, which
-#: a test holds equal to this one
+#: the ntt_prefix_fr lane tile, L a multiple of it (eight 4-byte lanes:
+#: one 32-byte sector a row and limb plane): PREFIX_LANES in csrc/ntt.cu,
+#: which a test holds equal to this one
 PREFIX_LANES = 8
 
-#: shared memory of one ntt_prefix_fr block: m_fuse rows x PREFIX_LANES
-#: lanes x 32 B.  128 KB fuses every stage of a 512-row sub-NTT (2^18).
+#: rows of one ntt_prefix_fr tile (PREFIX_ROWS in csrc/ntt.cu): m_fuse
+#: is at most this
+PREFIX_ROWS = 512
+
+#: the budget m_fuse is picked under (the reference's pick_m_fuse):
+#: m_fuse rows x PREFIX_LANES lanes x 32 B.  128 KB fuses every stage of
+#: a 512-row sub-NTT (2^18).
 PREFIX_SMEM_BYTES = 128 * 1024
+
+#: ntt_prefix_fr's mode flags (csrc/ntt.cu PREFIX_SCALE_IN, ...)
+PREFIX_MODES = {"scale_in": 1, "combine": 2, "scale_out": 4}
+
+#: launches of ntt_prefix_fr by mode ("plain" for none), beside the
+#: wrapper's total count
+PREFIX_LAUNCHES: dict[str, int] = {}
 
 
 def _pow_list(base: int, count: int, scale: int = 1) -> list[int]:
@@ -59,15 +82,16 @@ def _pow_list(base: int, count: int, scale: int = 1) -> list[int]:
     return out
 
 
-def _mont_table(vals, device) -> torch.Tensor:
-    """Fr ints -> (16, n) int64 l16 Montgomery constants."""
-    limbs = F.ints_to_limbs([FR.to_mont_int(v) for v in vals])
-    return torch.from_numpy(limbs.astype("int64")).to(device)
+def _table32(vals, device, mont: bool = True) -> torch.Tensor:
+    """Fr ints -> (8, n) l32 table, Montgomery or (mont=False) plain."""
+    if mont:
+        vals = [FR.to_mont_int(v) for v in vals]
+    return torch.from_numpy(F.ints_to_l32(vals).copy()).to(device)
 
 
 def _twiddles(base: int, count: int, device) -> torch.Tensor:
     """(8, count) l32 Montgomery table of base^k."""
-    return F.pack(_mont_table(_pow_list(base, max(count, 1)), device))
+    return _table32(_pow_list(base, max(count, 1)), device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,8 +125,7 @@ class FourStepTables:
         for _ in range(self.n2):      # row k2: scale * (w^k2)^j1
             vals += _pow_list(wk, self.n1, scale)
             wk = wk * w % R
-        return F.pack(_mont_table(vals, device)).reshape(
-            F.NL32, self.n2, self.n1)
+        return _table32(vals, device).reshape(F.NL32, self.n2, self.n1)
 
     def tables(self, inverse: bool):
         """(t2, t1, inter) of the forward or the inverse transform."""
@@ -113,26 +136,38 @@ class FourStepTables:
 
 class DeviceDomain:
     """Twiddle and scaling tables of a 2^k domain on ``device``:
-    four-step tables from FOURSTEP_MIN up, radix-2 ones below."""
+    four-step tables from FOURSTEP_MIN up, radix-2 ones below.  Scaling
+    tables are l32 (8, n); ``h_in`` (Montgomery) and ``h_out`` (plain
+    values) are h(x)'s load and store tables: the coset powers, and the
+    inverse coset powers times 1/Z on the coset, each with 1/n where the
+    transform does not fold it in (radix-2)."""
 
     def __init__(self, size: int, device):
         self.size = size
         self.host = h = Domain(size)
-        self.coset_pow = _mont_table(_pow_list(h.coset_gen, size), device)
-        self.z_coset_inv = _mont_table([h.z_coset_inv], device)
+        self.coset_pow = _table32(_pow_list(h.coset_gen, size), device)
         if size >= FOURSTEP_MIN:
             self.fourstep = FourStepTables(h, device)
             # the four-step inverse folds 1/n into its inter twiddles
-            self.coset_inv_nofold = _mont_table(
+            self.coset_inv_nofold = _table32(
                 _pow_list(h.coset_gen_inv, size), device)
+            self.h_in = self.coset_pow
+            self.h_out = _table32(
+                _pow_list(h.coset_gen_inv, size, h.z_coset_inv), device,
+                mont=False)
             return
         self.fourstep = None
         self.w_fwd = _twiddles(h.omega, size // 2, device)
         self.w_inv = _twiddles(h.omega_inv, size // 2, device)
-        self.size_inv = _mont_table([h.size_inv], device)
+        self.size_inv = _table32([h.size_inv], device)
         # inverse coset scaling with 1/n folded in
-        self.coset_inv_pow = _mont_table(
+        self.coset_inv_pow = _table32(
             _pow_list(h.coset_gen_inv, size, scale=h.size_inv), device)
+        self.h_in = _table32(_pow_list(h.coset_gen, size, h.size_inv),
+                             device)
+        self.h_out = _table32(
+            _pow_list(h.coset_gen_inv, size, h.size_inv * h.z_coset_inv),
+            device, mont=False)
 
 
 # -- the three kernels and their plain versions ------------------------------
@@ -193,38 +228,94 @@ def ntt_stages(x: torch.Tensor, tw: torch.Tensor,
 
 
 def prefix_rows(S: int, L: int) -> int:
-    """m_fuse: the largest power of two <= S whose m_fuse rows x
-    PREFIX_LANES lanes fit PREFIX_SMEM_BYTES (the reference's
-    pick_m_fuse); 1 where L is no multiple of the kernel's lane tile."""
-    if L % PREFIX_LANES:
+    """m_fuse: the largest power of two <= min(S, PREFIX_ROWS) whose
+    m_fuse rows x PREFIX_LANES lanes fit PREFIX_SMEM_BYTES (the
+    reference's pick_m_fuse); 1 where L is no multiple of the kernel's
+    lane tile or S < 8."""
+    if L % PREFIX_LANES or S < 8:
         return 1
-    m = S
+    m = min(S, PREFIX_ROWS)
     while m > 1 and m * PREFIX_LANES * 32 > PREFIX_SMEM_BYTES:
         m //= 2
     return m
 
 
-def ntt_prefix_plain(x: torch.Tensor, tw: torch.Tensor,
-                     m: int) -> torch.Tensor:
+def _table16(table: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """l32 (8, S L) table -> l16 (16, 1, S, L) against like (., B, S, L)."""
+    return F.unpack(table).reshape((F.NLIMBS, 1) + tuple(like.shape[2:]))
+
+
+def load_plain(x: torch.Tensor, scale_in=None,
+               combine: bool = False) -> torch.Tensor:
+    """The prefix's load modes in tensor code, on l32 (8, B, S, L):
+    combine takes legs (a, b, c) = batches 3i, 3i + 1, 3i + 2 to
+    a b - c, (8, B / 3, S, L); scale_in (8, S L) Montgomery multiplies
+    value [s, l] by scale_in[s L + l]."""
+    if scale_in is None and not combine:
+        return x
+    v = F.unpack(x)
+    if combine:
+        v = v.reshape((F.NLIMBS, -1, 3) + tuple(v.shape[2:]))
+        v = FR.sub(FR.mul(v[:, :, 0], v[:, :, 1]), v[:, :, 2])
+    if scale_in is not None:
+        v = FR.mul(v, _table16(scale_in, v))
+    return F.pack(v)
+
+
+def store_plain(y: torch.Tensor, scale_out=None) -> torch.Tensor:
+    """The prefix's store mode in tensor code: l32 (8, B, S, L) times
+    scale_out[s L + l], a table of plain values, which gives the plain
+    product -> (16, B, S, L) int32 16-bit plain limbs."""
+    if scale_out is None:
+        return y
+    return FR.mul(F.unpack(y), _table16(scale_out, y)).to(torch.int32)
+
+
+def ntt_prefix_plain(x: torch.Tensor, tw: torch.Tensor, m: int,
+                     scale_in=None, combine: bool = False,
+                     scale_out=None) -> torch.Tensor:
     """Bit reversal along axis 2 of l32 (8, B, S, L), then the DIT
-    stages of lengths 2..m."""
-    return F.pack(_stages16(F.unpack(_bitrev_rows(x)), F.unpack(tw), 2, m))
+    stages of lengths 2..m; the load and store modes as load_plain and
+    store_plain."""
+    x = _bitrev_rows(load_plain(x, scale_in, combine))
+    y = F.pack(_stages16(F.unpack(x), F.unpack(tw), 2, m))
+    return store_plain(y, scale_out)
 
 
-def ntt_prefix(x: torch.Tensor, tw: torch.Tensor, m: int) -> torch.Tensor:
-    """The prefix kernel, out of place."""
+def ntt_prefix(x: torch.Tensor, tw: torch.Tensor, m: int, scale_in=None,
+               combine: bool = False, scale_out=None) -> torch.Tensor:
+    """The prefix kernel, out of place, with its load and store modes:
+    (8, B, S, L) -> (8, B, S, L); combine: (8, 3 B, S, L) in; scale_out
+    (only with m = S): (16, B, S, L) plain limbs out."""
     if x.device.type == "cpu":
-        return ntt_prefix_plain(x, tw, m)
+        return ntt_prefix_plain(x, tw, m, scale_in, combine, scale_out)
     _, B, S, L = x.shape
+    tables = [t for t in (scale_in, scale_out) if t is not None]
     if (x.dtype != torch.int32 or tw.dtype != torch.int32
-            or tw.shape != (8, S // 2) or S & (S - 1) or m & (m - 1)
-            or not 2 <= m <= S or L % PREFIX_LANES):
-        raise ValueError(f"ntt_prefix: int32 (8, B, 2^k, L) values with L "
-                         f"a multiple of {PREFIX_LANES}, (8, 2^(k-1)) "
-                         f"twiddles, 2 <= m <= 2^k a power of two")
+            or tw.shape != (8, S // 2) or S & (S - 1) or S < 8
+            or m & (m - 1) or not 2 <= m <= S
+            or L % PREFIX_LANES or (combine and B % 3)
+            or (scale_out is not None and m != S)
+            or any(t.dtype != torch.int32 or t.shape != (8, S * L)
+                   for t in tables)):
+        raise ValueError(f"ntt_prefix: int32 (8, B, 2^k, L) values, "
+                         f"2^k >= 8, L a multiple of {PREFIX_LANES}, "
+                         f"(8, 2^(k-1)) twiddles, 2 <= m <= 2^k a power "
+                         f"of two (the kernel takes m <= {PREFIX_ROWS}), B a "
+                         f"multiple of 3 to combine, (8, 2^k L) tables, "
+                         f"m = 2^k to scale on store")
+    mode = sum(PREFIX_MODES[k] for k, on in (
+        ("scale_in", scale_in is not None), ("combine", combine),
+        ("scale_out", scale_out is not None)) if on)
+    B_out = B // 3 if combine else B
     x = x.contiguous()
-    y = torch.empty_like(x)
-    NTT_PREFIX(x, y, tw.contiguous(), B, S, L, m)
+    y = torch.empty((16 if scale_out is not None else 8, B_out, S, L),
+                    dtype=torch.int32, device=x.device)
+    tin = x if scale_in is None else scale_in.contiguous()
+    tout = x if scale_out is None else scale_out.contiguous()
+    NTT_PREFIX(x, y, tw.contiguous(), tin, tout, B_out, S, L, m, mode)
+    key = "+".join(k for k, v in PREFIX_MODES.items() if mode & v) or "plain"
+    PREFIX_LAUNCHES[key] = PREFIX_LAUNCHES.get(key, 0) + 1
     return y
 
 
@@ -253,59 +344,86 @@ def ntt_twiddle(a: torch.Tensor, inter: torch.Tensor) -> torch.Tensor:
 # -- the four-step -------------------------------------------------------------
 
 
-def _sub_ntt(x, table, S, prefix, stages):
+def _sub_ntt(x, table, S, prefix, stages, scale_in=None, combine=False,
+             scale_out=None):
     m = prefix_rows(S, x.shape[3])
     if m < 4:   # nothing worth fusing at this shape
-        return stages(_bitrev_rows(x), table, 2)
-    y = prefix(x, table, m)
-    return y if m == S else stages(y, table, 2 * m)
+        y = stages(_bitrev_rows(load_plain(x, scale_in, combine)), table, 2)
+        return store_plain(y, scale_out)
+    if m == S:
+        return prefix(x, table, m, scale_in, combine, scale_out)
+    y = stages(prefix(x, table, m, scale_in, combine), table, 2 * m)
+    return store_plain(y, scale_out)
 
 
-def sub_ntt(x: torch.Tensor, table: torch.Tensor, S: int) -> torch.Tensor:
+def sub_ntt(x: torch.Tensor, table: torch.Tensor, S: int, scale_in=None,
+            combine: bool = False, scale_out=None) -> torch.Tensor:
     """Radix-2 DIT NTT along axis 2 of l32 (8, B, S, L), natural order
     in and out: the bit reversal and stages 2..m_fuse in the prefix
-    kernel, the stages 2 m_fuse..S in the stage kernel."""
-    return _sub_ntt(x, table, S, ntt_prefix, ntt_stages)
+    kernel, the stages 2 m_fuse..S in the stage kernel.  The load modes
+    run in the prefix, the store mode too where it ends the transform
+    (m_fuse = S), else in tensor code (load_plain, store_plain)."""
+    return _sub_ntt(x, table, S, ntt_prefix, ntt_stages, scale_in, combine,
+                    scale_out)
 
 
-def sub_ntt_plain(x: torch.Tensor, table: torch.Tensor,
-                  S: int) -> torch.Tensor:
-    return _sub_ntt(x, table, S, ntt_prefix_plain, ntt_stages_plain)
+def sub_ntt_plain(x: torch.Tensor, table: torch.Tensor, S: int,
+                  scale_in=None, combine: bool = False,
+                  scale_out=None) -> torch.Tensor:
+    return _sub_ntt(x, table, S, ntt_prefix_plain, ntt_stages_plain,
+                    scale_in, combine, scale_out)
 
 
-def fourstep_core(x: torch.Tensor, t2, t1, inter, n1: int,
-                  n2: int) -> torch.Tensor:
-    """l32 (8, B, n) natural order -> (8, B, n) natural order."""
+def fourstep_core(x: torch.Tensor, t2, t1, inter, n1: int, n2: int,
+                  scale_in=None, combine: bool = False,
+                  scale_out=None) -> torch.Tensor:
+    """l32 (8, B, n) natural order -> (8, B, n) natural order; the load
+    modes on the first sub-NTT's input (index j2 n1 + j1 = natural), the
+    store mode on the second's output ([k1, k2]: natural)."""
     B = x.shape[1]
-    a = sub_ntt(x.reshape(F.NL32, B, n2, n1), t2, n2)  # over j2, lanes j1
-    a = ntt_twiddle(a, inter)                           # (8, B, n1, n2)
-    b = sub_ntt(a, t1, n1)                              # over j1, lanes k2
-    return b.reshape(F.NL32, B, n1 * n2)                # [k1, k2]: natural
+    a = sub_ntt(x.reshape(F.NL32, B, n2, n1), t2, n2,   # over j2, lanes j1
+                scale_in, combine)
+    a = ntt_twiddle(a, inter)                           # (8, B', n1, n2)
+    b = sub_ntt(a, t1, n1, scale_out=scale_out)         # over j1, lanes k2
+    return b.reshape(b.shape[0], b.shape[1], n1 * n2)
 
 
 # -- transforms ----------------------------------------------------------------
 
 
-def _core(dom: DeviceDomain, x: torch.Tensor, inverse: bool):
-    """NTT along the last axis of l16 (16, ..., n) Montgomery values
-    (natural order in and out), by w^-1 where inverse (and, four-step,
-    times 1/n)."""
-    x32 = F.pack(x)
-    shape = x32.shape
-    x32 = x32.reshape(F.NL32, -1, dom.size)
+def transform(dom: DeviceDomain, x: torch.Tensor, inverse: bool,
+              scale_in=None, combine: bool = False,
+              scale_out=None) -> torch.Tensor:
+    """NTT along the last axis of l32 (8, B, n) Montgomery values,
+    natural order in and out, by w^-1 where inverse (four-step: times
+    1/n).  The prefix's modes: scale_in (8, n) Montgomery multiplied in
+    on load; combine: B = 3 i legs a, b, c -> a b - c; scale_out (8, n)
+    plain values multiplied in on store, (16, B, n) int32 plain limbs
+    out."""
     fs = dom.fourstep
     if fs is not None:
-        y = fourstep_core(x32, *fs.tables(inverse), fs.n1, fs.n2)
-    else:   # radix-2: one sub-NTT over a single lane, nothing fused
-        table = dom.w_inv if inverse else dom.w_fwd
-        y = sub_ntt(x32.unsqueeze(-1), table, dom.size)
-    return F.unpack(y.reshape(shape))
+        return fourstep_core(x, *fs.tables(inverse), fs.n1, fs.n2,
+                             scale_in, combine, scale_out)
+    # radix-2: one sub-NTT over a single lane, nothing fused
+    table = dom.w_inv if inverse else dom.w_fwd
+    y = sub_ntt(x.unsqueeze(-1), table, dom.size, scale_in, combine,
+                scale_out)
+    return y.squeeze(-1)
+
+
+def _core(dom: DeviceDomain, x: torch.Tensor, inverse: bool, **modes):
+    """transform on l16 (16, ..., n) Montgomery values."""
+    x32 = F.pack(x)
+    y = transform(dom, x32.reshape(F.NL32, -1, dom.size), inverse, **modes)
+    return F.unpack(y.reshape(x32.shape))
 
 
 def _scale(x, table):
-    """Elementwise product with a (16, n) table (or (16, 1) constant)."""
-    return FR.mul(x, table.view((F.NLIMBS,) + (1,) * (x.dim() - 2)
-                                + (table.shape[-1],)))
+    """Elementwise product of l16 (16, ..., n) with an l32 (8, n) table
+    (or (8, 1) constant)."""
+    t = F.unpack(table)
+    return FR.mul(x, t.view((F.NLIMBS,) + (1,) * (x.dim() - 2)
+                            + (t.shape[-1],)))
 
 
 def ntt(dom: DeviceDomain, coeffs):
@@ -320,7 +438,7 @@ def intt(dom: DeviceDomain, evals):
 
 
 def coset_ntt(dom: DeviceDomain, coeffs):
-    return _core(dom, _scale(coeffs, dom.coset_pow), False)
+    return _core(dom, coeffs, False, scale_in=dom.coset_pow)
 
 
 def coset_intt(dom: DeviceDomain, evals):
@@ -328,3 +446,14 @@ def coset_intt(dom: DeviceDomain, evals):
     if dom.fourstep is not None:
         return _scale(x, dom.coset_inv_nofold)
     return _scale(x, dom.coset_inv_pow)
+
+
+def h_transforms(dom: DeviceDomain, legs: torch.Tensor) -> torch.Tensor:
+    """h(x) from the l32 (8, 3, m) Az, Bz, Cz legs: iNTT, coset NTT (the
+    coset powers on load), coset iNTT (a b - c on load; the inverse coset
+    powers, 1/Z on the coset and from_mont on store) -> (16, m) int32
+    plain limbs of h_0 .. h_{m-1}."""
+    x = transform(dom, legs, True)
+    x = transform(dom, x, False, scale_in=dom.h_in)
+    h = transform(dom, x, True, combine=True, scale_out=dom.h_out)
+    return h.reshape(F.NLIMBS, dom.size)
