@@ -23,8 +23,14 @@ Phases:
      (matvec, iNTT, coset NTT, coset iNTT; one 3-leg transform into
      prefix, tail stages, twiddle transpose), the plain matvec timed
      leg by leg; each MSM split step by step (digits, level 0, levels,
-     carry, lane fold, Horner); launches of the first prove alone
-     ("launches_per_proof", staging excluded);
+     carry, lane fold, Horner), each step timed alone ("breakdown_s")
+     and with CUDA events back to back inside the MSM, one sync
+     ("msm_inline_s"), medians of 3; each MSM run once more with its
+     aten ops and kernel launches logged: past its first tree level or
+     window sums, nothing but allocations, views and its carries, fold
+     and Horner ("msm_tail_torch_ops"); launches of the first prove alone
+     ("launches_per_proof", staging excluded): a lane fold per MSM, a
+     carry per tree chunk, no elementwise ec_add;
   3. the dense path at full width: the same at 2^13 constraints, where
      the padded queries stay below TREE_MIN and the four G1 MSMs run as
      one stacked dense MSM; then the same prove through
@@ -45,7 +51,10 @@ Phases:
      spill bytes from the build's ptxas logs ("regs", "spill_bytes"),
      every row's launches per 2^17 proof ("launches_per_proof"), the
      Horner rows' time per complete add of one MSM's chain
-     ("us_per_add"); printed as one JSON
+     ("us_per_add"); the lane fold at every MSM's shape and the carry
+     at each 2^17 chunk's, device time with a chain floor (dependent
+     adds x the Horner rows' time per add, "chain_floor_ms"), the
+     curve kernels' registers; printed as one JSON
      line {"kernels": [...]}; then one
      NTT through both routes (radix-2, four-step) at sizes from 2^9 to
      2^20, equal results, timed (the 2^17 line's "ntt_routes_ms");
@@ -82,12 +91,13 @@ MADS_PER_MUL = 4 * 8 * 8
 # constant.  An Fq2 multiplication is 3 Fq ones.
 ADD_MULS = {False: 12, True: 3 * 14}
 
-# the __global__ function behind each tree, Horner, prefix and matvec
+# the __global__ function behind each tree, curve, prefix and matvec
 # entry point of csrc/tree.cu, csrc/ec.cu, csrc/ntt.cu and csrc/r1cs.cu,
 # as ptxas names it, up to its last template argument:
 # tree_level_rolled_kernel<Fq, true, 8, ...>, <Fq, false, 8, ...>,
 # <Fq2, true, 4, ...> and <Fq2, false, 4, ...>; horner_warp_g1_kernel,
-# horner_warp_g2_kernel; ntt_prefix_kernel; r1cs_matvec_kernel
+# horner_warp_g2_kernel; ec_add_kernel, ec_fold_kernel and
+# ec_carry_kernel <Fq> and <Fq2>; ntt_prefix_kernel; r1cs_matvec_kernel
 KERNEL_FN = {
     "tree_level0_g1":
         "_ZN2za24tree_level_rolled_kernelINS_2FpINS_7QParamsEEELb1ELi8E",
@@ -97,6 +107,12 @@ KERNEL_FN = {
     "tree_level_g2": "_ZN2za24tree_level_rolled_kernelINS_3Fq2ELb0ELi4E",
     "horner_g1": "_ZN2za21horner_warp_g1_kernelE",
     "horner_g2": "_ZN2za21horner_warp_g2_kernelE",
+    "ec_add_g1": "_ZN2za13ec_add_kernelINS_2FpINS_7QParamsEEEEE",
+    "ec_add_g2": "_ZN2za13ec_add_kernelINS_3Fq2EEE",
+    "ec_fold_g1": "_ZN2za14ec_fold_kernelINS_2FpINS_7QParamsEEEEE",
+    "ec_fold_g2": "_ZN2za14ec_fold_kernelINS_3Fq2EEE",
+    "ec_carry_g1": "_ZN2za15ec_carry_kernelINS_2FpINS_7QParamsEEEEE",
+    "ec_carry_g2": "_ZN2za15ec_carry_kernelINS_3Fq2EEE",
     "ntt_prefix_fr": "_ZN2za17ntt_prefix_kernelE",
     "r1cs_matvec_fr": "_ZN2za18r1cs_matvec_kernelE",
 }
@@ -154,6 +170,35 @@ class Timer:
         b.record()
         t.cuda.synchronize()
         return out, a.elapsed_time(b) / 1e3
+
+
+class Split:
+    """Named steps of one run, each between two CUDA events.  sync: each
+    step ends in a host sync (a step alone); else the events are
+    recorded back to back and the host syncs once, in times() (a step
+    as it runs inside the stage, host gaps included).  times() ->
+    {name: seconds}, summed over the steps of one name."""
+
+    def __init__(self, torch, sync: bool):
+        self.torch, self.sync, self.marks = torch, sync, []
+
+    def __call__(self, name, fn):
+        ev = self.torch.cuda.Event
+        a, b = ev(enable_timing=True), ev(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        if self.sync:
+            self.torch.cuda.synchronize()
+        self.marks.append((name, a, b))
+        return out
+
+    def times(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {}
+        for name, a, b in self.marks:
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b) / 1e3
+        return out
 
 
 # -- phases 2 and 3: the tree and dense paths at full width ----------------------
@@ -214,22 +259,15 @@ def median_runs(fn, reps: int = 3):
     return stages, [sum(r.values()) for r in runs], sum(warm.values())
 
 
-def prove_path(torch, timer, log2n: int):
-    """Stage, prove and time the chain at 2^log2n constraints through
-    the engine's default routing; check h(x), the MSMs and the proof
-    exactly.  The dense path (no "g1abl" staged) also proves through
-    GpuEngine(msm_style="fused") and times its MSMs there."""
-    from za_tpu_torch.curve import (
-        G1_GEN, G2_GEN, R, g1_mul, g2_mul,
-    )
-    from za_tpu_torch.engine import _build, ntt as NTT
-    from za_tpu_torch.engine.engine import GpuEngine
-    from za_tpu_torch.engine.field import limbs_to_ints
+def chain_inputs(log2n: int) -> dict:
+    """The chain at 2^log2n constraints, its witness and a pk from
+    prime-size pools with known discrete logs: {"r1cs", "z", "domain",
+    "params", "dlogs" (per query), "alpha", "beta", "delta", "r", "s",
+    "rng" (for the checks)}."""
+    from za_tpu_torch.curve import G1_GEN, G2_GEN, R, g1_mul, g2_mul
     from za_tpu_torch.groth16.domain import Domain
-    from za_tpu_torch.groth16.prove import prove
     from za_tpu_torch.groth16.setup import Groth16Parameters, VerifyingKey
 
-    t0 = time.time()
     r1cs, z = chain_r1cs(1 << log2n)
     n, ni, nv = r1cs.num_constraints, r1cs.num_inputs, r1cs.num_vars
     domain = Domain.for_constraints(n + ni)
@@ -250,6 +288,33 @@ def prove_path(torch, timer, log2n: int):
     params = Groth16Parameters(vk=vk, h=h_q, l=l_q, a=a_q, b_g1=b1_q,
                                b_g2=b2_q, domain_size=m)
     r_, s_ = rng.randrange(1, R), rng.randrange(1, R)
+    return {"r1cs": r1cs, "z": z, "domain": domain, "params": params,
+            "dlogs": {"a": sa, "b1": sb1, "l": sl, "h": sh, "b2": sb2},
+            "alpha": alpha, "beta": beta, "delta": delta, "r": r_, "s": s_,
+            "rng": rng}
+
+
+def prove_path(torch, timer, log2n: int):
+    """Stage, prove and time the chain at 2^log2n constraints through
+    the engine's default routing; check h(x), the MSMs and the proof
+    exactly.  The dense path (no "g1abl" staged) also proves through
+    GpuEngine(msm_style="fused") and times its MSMs there."""
+    from za_tpu_torch.curve import G1_GEN, G2_GEN, R, g1_mul, g2_mul
+    from za_tpu_torch.engine import _build, ntt as NTT
+    from za_tpu_torch.engine.engine import GpuEngine
+    from za_tpu_torch.engine.field import limbs_to_ints
+    from za_tpu_torch.groth16.prove import prove
+
+    t0 = time.time()
+    inp = chain_inputs(log2n)
+    r1cs, z, domain, params = (inp[k] for k in ("r1cs", "z", "domain",
+                                                "params"))
+    sa, sb1, sl, sh, sb2 = (inp["dlogs"][k] for k in ("a", "b1", "l", "h",
+                                                      "b2"))
+    alpha, beta, delta, r_, s_, rng = (inp[k] for k in (
+        "alpha", "beta", "delta", "r", "s", "rng"))
+    n, ni = r1cs.num_constraints, r1cs.num_inputs
+    m = domain.size
     log(f"2^{log2n} inputs: n={n} domain={m} ({time.time() - t0:.1f}s)")
 
     eng = GpuEngine()
@@ -270,6 +335,7 @@ def prove_path(torch, timer, log2n: int):
     launches = {"default": {k: v + stage_launches[k]
                             for k, v in launch_counts().items()}}
     tree = "g1abl" in staged
+    check_tail_launches(per_proof, staged, log2n)
     log(f"2^{log2n} run {time.time() - t0:.1f}s (stage {stage_s:.2f}s, "
         f"first prove {prove_cold_s:.2f}s, {'tree' if tree else 'dense'}); "
         f"launches {launches['default']}")
@@ -305,6 +371,9 @@ def prove_path(torch, timer, log2n: int):
     torch_ops = h_torch_ops(eng, r1cs, z_l, domain)
     assert not any(torch_ops.values()), f"h(x) ran tensor code: {torch_ops}"
     parts = breakdown(timer, eng, r1cs, z_l, domain, staged, out["h"])
+    inline = median_split(lambda: msm_breakdowns(
+        torch, eng, staged, z_l, out["h"], ni, sync=False))
+    tail = msm_tail_torch_ops(eng, staged, z_l, out["h"], ni)
     eng.r1cs_satisfied(r1cs, z_l)
     sat_ok, sat_s = timer(lambda: eng.r1cs_satisfied(r1cs, z_l))
     peak = torch.cuda.max_memory_allocated()
@@ -361,6 +430,8 @@ def prove_path(torch, timer, log2n: int):
         "route": "tree" if tree else "dense",
         "stages_s": stages,
         "breakdown_s": parts,
+        "msm_inline_s": inline,
+        "msm_tail_torch_ops": tail,
         "runs_s": totals,
         "warmup_s": warm,
         "stage_s": stage_s,
@@ -514,7 +585,8 @@ def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
     kernel's."""
     import torch
 
-    from za_tpu_torch.engine import field as F, ntt as NTT, r1cs as RC
+    from za_tpu_torch.engine import field as F, msm_dense as MD, ntt as NTT
+    from za_tpu_torch.engine import r1cs as RC
 
     m = domain.size
     dom = eng._domain(m)
@@ -537,16 +609,132 @@ def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
     hc, t["h.coset_intt"] = timer(lambda: NTT.transform(
         dom, x, True, combine=True, scale_out=dom.h_out))
     assert torch.equal(hc.reshape(F.NLIMBS, m)[:, :m - 1], h), "h steps"
-    ni = r1cs.num_inputs
+    t.update(median_split(lambda: msm_breakdowns(
+        torch, eng, staged, z_l, h, r1cs.num_inputs, sync=True)))
+    for tag, tabs, _ in msm_queries(staged, z_l, h, r1cs.num_inputs):
+        if isinstance(tabs, MD.DenseTables):  # built once per pk, at staging
+            _, t[f"{tag}.multiples_at_staging"] = timer(
+                lambda: MD.build_tables((tabs.x[0], tabs.y[0], tabs.z[0]),
+                                        tabs.is_g2, tabs.radix))
+    return t
+
+
+def median_split(fn, reps: int = 3) -> dict:
+    """Per-key medians of reps runs of fn() -> {name: seconds}."""
+    runs = [fn() for _ in range(reps)]
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
+# the aten ops that launch no device work: allocations and views
+FREE_OPS = {"empty", "empty_like", "empty_strided", "view", "_unsafe_view",
+            "alias", "detach", "select", "slice", "as_strided", "expand",
+            "unsqueeze", "squeeze", "permute", "t", "transpose"}
+
+
+def check_tail_launches(per_proof, staged, log2n) -> None:
+    """A prove runs a lane fold per MSM, a carry per chunk of a tree MSM
+    and no elementwise ec_add (staging alone runs it)."""
+    tree = "g1abl" in staged
+    want = {"ec_fold_g1": 2 if tree else 1, "ec_fold_g2": 1,
+            "ec_add_g1": 0, "ec_add_g2": 0,
+            "ec_carry_g1": staged["g1abl"].chunks + staged["g1h"].chunks
+            if tree else 0,
+            "ec_carry_g2": staged["b_g2x"].chunks if tree else 0}
+    got = {k: per_proof[k] for k in want}
+    assert got == want, f"2^{log2n}: folds, carries and adds a proof: {got}"
+
+
+def msm_tail_torch_ops(eng, staged, z_l, h, ni) -> dict:
+    """One prove's MSMs (CT.msm_tree / MD.msm_dense on the staged
+    queries) with every aten op and kernel launch logged in order ->
+    {tag: {"ops": the ops other than allocations and views that run
+    after the first tree-level or window-sum launch, "launches": the
+    kernel launches from there on}}.  Past that point the chunk loop's
+    carries, the lane fold and Horner must be kernels alone."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from za_tpu_torch.engine import _build, cuda_tree as CT
+    from za_tpu_torch.engine import msm_dense as MD, msm_tree as MT
+
+    body = ("tree_level0_", "tree_level_", "dense_window_sums_",
+            "dense4_window_sums_")
+    events = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            events.append(("op", func.overloadpacket.__name__))
+            return func(*args, **(kwargs or {}))
+
+    call = _build.Kernel.__call__
+
+    def logged(self, *args):
+        events.append(("launch", self.name))
+        return call(self, *args)
+
+    out = {}
+    for tag, tabs, scal in msm_queries(staged, z_l, h, ni):
+        sc = eng._scalars(tabs, scal)
+        events.clear()
+        _build.Kernel.__call__ = logged
+        try:
+            with Log():
+                if isinstance(tabs, MT.AffineTables):
+                    CT.msm_tree(tabs, sc)
+                else:
+                    MD.msm_dense(tabs, sc)
+        finally:
+            _build.Kernel.__call__ = call
+        first = next((i for i, (kind, name) in enumerate(events)
+                      if kind == "launch" and name.startswith(body)), None)
+        assert first is not None, f"{tag}: no tree level or window sums ran"
+        tail = events[first:]
+        launches = {}
+        for kind, name in tail:
+            if kind == "launch" and not name.startswith(body):
+                launches[name] = launches.get(name, 0) + 1
+        out[tag] = {"ops": [name for kind, name in tail
+                            if kind == "op" and name not in FREE_OPS],
+                    "launches": launches}
+        g = "g2" if tabs.is_g2 else "g1"
+        want = {f"ec_fold_{g}": 1, f"horner_{g}": 1}
+        if isinstance(tabs, MT.AffineTables):
+            want[f"ec_carry_{g}"] = tabs.chunks
+        assert not out[tag]["ops"] and launches == want, \
+            f"{tag}: the MSM tail is not its kernels alone: {out[tag]}"
+    return out
+
+
+def msm_queries(staged, z_l, h, ni):
+    """-> [(tag, staged tables, scalar vectors)] of one prove's MSMs."""
     if "g1abl" in staged:
-        for tag, scal in (("g1abl", [z_l, z_l, z_l[:, ni:]]), ("g1h", [h]),
-                          ("b2", [z_l])):
-            st = staged["b_g2x" if tag == "b2" else tag]
-            t.update(tree_breakdown(timer, eng, st, scal, tag))
-    else:
-        t.update(dense_breakdown(timer, eng, staged["g1x4"],
-                                 [z_l, z_l, z_l[:, ni:], h], "g1x4"))
-        t.update(dense_breakdown(timer, eng, staged["b_g2x"], [z_l], "b2"))
+        return [("g1abl", staged["g1abl"], [z_l, z_l, z_l[:, ni:]]),
+                ("g1h", staged["g1h"], [h]), ("b2", staged["b_g2x"], [z_l])]
+    return [("g1x4", staged["g1x4"], [z_l, z_l, z_l[:, ni:], h]),
+            ("b2", staged["b_g2x"], [z_l])]
+
+
+def msm_breakdowns(torch, eng, staged, z_l, h, ni, sync: bool) -> dict:
+    """Each MSM of one prove split into its steps (tree: digits, then per
+    chunk level 0, the levels and the carry, summed over the chunks,
+    lane fold, Horner; dense: digits, window sums, lane fold, Horner),
+    the steps timed alone (sync) or back to back inside the stage, and
+    the stage's span ("{tag}.total")."""
+    from za_tpu_torch.engine import msm_tree as MT
+
+    t = {}
+    for tag, tabs, scal in msm_queries(staged, z_l, h, ni):
+        sc = eng._scalars(tabs, scal)
+        split = Split(torch, sync)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if isinstance(tabs, MT.AffineTables):
+            tree_steps(split, tabs, sc, tag)
+        else:
+            dense_steps(split, tabs, sc, tag)
+        b.record()
+        t.update(split.times())
+        t[f"{tag}.total"] = a.elapsed_time(b) / 1e3
     return t
 
 
@@ -582,60 +770,41 @@ def fourstep_breakdown(timer, dom, x):
     return t
 
 
-def tree_breakdown(timer, eng, tabs, scal, tag):
-    """digits, then per chunk level 0, the levels and the carry (summed
-    over the chunks), lane fold, Horner."""
-    from za_tpu_torch.engine import cuda_tree as CT, ec, msm as MSM
-    from za_tpu_torch.engine import msm_tree as MT
+def tree_steps(split, tabs, sc, tag):
+    """CT.msm_tree's steps, each through split."""
+    from za_tpu_torch.engine import cuda_tree as CT, msm as MSM
 
     g2 = tabs.is_g2
-    t = {}
-    sc = eng._scalars(tabs, scal)
-    d, t[f"{tag}.digits"] = timer(lambda: CT.window_digits(tabs, sc))
+    d = split(f"{tag}.digits", lambda: CT.window_digits(tabs, sc))
     acc = None
-    for k in ("level0", "levels", "carry"):
-        t[f"{tag}.{k}"] = 0.0
     for c in range(tabs.chunks):
-        (x, y, inf), dt = timer(
-            lambda: CT.tree_level0(tabs.tx[c], tabs.ty[c], d[c], g2))
-        t[f"{tag}.level0"] += dt
+        x, y, inf = split(f"{tag}.level0", lambda: CT.tree_level0(
+            tabs.tx[c], tabs.ty[c], d[c], g2))
 
         def levels(x=x, y=y, inf=inf):
             while x.shape[-1] > CT.TAIL:
                 x, y, inf = CT.tree_level(x, y, inf, g2)
             return x, y, inf
 
-        (x, y, inf), dt = timer(levels)
-        t[f"{tag}.levels"] += dt
-
-        def carry(x=x, y=y, inf=inf, acc=acc):
-            p = MT.proj_of_affine(x, y, inf, g2)
-            return p if acc is None else ec.ec_add(acc, p, g2)
-
-        acc, dt = timer(carry)
-        t[f"{tag}.carry"] += dt
-    w, t[f"{tag}.lane_fold"] = timer(lambda: MSM.lane_fold(acc, g2))
-    _, t[f"{tag}.horner"] = timer(lambda: MSM.horner_windows(w, g2, 4))
-    return t
+        x, y, inf = split(f"{tag}.levels", levels)
+        acc = split(f"{tag}.carry",
+                    lambda: CT.chunk_carry(acc, x, y, inf, g2))
+    w = split(f"{tag}.lane_fold", lambda: MSM.lane_fold(acc, g2))
+    return split(f"{tag}.horner", lambda: MSM.horner_windows(w, g2, 4))
 
 
-def dense_breakdown(timer, eng, tabs, scal, tag):
-    """digits, the {1P..KP} build (at staging, once per pk: timed here
-    from the staged base points), window sums, lane fold, Horner."""
+def dense_steps(split, tabs, sc, tag):
+    """MD.msm_dense's steps, each through split."""
     from za_tpu_torch.engine import msm as MSM, msm_dense as MD
 
-    t = {}
-    sc = eng._scalars(tabs, scal)
-    d, t[f"{tag}.digits"] = timer(lambda: MD.digits(sc, tabs.radix))
-    _, t[f"{tag}.multiples_at_staging"] = timer(lambda: MD.build_tables(
-        (tabs.x[0], tabs.y[0], tabs.z[0]), tabs.is_g2, tabs.radix))
+    g2 = tabs.is_g2
+    d = split(f"{tag}.digits", lambda: MD.digits(sc, tabs.radix))
     L = MD.lanes(tabs.m, tabs.n, tabs.radix)
-    acc, t[f"{tag}.window_sums"] = timer(
-        lambda: MD.dense_window_sums(tabs, d, L))
-    w, t[f"{tag}.lane_fold"] = timer(lambda: MSM.lane_fold(acc, tabs.is_g2))
-    _, t[f"{tag}.horner"] = timer(lambda: MSM.horner_windows(
-        w, tabs.is_g2, MD.BITS[tabs.radix]))
-    return t
+    acc = split(f"{tag}.window_sums",
+                lambda: MD.dense_window_sums(tabs, d, L))
+    w = split(f"{tag}.lane_fold", lambda: MSM.lane_fold(acc, g2))
+    return split(f"{tag}.horner", lambda: MSM.horner_windows(
+        w, g2, MD.BITS[tabs.radix]))
 
 
 # -- phase 4: a verifying proof ------------------------------------------------------
@@ -714,6 +883,25 @@ def ptxas_usage(log_text: str, prefix: str) -> dict:
         return {"regs": int(regs.group(1)),
                 "spill_bytes": int(spill.group(1)) + int(spill.group(2))}
     raise AssertionError(f"ptxas log: no entry function {prefix}...")
+
+
+def device_ms(torch, fn, reps: int = 5) -> float:
+    """Device ms of fn()'s launches, median of reps calls after a
+    warm-up: each call is queued behind a ~2 ms sleep kernel, so its
+    launches reach the card back to back and the host's time to issue
+    them does not count."""
+    fn()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)   # cycles
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
 
 
 def compare(torch, name, kern, plain, args, reps: int = 3):
@@ -861,6 +1049,12 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         # one MSM's chain: bits doublings and one add per window
         rows[-1]["us_per_add"] = ms * 1e3 / ((bits + 1) * W)
         rows[-1].update(ptxas_usage(ec_log, KERNEL_FN[f"horner_{g}"]))
+    # the staged add's latency, from the radix-16 Horner rows of this run
+    warp_us = {}
+    for r in rows:
+        if r["name"].startswith("horner_"):
+            warp_us.setdefault(r["name"][-2:], r["us_per_add"])
+    rows.extend(tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log))
 
     # the four-step's kernels at the 2^17 rung (domain 2^18), the first
     # sub-NTT's shape: 3 legs x n2 rows x n1 lanes
@@ -943,10 +1137,11 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         outs, ms, pms, err = compare(
             torch, f"ec_add_{g}",
             lambda *a: ec.ec_add(a[:3], a[3:6], is_g2),
-            lambda *a: ec.ec_add_plain(a[:3], a[3:6], is_g2), pts)
+            lambda *a: ec.ec_add_plain(a[:3], a[3:6], is_g2), pts, reps=5)
         row(f"ec_add_{g}", ec_src, "za_tpu/engine/ec.py:453",
             f"{npts} points", ms, pms, err, nbytes(*pts, *outs),
             ADD_MULS[is_g2] * npts)
+        rows[-1].update(ptxas_usage(ec_log, KERNEL_FN[f"ec_add_{g}"]))
         coords = [rand_fq(torch, E[1:] + (8 * npts,), gen) for _ in range(3)]
         outs, ms, pms, err = compare(
             torch, f"to_affine_{g}",
@@ -968,6 +1163,88 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         r[f"launches_per_proof_2^{LOG2N_DENSE}"] = dctx["per_proof"].get(
             key, 0)
     return rows
+
+
+def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
+    """Rows of the lane fold at every shape a proof gives it (each MSM's
+    (M, W, L)) and of the carry at each 2^17 chunk's (M, 64, 128), on
+    random points (a tenth of the carry's flagged at infinity), exact
+    against the plain versions; ms the device time of one launch, median
+    of 5 (device_ms).  Bounds
+    count one complete add per pair (the carry's Z2 = 1 product left
+    out); "chain_floor_ms" is the dependent adds (log2 L levels, or one)
+    times the staged add's latency measured by the Horner rows."""
+    from za_tpu_torch.engine import cuda_tree as CT, msm as MSM
+    from za_tpu_torch.engine import msm_dense as MD, msm_tree as MT
+
+    timer = Timer(torch)
+    src = "za_tpu_torch/csrc/ec.cu"
+    replaces = {"ec_fold": "za_tpu/engine/msm.py:684",     # lane_fold
+                "ec_carry": "za_tpu/engine/msm_tree.py:639"}  # carry scan
+    shapes = []   # (where, staged tables, lanes)
+    for tag in ("g1abl", "g1h", "b_g2x"):
+        shapes.append((f"2^{LOG2N} {tag}", tctx["staged"][tag], CT.TAIL))
+    for st, style in ((dctx["staged"], ""), (dctx["fstaged"], " fused")):
+        for tag in ("g1x4", "b_g2x"):
+            t = st[tag]
+            shapes.append((f"2^{LOG2N_DENSE}{style} {tag}", t,
+                           MD.lanes(t.m, t.n, t.radix)))
+    out = []
+
+    def differ(name, outs, want) -> int:
+        err = max(int((a != b).sum()) for a, b in zip(outs, want))
+        assert err == 0, f"{name}: kernel differs from its plain version"
+        return err
+
+    def add_row(name, shape, ms, pms, err, bmoved, muls, floor_us):
+        b_ms, by = bound(bmoved, muls)
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces[name[:-3]], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None, "shape": shape,
+            "chain_floor_ms": floor_us / 1e3,
+            **ptxas_usage(ec_log, KERNEL_FN[name])})
+        log(f"{name} [{shape}]: {ms:.4f} ms (plain {pms:.1f} ms, bound "
+            f"{b_ms:.4f} ms by {by}, chain floor {floor_us / 1e3:.4f} ms)")
+
+    for where, tabs, L in shapes:
+        g2, g = tabs.is_g2, "g2" if tabs.is_g2 else "g1"
+        W = MSM.WINDOWS[4 if isinstance(tabs, MT.AffineTables)
+                        else MD.BITS[tabs.radix]]
+        E = (2,) if g2 else ()
+        pts = [rand_fq(torch, E + (tabs.m, W, L), gen) for _ in range(3)]
+        want, pms = timer(lambda: MSM.lane_fold_plain(pts, g2))
+        outs = MSM.lane_fold(pts, g2)
+        err = differ(f"ec_fold_{g}", outs, want)
+        ms = device_ms(torch, lambda: MSM.lane_fold(pts, g2))
+        split = MSM.fold_split(tabs.m * W, L, pts[0].device)
+        wide = MSM.FOLD_STAGED_MAX[g2]
+        add_row(f"ec_fold_{g}", f"{where} M={tabs.m} W={W} L={L}, "
+                f"{MSM.FOLD_WARPS[g2]} warps, " + (
+                    "every level staged" if wide >= L // 2 else
+                    f"levels over {wide} adds one a thread")
+                + f", {split} blocks a window", ms, pms * 1e3, err,
+                nbytes(*pts, *outs), ADD_MULS[g2] * tabs.m * W * (L - 1),
+                (L.bit_length() - 1) * warp_us[g])
+        if isinstance(tabs, MT.AffineTables):
+            acc = [rand_fq(torch, E + (tabs.m, W, L), gen) for _ in range(3)]
+            x, y = (rand_fq(torch, E + (tabs.m, W, L), gen) for _ in "xy")
+            inf = torch.rand((tabs.m, W, L), generator=gen,
+                             device="cuda") < 0.1
+            want, pms = timer(
+                lambda: CT.chunk_carry_plain(acc, x, y, inf, g2))
+            outs = CT.chunk_carry([c.clone() for c in acc], x, y, inf, g2)
+            err = differ(f"ec_carry_{g}", outs, want)
+            # in place: each timed launch adds the partials once more
+            ms = device_ms(torch, lambda: CT.chunk_carry(outs, x, y, inf,
+                                                         g2))
+            n = tabs.m * W * L
+            add_row(f"ec_carry_{g}", f"{where} M={tabs.m} W={W} T={L}", ms,
+                    pms * 1e3, err,
+                    nbytes(*acc, x, y, inf) + nbytes(*acc),
+                    (ADD_MULS[g2] - (3 if g2 else 1)) * n, warp_us[g])
+    return out
 
 
 def ntt_routes(torch, cached):

@@ -314,3 +314,71 @@ def test_horner_g1_four_msms(gen, bits):
     w = [_rand_fq((4, MSM.WINDOWS[bits]), gen) for _ in range(3)]
     assert _same(MSM.horner_windows(w, False, bits),
                  MSM.horner_windows_plain(w, False, bits))
+
+
+def _with_identities(p, is_g2, gen, share=0.1):
+    """p with a random share of its points, window 1 of MSM 0 whole and
+    the last MSM's last window whole, set to (0 : 1 : 0)."""
+    ident = torch.rand(p[0].shape[ec.elem_axes(is_g2):], generator=gen,
+                       device="cuda") < share
+    ident[0, 1] = True
+    ident[-1, -1] = True
+    m = ident.view((1,) * ec.elem_axes(is_g2) + tuple(ident.shape))
+    return [torch.where(m, i, c)
+            for c, i in zip(p, ec.identity_like(p[0], is_g2))]
+
+
+@pytest.mark.parametrize("variant", ["default", "per_thread", "staged"])
+@pytest.mark.parametrize("L", [1, 2, 512])
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_lane_fold_kernel_matches_plain(gen, is_g2, L, variant,
+                                        monkeypatch):
+    """M = 1-4 MSMs, W = 64 and 127 windows, identity lanes and windows;
+    every level per thread over 2 blocks a window, every level staged
+    over 8, and the defaults."""
+    if variant != "default":
+        per_thread = variant == "per_thread"
+        monkeypatch.setitem(MSM.FOLD_STAGED_MAX, is_g2,
+                            0 if per_thread else 1 << 30)
+        monkeypatch.setitem(MSM.FOLD_WARPS, is_g2, 4 if per_thread else 16)
+        monkeypatch.setattr(MSM, "fold_split", lambda G, L, device: min(
+            2 if per_thread else 8, L))
+    E = (2,) if is_g2 else ()
+    for M, W in ((1, 64), (4, 127), (3, 64), (2, 127)):
+        p = _with_identities([_rand_fq(E + (M, W, L), gen)
+                              for _ in range(3)], is_g2, gen)
+        assert _same(MSM.lane_fold(p, is_g2), MSM.lane_fold_plain(p, is_g2))
+
+
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_lane_fold_kernel_all_identity_and_bad_shapes(gen, is_g2):
+    """All lanes at (0 : 1 : 0) fold to it; more than FOLD_MAX_LANES
+    lanes or a lane count that is no power of two raise, no launch."""
+    E = (2,) if is_g2 else ()
+    ident = ec.identity_like(_rand_fq(E + (2, 64, 8), gen), is_g2)
+    assert _same(MSM.lane_fold(ident, is_g2),
+                 tuple(c[..., 0] for c in ident))
+    before = MSM.FOLD[is_g2].launches
+    for L in (2 * MSM.FOLD_MAX_LANES, 6):
+        p = [_rand_fq(E + (1, 2, L), gen) for _ in range(3)]
+        with pytest.raises(ValueError, match="power of two"):
+            MSM.lane_fold(p, is_g2)
+    assert MSM.FOLD[is_g2].launches == before
+
+
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_chunk_carry_kernel_matches_plain(gen, is_g2):
+    """The first chunk, then two more, at the 2^17 shapes and small ones;
+    partials at infinity (a share, whole windows) and accumulators at
+    (0 : 1 : 0)."""
+    E = (2,) if is_g2 else ()
+    for M, W, T in ((3, 64, 128), (1, 64, 128), (4, 127, 8), (2, 1, 1)):
+        got = want = None
+        for c in range(3):
+            x, y = (_rand_fq(E + (M, W, T), gen) for _ in "xy")
+            inf = torch.rand((M, W, T), generator=gen, device="cuda") < 0.2
+            inf[0, 0] = True
+            inf[-1] = c == 0   # MSM M-1: every partial of chunk 0
+            want = CT.chunk_carry_plain(want, x, y, inf, is_g2)
+            got = CT.chunk_carry(got, x, y, inf, is_g2)
+            assert _same(got, want), (M, W, T, c)

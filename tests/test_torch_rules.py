@@ -54,7 +54,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
              "to_affine_g2", "horner_g1", "horner_g2", "ntt_stage_fr",
              "dense_window_sums_g1", "dense_window_sums_g2",
              "dense4_window_sums_g1", "dense4_window_sums_g2",
-             "ntt_prefix_fr", "ntt_twiddle_fr", "r1cs_matvec_fr"}
+             "ntt_prefix_fr", "ntt_twiddle_fr", "r1cs_matvec_fr",
+             "ec_fold_g1", "ec_fold_g2", "ec_carry_g1", "ec_carry_g2"}
     assert names <= set(_build.KERNELS)
     for name in names:
         k = _build.KERNELS[name]

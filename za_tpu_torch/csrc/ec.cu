@@ -2,8 +2,10 @@
 //
 // ec_add: complete projective addition (Renes-Costello-Batina 2015,
 // algorithm 7, a = 0), one point pair per thread.  It serves the
-// {1P..8P} table build at staging, the per-chunk projective carry and
-// the lane fold of the tree MSM.
+// {1P..8P} table build at staging.
+// ec_fold: the lane fold of both MSM routes, one launch per MSM, and
+// ec_carry: the tree MSM's chunk carry, one launch per chunk; both on the
+// Horner kernels' staged add (below).
 // horner: the window combine sum_w 2^(bits w) S_w of M MSMs in one
 // launch (320 dependent adds each at radix 16, 381 at radix 4): as that
 // many ec_add launches on a few points it cost more in launches than in
@@ -16,8 +18,8 @@
 // and 0.89 ms, ~2.3 us an add), three in G2 (1.29-1.33 and 1.55-1.59
 // ms); NVIDIA H100 80GB HBM3, 700 W.
 // In the reference all of these are XLA code (za_tpu/engine/ec.py
-// point_add, msm.build_multiples, msm.lane_fold, msm.horner_windows),
-// not Pallas kernels.
+// point_add, msm.build_multiples, msm.lane_fold, msm.horner_windows,
+// the carry scan of msm_tree.tree_window_sums), not Pallas kernels.
 // to_affine: projective -> affine (Z = 0 maps to 0), the reference's
 // msm_tree._normalize_affine: a block batch-inverts the Z of its TB * K
 // points (prefix products per thread, block_inverse, walk back), so a
@@ -30,6 +32,8 @@
 // every operand in registers and launches one thread per point (K per
 // thread for to_affine); the work is independent, so the card fills
 // once there are more than ~100k points, as at table build.
+
+#include <cooperative_groups.h>
 
 #include "curve.cuh"
 
@@ -97,10 +101,11 @@ __device__ const int8_t C1_POST[6] = {0, 0, 0, 0, 2, 2};  // t1' = t1 - 9 t2,
 __device__ const int8_t C3_TERMS[3][3] = {
     {2, -1, 0}, {4, 3, 0}, {6, 5, 0}};  // X3, Y3, Z3
 
-// Lane l < 6: product l, (s[a1] + s[a2]) (s[b1] + s[b2]).
-__device__ __forceinline__ void product(Fq* s, int out, int lane, int a1,
-                                        int a2, int b1, int b2) {
-  const Fq r = mul(add(s[a1], s[a2]), add(s[b1], s[b2]));
+// Lane l < 6: product l, (a1 + a2) (b1 + b2).
+__device__ __forceinline__ void product(Fq* s, int out, int lane,
+                                        const Fq& a1, const Fq& a2,
+                                        const Fq& b1, const Fq& b2) {
+  const Fq r = mul(add(a1, a2), add(b1, b2));
   if (lane < 6) s[out + lane] = r;
 }
 
@@ -110,9 +115,10 @@ __device__ __forceinline__ Fq term(const Fq* s, int L, const Fq& r, int e) {
   return e < 0 ? sub(r, k) : add(r, k);
 }
 
-// Lane l < nv: value v = l of the stage (see C1_TERMS).
-__device__ __forceinline__ void combine(Fq* s, int out, int nv, int lane,
-                                        int L, const int8_t (*terms)[3],
+// Lane l < nv: value v = l of the stage (see C1_TERMS), into out[l].
+__device__ __forceinline__ void combine(const Fq* s, Fq* out, int nv,
+                                        int lane, int L,
+                                        const int8_t (*terms)[3],
                                         const int8_t* nine,
                                         const int8_t* post) {
   const int v = min(lane, nv - 1);
@@ -126,21 +132,23 @@ __device__ __forceinline__ void combine(Fq* s, int out, int nv, int lane,
     r = add(r8, r);
   }
   if (post) r = term(s, L, r, post[v]);
-  if (lane < nv) s[out + lane] = r;
+  if (lane < nv) out[lane] = r;
 }
 
-// acc = acc + (the point at slot qb: P doubles, Q adds S_w)
-__device__ __noinline__ void point_add(Fq* s, int qb, int lane) {
+// p = p + q: p and q the X, Y, Z slots of two points (in this scratch
+// or elsewhere in shared memory; the same slots double), s the scratch
+__device__ __noinline__ void point_add(Fq* s, Fq* p, const Fq* q,
+                                       int lane) {
   const int j = min(lane, 5);
   const int o1 = L1_OPS[j][0], o2 = L1_OPS[j][1];
-  product(s, L1, lane, P + o1, o2 < 0 ? ZERO : P + o2, qb + o1,
-          o2 < 0 ? ZERO : qb + o2);
+  product(s, L1, lane, p[o1], o2 < 0 ? s[ZERO] : p[o2], q[o1],
+          o2 < 0 ? s[ZERO] : q[o2]);
   __syncwarp();
-  combine(s, C1, 6, lane, L1, C1_TERMS, C1_NINE, C1_POST);
+  combine(s, s + C1, 6, lane, L1, C1_TERMS, C1_NINE, C1_POST);
   __syncwarp();
-  product(s, L3, lane, L3_OPS[j][0], ZERO, L3_OPS[j][1], ZERO);
+  product(s, L3, lane, s[L3_OPS[j][0]], s[ZERO], s[L3_OPS[j][1]], s[ZERO]);
   __syncwarp();
-  combine(s, P, 3, lane, L3, C3_TERMS, nullptr, nullptr);
+  combine(s, p, 3, lane, L3, C3_TERMS, nullptr, nullptr);
   __syncwarp();
 }
 }  // namespace hw1
@@ -170,10 +178,11 @@ horner_warp_g1_kernel(const uint32_t* __restrict__ WX,
       sw = src[j * plane + (size_t)m * W + w];
     }
 #pragma unroll 1
-    for (int d = 0; d < bits; ++d) hw1::point_add(s, hw1::P, lane);
+    for (int d = 0; d < bits; ++d)
+      hw1::point_add(s, s + hw1::P, s + hw1::P, lane);
     if (lane < 24) s[hw1::Q + c].v[j] = sw;
     __syncwarp();
-    hw1::point_add(s, hw1::Q, lane);
+    hw1::point_add(s, s + hw1::P, s + hw1::Q, lane);
   }
   if (lane < 24) {
     uint32_t* dst = c == 0 ? X : c == 1 ? Y : Z;
@@ -224,19 +233,22 @@ __device__ const int8_t C3_TERMS[3][3] = {
     {2, -1, 0}, {4, 3, 0}, {6, 5, 0}};  // X3, Y3, Z3
 
 // Lane l < 4 np: sub-product q = l & 3 of Fq2 product j = l >> 2,
-// A_ca B_cb with (ca, cb) = (0,0), (1,1), (0,1), (1,0); A = s[a1] + s[a2]
-// and B = s[b1] + s[b2] as Fq2 values (slots of their c0).
+// A_ca B_cb with (ca, cb) = (0,0), (1,1), (0,1), (1,0); A = a1 + a2 and
+// B = b1 + b2 as Fq2 values (pointers to their c0).
 __device__ __forceinline__ void product(Fq* s, int out, int np, int lane,
-                                        int a1, int a2, int b1, int b2) {
+                                        const Fq* a1, const Fq* a2,
+                                        const Fq* b1, const Fq* b2) {
   const int q = lane & 3, ca = q & 1, cb = (q ^ (q >> 1)) & 1;
-  const Fq r = mul(add(s[a1 + ca], s[a2 + ca]), add(s[b1 + cb], s[b2 + cb]));
+  const Fq r = mul(add(a1[ca], a2[ca]), add(b1[cb], b2[cb]));
   if (lane < 4 * np) s[out + lane] = r;
 }
 
 // Lane l < 2 nv: component c = l & 1 of value v = l >> 1 (see C1_TERMS),
-// with K_j = (S_4j - S_4j+1, S_4j+2 + S_4j+3) from the sub-products at L.
-__device__ __forceinline__ void combine(Fq* s, int out, int nv, int lane,
-                                        int L, const int8_t (*terms)[3],
+// with K_j = (S_4j - S_4j+1, S_4j+2 + S_4j+3) from the sub-products at
+// L, into out[l].
+__device__ __forceinline__ void combine(const Fq* s, Fq* out, int nv,
+                                        int lane, int L,
+                                        const int8_t (*terms)[3],
                                         const int8_t* keep) {
   const int v = min(lane >> 1, nv - 1), c = lane & 1;
   Fq r = s[(keep ? keep[v] : ZERO) + c];
@@ -247,26 +259,30 @@ __device__ __forceinline__ void combine(Fq* s, int out, int nv, int lane,
     const Fq k = c ? add(s[at], s[at + 1]) : sub(s[at], s[at + 1]);
     r = e < 0 ? sub(r, k) : add(r, k);
   }
-  if (lane < 2 * nv) s[out + lane] = r;
+  if (lane < 2 * nv) out[lane] = r;
 }
 
-// acc = acc + (the Fq2 point at slot qb: P doubles, Q adds S_w)
-__device__ __noinline__ void point_add(Fq* s, int qb, int lane) {
+// p = p + q: p and q the six Fq slots (X, Y, Z; c0, c1 each) of two
+// points (in this scratch or elsewhere in shared memory; the same slots
+// double), s the scratch
+__device__ __noinline__ void point_add(Fq* s, Fq* p, const Fq* q,
+                                       int lane) {
   const int j = min(lane >> 2, 5);
   const int o1 = L1_OPS[j][0], o2 = L1_OPS[j][1];
-  product(s, L1, 6, lane, P + o1, o2 < 0 ? ZERO : P + o2, qb + o1,
-          o2 < 0 ? ZERO : qb + o2);
+  const Fq* z = s + ZERO;
+  product(s, L1, 6, lane, p + o1, o2 < 0 ? z : p + o2, q + o1,
+          o2 < 0 ? z : q + o2);
   __syncwarp();
-  combine(s, C1, 6, lane, L1, C1_TERMS, nullptr);
+  combine(s, s + C1, 6, lane, L1, C1_TERMS, nullptr);
   __syncwarp();
-  product(s, L2, 2, lane, B3, ZERO, (lane >> 2) & 1 ? C1 + 10 : C1 + 4,
-          ZERO);  // 3b t2, 3b y3
+  product(s, L2, 2, lane, s + B3, z,
+          s + ((lane >> 2) & 1 ? C1 + 10 : C1 + 4), z);  // 3b t2, 3b y3
   __syncwarp();
-  combine(s, C2, 3, lane, L2, C2_TERMS, C2_KEEP);
+  combine(s, s + C2, 3, lane, L2, C2_TERMS, C2_KEEP);
   __syncwarp();
-  product(s, L3, 6, lane, L3_OPS[j][0], ZERO, L3_OPS[j][1], ZERO);
+  product(s, L3, 6, lane, s + L3_OPS[j][0], z, s + L3_OPS[j][1], z);
   __syncwarp();
-  combine(s, P, 3, lane, L3, C3_TERMS, nullptr);
+  combine(s, p, 3, lane, L3, C3_TERMS, nullptr);
   __syncwarp();
 }
 }  // namespace hw2
@@ -303,17 +319,254 @@ horner_warp_g2_kernel(const uint32_t* __restrict__ WX,
       }
     }
 #pragma unroll 1
-    for (int d = 0; d < bits; ++d) hw2::point_add(s, hw2::P, lane);
+    for (int d = 0; d < bits; ++d)
+      hw2::point_add(s, s + hw2::P, s + hw2::P, lane);
     for (int i = 0; i < 2; ++i) {
       const int k = lane + 32 * i;
       if (k < 48) s[hw2::Q + (k >> 3)].v[k & 7] = sw[i];
     }
     __syncwarp();
-    hw2::point_add(s, hw2::Q, lane);
+    hw2::point_add(s, s + hw2::P, s + hw2::Q, lane);
   }
   for (int k = lane; k < 48; k += 32) {
     uint32_t* dst = (k >> 4) == 0 ? X : (k >> 4) == 1 ? Y : Z;
     dst[(2 * (k & 7) + ((k >> 3) & 1)) * M + m] = s[hw2::P + (k >> 3)].v[k & 7];
+  }
+}
+
+// -- the lane fold and the chunk carry: staged adds on shared memory ---------
+//
+// Both run the Horner kernels' staged add (hw1 / hw2 point_add): one add
+// on WIDTH lanes with a scratch of SLOTS Fq of its own, UNITS of them a
+// warp: five G1 adds on lanes 0-29 (lanes 30 and 31 ride along with the
+// fifth and only read), one G2 add on the whole warp.  A point is NS
+// consecutive Fq slots, hw1::P's and hw2::P's layout: X, Y, Z (G1); X.c0,
+// X.c1, Y.c0, Y.c1, Z.c0, Z.c1 (G2).  The staged add's latency is two
+// (G1) or three (G2) products where one thread's add is a chain of 14 or
+// 42 (~10 and ~48 us, NVIDIA H100 80GB HBM3, 700 W): the proof gives
+// these kernels 8k-25k adds (a carry) or a fold whose levels shrink to
+// M * W adds, too few threads to hide that chain.  Measured on that
+// card: a fold 0.026-0.037 ms (G1) and 0.057-0.15 ms (G2), a carry
+// 0.014-0.026 (G1) and 0.043 ms (G2), against 0.15-0.54 ms and
+// 0.057-0.095 ms of device time for the ec_add launches they replace
+// (tools/torch_fold_sweep.py).  Bound: operations at these shapes
+// (0.0015-0.021 ms); what holds them is the chain of dependent staged
+// adds, log2 L of them in a fold (a floor of 0.017-0.037 ms) and one in
+// a carry.
+template <class F> struct Staged;
+template <> struct Staged<Fq> {
+  static constexpr int NS = 3, UNITS = 5, WIDTH = 6;
+  static constexpr int SLOTS = hw1::SLOTS, P = hw1::P, Q = hw1::Q;
+  __device__ static void init(Fq* s, int sub) {  // ZERO
+    for (int w = sub; w < 8; w += WIDTH) s[hw1::ZERO].v[w] = 0u;
+  }
+  __device__ static void add(Fq* s, Fq* p, const Fq* q, int sub) {
+    hw1::point_add(s, p, q, sub);
+  }
+};
+template <> struct Staged<Fq2> {
+  static constexpr int NS = 6, UNITS = 1, WIDTH = 32;
+  static constexpr int SLOTS = hw2::SLOTS, P = hw2::P, Q = hw2::Q;
+  __device__ static void init(Fq* s, int sub) {  // ZERO and 3b
+    if (sub < 16) {
+      const Fq2 b = b3<Fq2>();
+      s[hw2::ZERO + (sub >> 3)].v[sub & 7] = 0u;
+      s[hw2::B3 + (sub >> 3)].v[sub & 7] =
+          (sub >> 3) ? b.c1.v[sub & 7] : b.c0.v[sub & 7];
+    }
+  }
+  __device__ static void add(Fq* s, Fq* p, const Fq* q, int sub) {
+    hw2::point_add(s, p, q, sub);
+  }
+};
+
+// Word r < 8 NS of a point: coordinate c, plane pl within it (the limb in
+// G1, 2 limb + component in G2), and its slot and limb among the point's
+// NS slots.
+template <class F>
+__device__ __forceinline__ void point_word(int r, int& c, int& pl, int& slot,
+                                           int& limb) {
+  constexpr int per = Staged<F>::NS / 3;  // Fq slots of a coordinate
+  c = r / (8 * per);
+  pl = r % (8 * per);
+  slot = c * per + pl % per;
+  limb = pl / per;
+}
+
+__device__ __forceinline__ void get(Fq& r, const Fq* s) { r = s[0]; }
+__device__ __forceinline__ void get(Fq2& r, const Fq* s) {
+  r.c0 = s[0];
+  r.c1 = s[1];
+}
+__device__ __forceinline__ void put(Fq* s, const Fq& a) { s[0] = a; }
+__device__ __forceinline__ void put(Fq* s, const Fq2& a) {
+  s[0] = a.c0;
+  s[1] = a.c1;
+}
+
+// lane i += lane i + h on one thread: curve.cuh's add in registers
+template <class F>
+__device__ __noinline__ void thread_add(Fq* pts, int i, int h) {
+  constexpr int w = Staged<F>::NS / 3;
+  Fq* a = pts + Staged<F>::NS * i;
+  const Fq* b = pts + Staged<F>::NS * (i + h);
+  F x1, y1, z1, x2, y2, z2;
+  get(x1, a);
+  get(y1, a + w);
+  get(z1, a + 2 * w);
+  get(x2, b);
+  get(y2, b + w);
+  get(z2, b + 2 * w);
+  point_add(x1, y1, z1, x2, y2, z2, x1, y1, z1);
+  put(a, x1);
+  put(a + w, y1);
+  put(a + 2 * w, z1);
+}
+
+constexpr int FOLD_MAX_LANES = 512;    // lanes of one group
+constexpr int FOLD_MAX_THREADS = 512;  // threads of a fold block
+constexpr int FOLD_MAX_SPLIT = 8;      // blocks of a group (a cluster)
+
+// Fold-half levels of lanes 0 .. n-1 into lane 0, on the block: level h
+// = n/2 .. 1 adds lane i + h into lane i for i < h, __syncthreads after
+// each.  A level of more than `wide` adds runs one add per thread; a
+// narrower one runs staged adds, unit u (of warps * UNITS) taking adds
+// u, u + warps * UNITS, ...
+template <class F>
+__device__ __forceinline__ void fold_levels(Fq* pts, Fq* s, int n, int wide,
+                                            int k, int sub) {
+  using S = Staged<F>;
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
+  const int units = (nt >> 5) * S::UNITS;
+#pragma unroll 1
+  for (int h = n >> 1; h > 0; h >>= 1) {
+    if (h > wide) {
+      for (int i = tid; i < h; i += nt) thread_add<F>(pts, i, h);
+    } else {
+#pragma unroll 1
+      for (int b = warp * S::UNITS; b < h; b += units) {
+        const int i = b + k;  // past h the unit adds its own P and Q
+        S::add(s, i < h ? pts + i * S::NS : s + S::P,
+               i < h ? pts + (i + h) * S::NS : s + S::Q, sub);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The lane fold of msm.lane_fold in one launch: input (*E, G, L), output
+// (*E, G); a cluster of K blocks sums the L lanes of group g (one window
+// of one MSM), the output equal to the plain fold-half's bit for bit.
+// Fold-half pairs lane i with i + h, and for h >= K both lie in one
+// residue class mod K, so block r of the cluster takes lanes r, r + K,
+// r + 2K, ... (its local lanes 0 .. L/K - 1) and folds them alone in
+// shared memory, ending with lane r; after a cluster barrier block 0
+// reads lanes 1 .. K-1 from the other blocks' shared memory (Hopper's
+// distributed shared memory) and folds the K lanes.  K spreads a group
+// whose first levels hold more adds than one SM turns over quickly
+// across SMs (64 windows of a G2 MSM fill 64 SMs at K = 1).  Replaces the
+// lane fold's chain of ec_add launches (log2 L per MSM, each after its
+// own slicing copies).
+template <class F>
+__global__ void __launch_bounds__(FOLD_MAX_THREADS)
+ec_fold_kernel(const uint32_t* __restrict__ X,
+               const uint32_t* __restrict__ Y,
+               const uint32_t* __restrict__ Z, uint32_t* __restrict__ OX,
+               uint32_t* __restrict__ OY, uint32_t* __restrict__ OZ, int G,
+               int L, int wide) {
+  using S = Staged<F>;
+  namespace cg = cooperative_groups;
+  extern __shared__ Fq smem[];  // max(L/K, K) points, then the scratch
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int n = L / K, tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int k = min(lane / S::WIDTH, S::UNITS - 1);
+  const int sub = lane - S::WIDTH * k;
+  Fq* pts = smem;
+  Fq* s = smem + max(n, K) * S::NS + (warp * S::UNITS + k) * S::SLOTS;
+  const size_t plane = (size_t)G * L, g = blockIdx.x / K;
+  for (int e = tid; e < 8 * S::NS * n; e += nt) {  // coalesced over lanes
+    const int j = e % n;
+    int c, pl, slot, limb;
+    point_word<F>(e / n, c, pl, slot, limb);
+    const uint32_t* src = c == 0 ? X : c == 1 ? Y : Z;
+    pts[j * S::NS + slot].v[limb] = src[pl * plane + g * L + j * K + r];
+  }
+  S::init(s, sub);
+  __syncthreads();
+  fold_levels<F>(pts, s, n, wide, k, sub);
+  if (K > 1) {
+    cluster.sync();  // every block's lane r is final
+    if (r == 0) {
+      for (int e = tid; e < S::NS * (K - 1); e += nt) {
+        const Fq* far = cluster.map_shared_rank(smem, e / S::NS + 1);
+        pts[S::NS + e] = far[e % S::NS];
+      }
+    }
+    cluster.sync();  // read: the other blocks may leave
+    if (r != 0) return;
+    fold_levels<F>(pts, s, K, wide, k, sub);
+  }
+  for (int e = tid; e < 8 * S::NS; e += nt) {
+    int c, pl, slot, limb;
+    point_word<F>(e, c, pl, slot, limb);
+    uint32_t* dst = c == 0 ? OX : c == 1 ? OY : OZ;
+    dst[pl * (size_t)G + g] = pts[slot].v[limb];
+  }
+}
+
+constexpr int CARRY_WARPS = 4;  // warps of a carry block
+
+// The tree MSM's chunk carry in one launch, in place: acc += (x : y : 1),
+// or + (0 : 1 : 0) where inf, for each of the n partials of a chunk (the
+// last tree level's affine output); `first` writes that point into acc
+// instead (msm_tree.proj_of_affine).  One staged unit a partial: its
+// lanes load acc into the scratch's P slots and the point into Q, add,
+// store P.  Replaces proj_of_affine's tensor ops and an ec_add launch.
+template <class F>
+__global__ void __launch_bounds__(32 * CARRY_WARPS)
+ec_carry_kernel(uint32_t* __restrict__ X, uint32_t* __restrict__ Y,
+                uint32_t* __restrict__ Z, const uint32_t* __restrict__ x,
+                const uint32_t* __restrict__ y,
+                const uint8_t* __restrict__ inf, int n, int first) {
+  using S = Staged<F>;
+  __shared__ Fq scratch[CARRY_WARPS * S::UNITS * S::SLOTS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = min(lane / S::WIDTH, S::UNITS - 1);
+  const int sub = lane - S::WIDTH * k;
+  Fq* s = scratch + (warp * S::UNITS + k) * S::SLOTS;
+  const size_t i =
+      ((size_t)blockIdx.x * CARRY_WARPS + warp) * S::UNITS + k;
+  const bool on = i < (size_t)n && sub < S::WIDTH;  // the unit's own lanes
+  S::init(s, sub);
+  if (on) {
+    const bool at_inf = inf[i] != 0;
+    for (int r = sub; r < 8 * S::NS; r += S::WIDTH) {
+      int c, pl, slot, limb;
+      point_word<F>(r, c, pl, slot, limb);
+      // 1 in Montgomery form in component 0, 0 in component 1
+      const uint32_t one_w =
+          pl % (S::NS / 3) == 0 ? QParams::one(limb) : 0u;
+      uint32_t v;
+      if (c == 2) v = at_inf ? 0u : one_w;
+      else if (at_inf) v = c == 1 ? one_w : 0u;
+      else v = (c == 0 ? x : y)[pl * (size_t)n + i];
+      s[S::Q + slot].v[limb] = v;
+      if (!first)
+        s[S::P + slot].v[limb] =
+            (c == 0 ? X : c == 1 ? Y : Z)[pl * (size_t)n + i];
+    }
+  }
+  __syncwarp();
+  if (!first) S::add(s, s + S::P, s + S::Q, sub);  // warp-uniform
+  if (on) {
+    const Fq* res = first ? s + S::Q : s + S::P;
+    for (int r = sub; r < 8 * S::NS; r += S::WIDTH) {
+      int c, pl, slot, limb;
+      point_word<F>(r, c, pl, slot, limb);
+      (c == 0 ? X : c == 1 ? Y : Z)[pl * (size_t)n + i] = res[slot].v[limb];
+    }
   }
 }
 
@@ -376,6 +629,62 @@ int launch_add(const void* X1, const void* Y1, const void* Z1,
   return (int)cudaGetLastError();
 }
 
+template <class F>
+int launch_fold(const void* X, const void* Y, const void* Z, void* OX,
+                void* OY, void* OZ, int G, int L, int wide, int warps,
+                int split, void* stream) {
+  if (G < 0 || L < 1 || L > FOLD_MAX_LANES || (L & (L - 1)) || warps < 1
+      || 32 * warps > FOLD_MAX_THREADS || split < 1 || split > L
+      || split > FOLD_MAX_SPLIT || (split & (split - 1)))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0) return (int)cudaGetLastError();
+  using S = Staged<F>;
+  const int lanes = L / split > split ? L / split : split;
+  const int smem =
+      (lanes * S::NS + warps * S::UNITS * S::SLOTS) * (int)sizeof(Fq);
+  cudaError_t rc = cudaFuncSetAttribute(
+      ec_fold_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();  // clear it, or the next launch reports it
+    return (int)rc;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)G * split);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  rc = cudaLaunchKernelEx(&cfg, ec_fold_kernel<F>, (const uint32_t*)X,
+                          (const uint32_t*)Y, (const uint32_t*)Z,
+                          (uint32_t*)OX, (uint32_t*)OY, (uint32_t*)OZ, G, L,
+                          wide);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();
+    return (int)rc;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class F>
+int launch_carry(void* X, void* Y, void* Z, const void* x, const void* y,
+                 const void* inf, int n, int first, void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int per = CARRY_WARPS * Staged<F>::UNITS;
+    ec_carry_kernel<F><<<(n + per - 1) / per, 32 * CARRY_WARPS, 0,
+                         (cudaStream_t)stream>>>(
+        (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, (const uint32_t*)x,
+        (const uint32_t*)y, (const uint8_t*)inf, n, first);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <class F, int K>
 int launch_affine(const void* X, const void* Y, const void* Z, void* x,
                   void* y, int n, void* stream) {
@@ -405,6 +714,30 @@ int ec_add_g2(const void* X1, const void* Y1, const void* Z1, const void* X2,
               int n, void* stream) {
   return za::launch_add<za::Fq2>(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, n,
                                  stream);
+}
+
+int ec_fold_g1(const void* X, const void* Y, const void* Z, void* OX,
+               void* OY, void* OZ, int G, int L, int wide, int warps,
+               int split, void* stream) {
+  return za::launch_fold<za::Fq>(X, Y, Z, OX, OY, OZ, G, L, wide, warps,
+                                 split, stream);
+}
+
+int ec_fold_g2(const void* X, const void* Y, const void* Z, void* OX,
+               void* OY, void* OZ, int G, int L, int wide, int warps,
+               int split, void* stream) {
+  return za::launch_fold<za::Fq2>(X, Y, Z, OX, OY, OZ, G, L, wide, warps,
+                                  split, stream);
+}
+
+int ec_carry_g1(void* X, void* Y, void* Z, const void* x, const void* y,
+                const void* inf, int n, int first, void* stream) {
+  return za::launch_carry<za::Fq>(X, Y, Z, x, y, inf, n, first, stream);
+}
+
+int ec_carry_g2(void* X, void* Y, void* Z, const void* x, const void* y,
+                const void* inf, int n, int first, void* stream) {
+  return za::launch_carry<za::Fq2>(X, Y, Z, x, y, inf, n, first, stream);
 }
 
 int horner_g1(const void* WX, const void* WY, const void* WZ, void* X,

@@ -1,17 +1,20 @@
-"""The four tree-level kernels of ``csrc/tree.cu`` and the chunk loop
-of the tree MSM.
+"""The four tree-level kernels of ``csrc/tree.cu``, the chunk carry of
+``csrc/ec.cu`` and the chunk loop of the tree MSM.
 
-Kernel wrappers (plain versions in ``engine.msm_tree``):
+Kernel wrappers (plain versions in ``engine.msm_tree`` and here):
 
   tree_level0(tabx, taby, d, is_g2)  <- pallas_tree.tree_level0_fused[_g2]
   tree_level(x, y, inf, is_g2)       <- pallas_tree.tree_level[_g2]
+  chunk_carry(acc, x, y, inf, is_g2) <- the carry scan of
+                                        msm_tree.tree_window_sums
 
 The loop mirrors pallas_tree.tree_window_sums_fused /
 msm_tree_fused (and their _g2 twins): digits once for all chunks; per
 chunk level 0, then levels until ``TAIL`` (128) pair columns remain;
-those partials go projective and add into the chunk carry; then the
-lane fold and Horner.  Keeping the reference's schedule lets a level
-of the port be held against a level of the reference.
+those affine partials add into the projective chunk carry (one launch);
+then the lane fold and Horner (one launch each).  Keeping the
+reference's schedule lets a level of the port be held against a level
+of the reference.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ TREE_LEVEL0 = {False: kernel("tree_level0_g1", "tree", "ppppppiii"),
                True: kernel("tree_level0_g2", "tree", "ppppppiii")}
 TREE_LEVEL = {False: kernel("tree_level_g1", "tree", "ppppppiii"),
               True: kernel("tree_level_g2", "tree", "ppppppiii")}
+CARRY = {False: kernel("ec_carry_g1", "ec", "ppppppii"),
+         True: kernel("ec_carry_g2", "ec", "ppppppii")}
 
 TAIL = 128  # partials per window left to the projective tail
 
@@ -74,15 +79,40 @@ def tree_level(x, y, inf, is_g2: bool):
 
 
 def chunk_partials(tabx, taby, d, is_g2: bool):
-    """One chunk's per-window partials: projective (*E, M, W, T)."""
-    S = d.shape[-1]
-    if S > TAIL:
-        x, y, inf = tree_level0(tabx, taby, d, is_g2)
-        while x.shape[-1] > TAIL:
-            x, y, inf = tree_level(x, y, inf, is_g2)
-    else:
-        x, y, inf = MT.select_tables(tabx, taby, d, is_g2)
-    return MT.proj_of_affine(x, y, inf, is_g2)
+    """One chunk's per-window partials: flagged affine x, y (*E, M, W,
+    T), inf (M, W, T)."""
+    if d.shape[-1] <= TAIL:
+        return MT.select_tables(tabx, taby, d, is_g2)
+    x, y, inf = tree_level0(tabx, taby, d, is_g2)
+    while x.shape[-1] > TAIL:
+        x, y, inf = tree_level(x, y, inf, is_g2)
+    return x, y, inf
+
+
+def chunk_carry_plain(acc, x, y, inf, is_g2: bool):
+    p = MT.proj_of_affine(x, y, inf, is_g2)
+    return p if acc is None else ec.ec_add_plain(acc, p, is_g2)
+
+
+def chunk_carry(acc, x, y, inf, is_g2: bool):
+    """acc + the chunk's flagged affine partials x, y (*E, M, W, T), inf
+    (M, W, T), as projective (X, Y, Z); acc None: the partials alone.
+    On CUDA one launch, acc updated in place."""
+    if x.device.type == "cpu":
+        return chunk_carry_plain(acc, x, y, inf, is_g2)
+    x, y, inf = x.contiguous(), y.contiguous(), inf.contiguous()
+    if (x.shape != _elem_shape(is_g2) + inf.shape or y.shape != x.shape
+            or x.dtype != torch.int32 or y.dtype != torch.int32
+            or inf.dtype != torch.bool
+            or (acc is not None and any(
+                c.shape != x.shape or c.dtype != torch.int32
+                or not c.is_contiguous() for c in acc))):
+        raise ValueError("chunk_carry: bad point/flag shapes or types")
+    first = acc is None
+    if first:
+        acc = tuple(torch.empty_like(x) for _ in range(3))
+    CARRY[is_g2](*acc, x, y, inf, inf.numel(), int(first))
+    return acc
 
 
 def window_digits(tables: MT.AffineTables, scalars):
@@ -104,8 +134,8 @@ def tree_window_sums(tables: MT.AffineTables, scalars):
     d = window_digits(tables, scalars)
     acc = None
     for c in range(tables.chunks):
-        part = chunk_partials(tables.tx[c], tables.ty[c], d[c], is_g2)
-        acc = part if acc is None else ec.ec_add(acc, part, is_g2)
+        acc = chunk_carry(acc, *chunk_partials(tables.tx[c], tables.ty[c],
+                                               d[c], is_g2), is_g2)
     return MSM.lane_fold(acc, is_g2)
 
 

@@ -7,10 +7,11 @@ subgroups Groth16 works in.  Points at kernel boundaries are tuples
 ``(8, 2, ...)`` for G2 (``engine.field``).
 
 Two kernels of ``csrc/ec.cu`` back this module, each with its plain
-version here: ``ec_add`` (table build, chunk carry, lane fold) and
-``to_affine`` (staged tables to affine); the third, ``horner``, is
-wrapped in ``engine.msm``.  A wrapper runs the plain version only for
-CPU tensors; for CUDA tensors it launches the kernel or raises.
+version here: ``ec_add`` (the table build at staging) and
+``to_affine`` (staged tables to affine); the others, ``ec_fold`` and
+``horner``, are wrapped in ``engine.msm``, ``ec_carry`` in
+``engine.cuda_tree``.  A wrapper runs the plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations

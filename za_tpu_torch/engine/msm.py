@@ -8,13 +8,15 @@ the MSM.
   top(v) = v >> 3.
 * ``radix4_digits``: the same limbs -> (127, ...) int8 unsigned 2-bit
   windows, s = sum d_w 4^w (za_tpu/engine/msm.py msm_limbs_dense).
-* ``lane_fold``: sums the last axis of a projective point tensor.
+* ``lane_fold``: sums the last axis of a projective point tensor by
+  fold-half levels (kernel ``ec_fold`` of csrc/ec.cu, one launch).
 * ``horner_windows``: combines per-window sums MSB first, ``bits``
   doublings per window (kernel ``horner`` of csrc/ec.cu).
-The lane fold runs on the ``ec_add`` kernel (``engine.ec``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -48,14 +50,63 @@ def radix4_digits(scalars: torch.Tensor) -> torch.Tensor:
     return raw[:WINDOWS[2]].to(torch.int8)
 
 
-def lane_fold(p, is_g2: bool):
-    """Sum over the last axis (a power of two) by fold-half adds:
-    leaves (.., L) -> (..)."""
+FOLD = {False: kernel("ec_fold_g1", "ec", "ppppppiiiii"),
+        True: kernel("ec_fold_g2", "ec", "ppppppiiiii")}
+FOLD_MAX_LANES = 512   # csrc/ec.cu FOLD_MAX_LANES (a group in shared memory)
+FOLD_MAX_SPLIT = 8     # csrc/ec.cu FOLD_MAX_SPLIT (blocks of a cluster)
+# warps of a fold block, and the widest level (in adds) that still runs
+# staged adds over lanes, a wider one running one add per thread; with
+# fold_split's rule, chosen by tools/torch_fold_sweep.py at the proofs'
+# shapes (PERF.md): every G1 level staged, G2 levels of more than 64
+# adds (L >= 256) one add a thread.
+FOLD_WARPS = {False: 8, True: 16}
+FOLD_STAGED_MAX = {False: 1 << 30, True: 64}
+_SMS: dict = {}
+
+
+def fold_split(G: int, L: int, device) -> int:
+    """Blocks per group: the most (a power of two, at most
+    FOLD_MAX_SPLIT and L) that keep the G groups' blocks to one per SM
+    of the card; past that the split lost at every shape measured (a G2
+    block, 512 threads at 128 registers, fills an SM's register file)."""
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    k = 1
+    while 2 * k <= min(FOLD_MAX_SPLIT, L) and G * 2 * k <= sms:
+        k *= 2
+    return k
+
+
+def lane_fold_plain(p, is_g2: bool):
     while p[0].shape[-1] > 1:
         h = p[0].shape[-1] // 2
-        p = ec.ec_add(tuple(c[..., :h] for c in p),
-                      tuple(c[..., h:] for c in p), is_g2)
+        p = ec.ec_add_plain(tuple(c[..., :h] for c in p),
+                            tuple(c[..., h:] for c in p), is_g2)
     return tuple(c[..., 0] for c in p)
+
+
+def lane_fold(p, is_g2: bool):
+    """Sum over the last axis L (a power of two, at most FOLD_MAX_LANES)
+    by fold-half levels, lane i + L/2 into lane i, then the same on the
+    first half: leaves (*E, .., L) -> (*E, ..).  One launch."""
+    if p[0].device.type == "cpu":
+        return lane_fold_plain(p, is_g2)
+    p = tuple(c.contiguous() for c in p)
+    shape, ne = p[0].shape, ec.elem_axes(is_g2)
+    L = shape[-1]
+    if (shape[:ne] != ((8, 2) if is_g2 else (8,)) or len(shape) < ne + 1
+            or L < 1 or L > FOLD_MAX_LANES or L & (L - 1)
+            or any(c.shape != shape or c.dtype != torch.int32 for c in p)):
+        raise ValueError(f"lane_fold: int32 points (*E, .., L) of one shape,"
+                         f" L a power of two up to {FOLD_MAX_LANES}")
+    outs = [torch.empty(shape[:-1], dtype=torch.int32, device=p[0].device)
+            for _ in range(3)]
+    G = math.prod(shape[ne:-1])
+    FOLD[is_g2](*p, *outs, G, L, FOLD_STAGED_MAX[is_g2], FOLD_WARPS[is_g2],
+                fold_split(G, L, p[0].device))
+    return tuple(outs)
 
 
 HORNER = {False: kernel("horner_g1", "ec", "ppppppiii"),
