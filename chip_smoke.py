@@ -47,11 +47,15 @@ Phases:
      its bound; the tree levels at every level of one 2^17 chunk
      ("per_level_ms"); the matvec at the 2^17 chain's three legs, the
      NTT prefix in each mode (scale on load, combine on load, scale on
-     store); the tree, Horner, prefix and matvec kernels' registers and
-     spill bytes from the build's ptxas logs ("regs", "spill_bytes"),
-     every row's launches per 2^17 proof ("launches_per_proof"), the
-     Horner rows' time per complete add of one MSM's chain
-     ("us_per_add"); the lane fold at every MSM's shape and the carry
+     store); the tree, dense, Horner, prefix and matvec kernels'
+     registers and spill bytes from the build's ptxas logs ("regs",
+     "spill_bytes"), every row's launches per 2^17 proof
+     ("launches_per_proof"), the Horner rows' time per complete add of
+     one MSM's chain and the dense rows' per add of one lane's chain
+     ("us_per_add"), the dense rows' resident warps an SM
+     ("warps_per_sm", the occupancy query) and points a thread walks
+     ("adds_a_thread", n / (S L)), at the (L, S) the proof takes; the
+     lane fold at every MSM's shape and the carry
      at each 2^17 chunk's, device time with a chain floor (dependent
      adds x the Horner rows' time per add, "chain_floor_ms"), the
      curve kernels' registers; printed as one JSON
@@ -87,18 +91,27 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 MADS_PER_MUL = 4 * 8 * 8
 # Fq multiplications one complete projective add needs (RCB algorithm 7):
 # 12 general ones plus two products by 3b.  In G1, 3b = 9 is three
-# doublings and an add, no multiplication; in G2 it is a full Fq2
-# constant.  An Fq2 multiplication is 3 Fq ones.
+# doublings and an add, no multiplication (curve.cuh mul_b3, in every
+# kernel on point_add); in G2 it is a full Fq2 constant.  An Fq2
+# multiplication is 3 Fq ones.
 ADD_MULS = {False: 12, True: 3 * 14}
 
-# the __global__ function behind each tree, curve, prefix and matvec
-# entry point of csrc/tree.cu, csrc/ec.cu, csrc/ntt.cu and csrc/r1cs.cu,
-# as ptxas names it, up to its last template argument:
-# tree_level_rolled_kernel<Fq, true, 8, ...>, <Fq, false, 8, ...>,
-# <Fq2, true, 4, ...> and <Fq2, false, 4, ...>; horner_warp_g1_kernel,
-# horner_warp_g2_kernel; ec_add_kernel, ec_fold_kernel and
-# ec_carry_kernel <Fq> and <Fq2>; ntt_prefix_kernel; r1cs_matvec_kernel
+# the __global__ function behind each tree, curve, dense, prefix and
+# matvec entry point of csrc/tree.cu, csrc/ec.cu, csrc/dense.cu,
+# csrc/ntt.cu and csrc/r1cs.cu, as ptxas names it, up to its last
+# template argument: tree_level_rolled_kernel<Fq, true, 8, ...>, <Fq,
+# false, 8, ...>, <Fq2, true, 4, ...> and <Fq2, false, 4, ...>;
+# horner_warp_g1_kernel, horner_warp_g2_kernel; ec_add_kernel,
+# ec_fold_kernel and ec_carry_kernel <Fq> and <Fq2>; dense_sums_kernel
+# <Fq, true, ...>, <Fq2, true, ...> (signed radix 16), <Fq, false, ...>,
+# <Fq2, false, ...> (radix 4); ntt_prefix_kernel; r1cs_matvec_kernel
 KERNEL_FN = {
+    "dense_window_sums_g1":
+        "_ZN2za17dense_sums_kernelINS_2FpINS_7QParamsEEELb1E",
+    "dense_window_sums_g2": "_ZN2za17dense_sums_kernelINS_3Fq2ELb1E",
+    "dense4_window_sums_g1":
+        "_ZN2za17dense_sums_kernelINS_2FpINS_7QParamsEEELb0E",
+    "dense4_window_sums_g2": "_ZN2za17dense_sums_kernelINS_3Fq2ELb0E",
     "tree_level0_g1":
         "_ZN2za24tree_level_rolled_kernelINS_2FpINS_7QParamsEEELb1ELi8E",
     "tree_level_g1":
@@ -793,15 +806,26 @@ def tree_steps(split, tabs, sc, tag):
     return split(f"{tag}.horner", lambda: MSM.horner_windows(w, g2, 4))
 
 
+def legacy_dense_api(MD) -> None:
+    """For the tools' --root: a msm_dense from before segments gets
+    plan() = (its lanes(), S = 1) and window sums that take S = 1."""
+    if hasattr(MD, "plan"):
+        return
+    sums, plain = MD.dense_window_sums, MD.dense_window_sums_plain
+    MD.plan = lambda t: (MD.lanes(t.m, t.n, t.radix), 1)
+    MD.dense_window_sums = lambda tabs, d, L, S=1: sums(tabs, d, L)
+    MD.dense_window_sums_plain = lambda tabs, d, L, S=1: plain(tabs, d, L)
+
+
 def dense_steps(split, tabs, sc, tag):
     """MD.msm_dense's steps, each through split."""
     from za_tpu_torch.engine import msm as MSM, msm_dense as MD
 
     g2 = tabs.is_g2
     d = split(f"{tag}.digits", lambda: MD.digits(sc, tabs.radix))
-    L = MD.lanes(tabs.m, tabs.n, tabs.radix)
+    L, S = MD.plan(tabs)
     acc = split(f"{tag}.window_sums",
-                lambda: MD.dense_window_sums(tabs, d, L))
+                lambda: MD.dense_window_sums(tabs, d, L, S))
     w = split(f"{tag}.lane_fold", lambda: MSM.lane_fold(acc, g2))
     return split(f"{tag}.horner", lambda: MSM.horner_windows(
         w, g2, MD.BITS[tabs.radix]))
@@ -1002,6 +1026,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
 
     # the dense window sums at the 2^13 shapes, both radices
     dense_src = "za_tpu_torch/csrc/dense.cu"
+    dense_log = (_build.build_dir() / "dense.log").read_text()
     deng, dz, dh = dctx["eng"], dctx["z_l"], dctx["h"]
     horner_in = []   # (is_g2, radix, window sums) at the dense shapes
     for st in (dctx["staged"], dctx["fstaged"]):
@@ -1013,15 +1038,27 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
                          if tabs.radix == 16 else
                          ("dense4_window_sums", "pallas_msm.py:102"))
             d = MD.digits(deng._scalars(tabs, scal), tabs.radix)
-            L = MD.lanes(tabs.m, tabs.n, tabs.radix)
+            L, S = MD.plan(tabs)
             outs, ms, pms, err = compare(
                 torch, f"{name}_{g}", MD.dense_window_sums,
-                MD.dense_window_sums_plain, (tabs, d, L), reps=5)
-            # one complete add per nonzero digit
+                MD.dense_window_sums_plain, (tabs, d, L, S), reps=5)
+            # one complete add per nonzero digit, S - 1 a lane to fold
+            # the segments
+            W = d.shape[0]
             row(f"{name}_{g}", dense_src, f"za_tpu/engine/{ref}",
-                f"2^{LOG2N_DENSE} M={tabs.m} n={tabs.n} L={L}", ms, pms, err,
-                nbytes(tabs.x, tabs.y, tabs.z, d, *outs),
-                ADD_MULS[is_g2] * int((d != 0).sum()))
+                f"2^{LOG2N_DENSE} M={tabs.m} n={tabs.n} L={L} S={S}", ms,
+                pms, err, nbytes(tabs.x, tabs.y, tabs.z, d, *outs),
+                ADD_MULS[is_g2] * (int((d != 0).sum())
+                                   + tabs.m * W * L * (S - 1)))
+            rows[-1].update(ptxas_usage(dense_log,
+                                        KERNEL_FN[f"{name}_{g}"]))
+            # a lane's chain: its segment's points, then log2 S fold adds
+            chain = tabs.n / (L * S) + (S.bit_length() - 1)
+            rows[-1].update({
+                "warps_per_sm": MD.resident_blocks(
+                    tabs.radix, is_g2, d.device) * MD.DTB // 32,
+                "adds_a_thread": tabs.n / (L * S),
+                "us_per_add": ms * 1e3 / chain})
             if tabs.radix == 4 or not is_g2:  # radix-16 G2: the tree's shape
                 horner_in.append((is_g2, tabs.radix,
                                   MSM.lane_fold(outs, is_g2)))
@@ -1188,7 +1225,7 @@ def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
         for tag in ("g1x4", "b_g2x"):
             t = st[tag]
             shapes.append((f"2^{LOG2N_DENSE}{style} {tag}", t,
-                           MD.lanes(t.m, t.n, t.radix)))
+                           MD.plan(t)[0]))
     out = []
 
     def differ(name, outs, want) -> int:

@@ -206,6 +206,34 @@ def test_dense_kernels_match_plain(gen, is_g2, radix):
                  MD.dense_window_sums_plain(tabs, d, L))
 
 
+@pytest.mark.parametrize("radix", [16, 4])
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_dense_segments_match_plain(gen, is_g2, radix):
+    """S segments a lane folded in the block: n = 1000 is not a multiple
+    of L or S L; S from 2 to DTB, blocks that span several windows (L <
+    DTB / S) and the (L, S) the card's plan gives; a bad S raises."""
+    E = (2,) if is_g2 else ()
+    M, n = 3, 1000
+    K = MD.MULTIPLES[radix]
+    tabs = MD.DenseTables(
+        *(_rand_fq((K,) + E + (M, n), gen).movedim(0, 1).contiguous()
+          for _ in range(3)), is_g2=is_g2)
+    W = MSM.WINDOWS[MD.BITS[radix]]
+    lo, hi = (-8, 9) if radix == 16 else (0, 4)
+    d = torch.randint(lo, hi, (W, M, n), generator=gen,
+                      device="cuda").to(torch.int8)
+    d[:, 1, 500:] = 0     # query 1 padded, as staged queries are
+    L, S = MD.plan(tabs)
+    assert (L, S) == MD.lanes(M, n, radix, is_g2, MSM.sm_count(d.device)
+                              * MD.resident_blocks(radix, is_g2, d.device))
+    for L, S in {(L, S), (64, 4), (8, 8), (2, MD.DTB), (512, 2)}:
+        assert _same(MD.dense_window_sums(tabs, d, L, S),
+                     MD.dense_window_sums_plain(tabs, d, L, S)), (L, S)
+    for S in (3, 2 * MD.DTB):
+        with pytest.raises(ValueError):
+            MD.dense_window_sums(tabs, d, 8, S)
+
+
 # pairs per block of the tree kernels: TB * G1_K, TB * G2_K in
 # csrc/tree.cu
 BLOCK_PAIRS = {False: 128 * 8, True: 128 * 4}

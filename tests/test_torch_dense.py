@@ -27,6 +27,7 @@ from za_tpu.curve import (
 )
 from za_tpu.engine import pallas_msm as ZPM, pallas_msm_rns as ZPMR
 from za_tpu_torch.curve import Fq2, Q, R
+from za_tpu_torch.curve import g1_add as port_g1_add, g2_add as port_g2_add
 from za_tpu_torch.engine import ec, msm_dense as MD
 from za_tpu_torch.engine.engine import GpuEngine
 from za_tpu_torch.groth16 import HostEngine
@@ -139,6 +140,42 @@ def test_signed_window_sums_match_reference(is_g2):
     assert got == want
 
 
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_segmented_sums_match_reference(is_g2):
+    """(a) with segments: the port's plain sums at (L, S) = (2, 2) and
+    (1, 4) against the reference's msm.signed_window_sums at S L = 4
+    lanes (the shapes of the test above, so its compile is reused), lane
+    l + s L of each window summed over s on the host, as affine values."""
+    rng = random.Random(70 + is_g2)
+    M, n, P = 2, 16, 4
+    pts, scs = _queries(rng, is_g2, M, n)
+    eng, tabs = _port_tables(pts, is_g2, None)
+    d = MD.digits(eng._scalars(tabs, scs), 16)
+    if is_g2:
+        rp = [ZEC.g2_points_to_rns(q) for q in pts]
+        points = tuple(jnp.stack([p[i] for p in rp], axis=2) for i in range(3))
+        ops = ZEC.make_g2_ops_rns()
+    else:
+        rp = [ZEC.g1_points_to_rns(q) for q in pts]
+        points = tuple(jnp.stack([p[i] for p in rp], axis=1) for i in range(3))
+        ops = ZEC.make_g1_ops_rns()
+    rsc = jnp.stack([jnp.asarray(ZF.ints_to_limbs(s)) for s in scs], axis=1)
+    ref = ZMSM.signed_window_sums(points, rsc, ops, 4, P)
+    lanes = _affine(*(_rns_values(c, is_g2) for c in ref), is_g2)
+    add = port_g2_add if is_g2 else port_g1_add
+    for L in (2, 1):
+        S = P // L
+        got = _port_sums(MD.dense_window_sums(tabs, d, L, S), is_g2)
+        want = []
+        for row in range(M * 64):       # (m, w) rows of P lanes each
+            for j in range(L):
+                acc = None
+                for s in range(S):
+                    acc = add(acc, lanes[row * P + j + s * L])
+                want.append(acc)
+        assert got == want
+
+
 def test_signed_msm_matches_pallas_reference():
     """(b) One whole G1 MSM against the reference's fused Pallas kernel
     (interpret mode) at the size of its own test, and the host."""
@@ -217,7 +254,7 @@ def test_engine_msm_on_host_lists(is_g2, style):
         if p is not None and s:
             want = add(want, mul(p, s))
     eng = GpuEngine(device="cpu", msm_style=style)
-    assert MD.lanes(1, n, eng.radix) == 8
+    assert MD.lanes(1, n, eng.radix, is_g2, MD.CPU_SLOTS[is_g2]) == (8, 1)
     if is_g2:
         assert eng.msm_g2([_port_g2(p) for p in pts], scs) == _port_g2(want)
     else:
@@ -225,11 +262,17 @@ def test_engine_msm_on_host_lists(is_g2, style):
 
 
 def test_lanes_fill_the_card():
-    """L from (M, radix): about 2^15 accumulators at the 2^13 rung."""
-    assert MD.lanes(4, 1 << 14, 16) == 128
-    assert MD.lanes(1, 1 << 14, 16) == 512
-    assert MD.lanes(4, 1 << 14, 4) == 64
-    assert MD.lanes(1, 1 << 14, 4) == 256
-    assert MD.lanes(4, 8, 16) == 8
+    """(L, S) from (M, radix) at the 2^13 rung on an H100 (132 SMs) at
+    the kernels' resident blocks (3 an SM in G1, 2 in G2): g1x4 at 512
+    one-segment lanes, b2 at 128 lanes of 4 segments."""
+    g1, g2 = 132 * 3, 132 * 2
+    assert MD.lanes(4, 1 << 14, 16, False, g1) == (512, 1)
+    assert MD.lanes(1, 1 << 14, 16, True, g2) == (128, 4)
+    assert MD.lanes(4, 1 << 14, 4, False, g1) == (256, 1)
+    assert MD.lanes(1, 1 << 14, 4, True, g2) == (128, 2)
+    assert MD.lanes(4, 8, 16, False, g1) == (8, 1)
+    assert (MD.lanes(4, 1 << 14, 16, False, MD.CPU_SLOTS[False]),
+            MD.lanes(1, 1 << 14, 16, True, MD.CPU_SLOTS[True])) == (
+        (512, 1), (128, 4))
     with pytest.raises(ValueError, match="not ported"):
         GpuEngine(device="cpu", msm_style="grouped")

@@ -52,9 +52,9 @@ HERE = Path(__file__).resolve().parent.parent
 # (group is G2, M, W, L): the lane fold of each MSM of a proof
 FOLD_SHAPES = [
     (False, 3, 64, 128, "2^17 g1abl"), (False, 1, 64, 128, "2^17 g1h"),
-    (True, 1, 64, 128, "2^17 b2"), (False, 4, 64, 128, "2^13 g1x4"),
-    (True, 1, 64, 512, "2^13 b2"), (False, 4, 127, 64, "2^13 fused g1x4"),
-    (True, 1, 127, 256, "2^13 fused b2")]
+    (True, 1, 64, 128, "2^17 b2"), (False, 4, 64, 512, "2^13 g1x4"),
+    (True, 1, 64, 128, "2^13 b2"), (False, 4, 127, 256, "2^13 fused g1x4"),
+    (True, 1, 127, 128, "2^13 fused b2")]
 CARRY_SHAPES = FOLD_SHAPES[:3]
 WARPS = (4, 8, 16)
 STAGED_MAX = (1 << 30, 64, 16)
@@ -126,10 +126,11 @@ def main() -> int:
     sys.setrecursionlimit(100_000)
     cs = load_smoke()
     from za_tpu_torch.engine import _build, cuda_tree as CT, ec
-    from za_tpu_torch.engine import msm as MSM
+    from za_tpu_torch.engine import msm as MSM, msm_dense as MD
 
     cs.log(f"package {Path(_build.__file__).resolve().parent.parent}")
     _build.build_all()
+    cs.legacy_dense_api(MD)
     if not hasattr(CT, "chunk_carry"):
         CT.chunk_carry = legacy_carry
     has_kernels = hasattr(MSM, "FOLD")

@@ -34,41 +34,111 @@ template <> __device__ __forceinline__ Fq2 b3<Fq2>() {  // 3 * 3/(9+i)
   return r;
 }
 
+// The product by 3b.  In G1, 3b = 9 and 9 a = 8 a + a: three modular
+// doublings and an add on canonical values: the same canonical value as
+// the Montgomery product by 9 R mod q, in four modular additions, so a
+// G1 add runs 12 products, not 14.  In G2, 3b' is a full Fq2
+// constant and stays a product.
+__device__ __forceinline__ Fq mul_b3(const Fq& a) {
+  Fq r = add(a, a);
+  r = add(r, r);
+  r = add(r, r);
+  return add(r, a);
+}
+__device__ __forceinline__ Fq2 mul_b3(const Fq2& a) {
+  return mul(b3<Fq2>(), a);
+}
+
+// The field products of point_add.  Ops is the default: products
+// inlined, 3b by mul_b3.  The others serve tools/torch_dense_sweep.py's
+// variants of the dense kernel: OpsB3Mul multiplies by 3b as by any
+// constant (the add before mul_b3); OpsCall runs each product as a call
+// of one out-of-line body (an inlined G2 add is ~42 products of code),
+// OpsCallFq the Fq2 products as Karatsuba over calls of the Fq product.
+struct Ops {
+  template <class F>
+  __device__ static __forceinline__ F mul(const F& a, const F& b) {
+    return za::mul(a, b);
+  }
+  template <class F>
+  __device__ static __forceinline__ F mul3b(const F& a) {
+    return mul_b3(a);
+  }
+};
+struct OpsB3Mul : Ops {
+  template <class F>
+  __device__ static __forceinline__ F mul3b(const F& a) {
+    return za::mul(b3<F>(), a);
+  }
+};
+template <class F>
+__device__ __noinline__ F mul_call(const F& a, const F& b) {
+  return mul(a, b);
+}
+struct OpsCall {
+  template <class F>
+  __device__ static __forceinline__ F mul(const F& a, const F& b) {
+    return mul_call(a, b);
+  }
+  __device__ static __forceinline__ Fq mul3b(const Fq& a) {
+    return mul_b3(a);
+  }
+  __device__ static __forceinline__ Fq2 mul3b(const Fq2& a) {
+    return mul_call(b3<Fq2>(), a);
+  }
+};
+struct OpsCallFq {
+  __device__ static __forceinline__ Fq mul(const Fq& a, const Fq& b) {
+    return mul_call(a, b);
+  }
+  __device__ static __forceinline__ Fq2 mul(const Fq2& a, const Fq2& b) {
+    const Fq t0 = mul_call(a.c0, b.c0);
+    const Fq t1 = mul_call(a.c1, b.c1);
+    const Fq t2 = mul_call(add(a.c0, a.c1), add(b.c0, b.c1));
+    return Fq2{sub(t0, t1), sub(sub(t2, t0), t1)};
+  }
+  __device__ static __forceinline__ Fq mul3b(const Fq& a) {
+    return mul_b3(a);
+  }
+  __device__ static __forceinline__ Fq2 mul3b(const Fq2& a) {
+    return mul(b3<Fq2>(), a);
+  }
+};
+
 // (x1:y1:z1) + (x2:y2:z2), RCB algorithm 7 (a = 0): the same operation
 // order as engine/ec.py point_add, so both give the same coordinates.
 // The outputs may alias the inputs: no input is read after xo is set.
-template <class F>
+template <class F, class O = Ops>
 __device__ __forceinline__ void point_add(const F& x1, const F& y1,
                                           const F& z1, const F& x2,
                                           const F& y2, const F& z2, F& xo,
                                           F& yo, F& zo) {
-  const F k = b3<F>();
-  F t0 = mul(x1, x2);
-  F t1 = mul(y1, y2);
-  F t2 = mul(z1, z2);
-  F t3 = mul(add(x1, y1), add(x2, y2));
+  F t0 = O::mul(x1, x2);
+  F t1 = O::mul(y1, y2);
+  F t2 = O::mul(z1, z2);
+  F t3 = O::mul(add(x1, y1), add(x2, y2));
   F t4 = add(t0, t1);
   t3 = sub(t3, t4);
-  t4 = mul(add(y1, z1), add(y2, z2));
+  t4 = O::mul(add(y1, z1), add(y2, z2));
   F x3 = add(t1, t2);
   t4 = sub(t4, x3);
-  x3 = mul(add(x1, z1), add(x2, z2));
+  x3 = O::mul(add(x1, z1), add(x2, z2));
   F y3 = add(t0, t2);
   y3 = sub(x3, y3);
   x3 = add(t0, t0);
   t0 = add(x3, t0);
-  t2 = mul(k, t2);
+  t2 = O::mul3b(t2);
   F z3 = add(t1, t2);
   t1 = sub(t1, t2);
-  y3 = mul(k, y3);
-  x3 = mul(t4, y3);
-  t2 = mul(t3, t1);
+  y3 = O::mul3b(y3);
+  x3 = O::mul(t4, y3);
+  t2 = O::mul(t3, t1);
   xo = sub(t2, x3);
-  y3 = mul(y3, t0);
-  t1 = mul(t1, z3);
+  y3 = O::mul(y3, t0);
+  t1 = O::mul(t1, z3);
   yo = add(t1, y3);
-  t0 = mul(t0, t3);
-  z3 = mul(z3, t4);
+  t0 = O::mul(t0, t3);
+  z3 = O::mul(z3, t4);
   zo = add(z3, t0);
 }
 

@@ -64,15 +64,21 @@ FOLD_STAGED_MAX = {False: 1 << 30, True: 64}
 _SMS: dict = {}
 
 
+def sm_count(device) -> int:
+    """The card's SMs, read once per device."""
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return sms
+
+
 def fold_split(G: int, L: int, device) -> int:
     """Blocks per group: the most (a power of two, at most
     FOLD_MAX_SPLIT and L) that keep the G groups' blocks to one per SM
     of the card; past that the split lost at every shape measured (a G2
     block, 512 threads at 128 registers, fills an SM's register file)."""
-    sms = _SMS.get(device)
-    if sms is None:
-        sms = _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
+    sms = sm_count(device)
     k = 1
     while 2 * k <= min(FOLD_MAX_SPLIT, L) and G * 2 * k <= sms:
         k *= 2
