@@ -30,7 +30,7 @@ Phases:
      window sums, nothing but allocations, views and its carries, fold
      and Horner ("msm_tail_torch_ops"); launches of the first prove alone
      ("launches_per_proof", staging excluded): a lane fold per MSM, a
-     carry per tree chunk, no elementwise ec_add;
+     carry per tree MSM, no elementwise ec_add;
   3. the dense path at full width: the same at 2^13 constraints, where
      the padded queries stay below TREE_MIN and the four G1 MSMs run as
      one stacked dense MSM; then the same prove through
@@ -56,8 +56,9 @@ Phases:
      ("warps_per_sm", the occupancy query) and points a thread walks
      ("adds_a_thread", n / (S L)), at the (L, S) the proof takes; the
      lane fold at every MSM's shape and the carry
-     at each 2^17 chunk's, device time with a chain floor (dependent
-     adds x the Horner rows' time per add, "chain_floor_ms"), the
+     at each 2^17 MSM's (C chunks of partials), device time with a
+     chain floor (dependent adds x the Horner rows' time per add,
+     "chain_floor_ms"), the
      curve kernels' registers; printed as one JSON
      line {"kernels": [...]}; then one
      NTT through both routes (radix-2, four-step) at sizes from 2^9 to
@@ -101,10 +102,12 @@ ADD_MULS = {False: 12, True: 3 * 14}
 # csrc/ntt.cu and csrc/r1cs.cu, as ptxas names it, up to its last
 # template argument: tree_level_rolled_kernel<Fq, true, 8, ...>, <Fq,
 # false, 8, ...>, <Fq2, true, 4, ...> and <Fq2, false, 4, ...>;
-# horner_warp_g1_kernel, horner_warp_g2_kernel; ec_add_kernel,
-# ec_fold_kernel and ec_carry_kernel <Fq> and <Fq2>; dense_sums_kernel
-# <Fq, true, ...>, <Fq2, true, ...> (signed radix 16), <Fq, false, ...>,
-# <Fq2, false, ...> (radix 4); ntt_prefix_kernel; r1cs_matvec_kernel
+# horner_warp_g1_kernel, horner_warp_g2_kernel; ec_add_kernel and
+# ec_fold_kernel <Fq> and <Fq2>, ec_carry_kernel <Fq, 6, true> and <Fq2,
+# 8, false> (the staged add's lanes, levels one add a thread or all
+# staged); dense_sums_kernel <Fq, true, ...>, <Fq2, true, ...> (signed radix 16),
+# <Fq, false, ...>, <Fq2, false, ...> (radix 4); ntt_prefix_kernel;
+# r1cs_matvec_kernel
 KERNEL_FN = {
     "dense_window_sums_g1":
         "_ZN2za17dense_sums_kernelINS_2FpINS_7QParamsEEELb1E",
@@ -124,8 +127,8 @@ KERNEL_FN = {
     "ec_add_g2": "_ZN2za13ec_add_kernelINS_3Fq2EEE",
     "ec_fold_g1": "_ZN2za14ec_fold_kernelINS_2FpINS_7QParamsEEEEE",
     "ec_fold_g2": "_ZN2za14ec_fold_kernelINS_3Fq2EEE",
-    "ec_carry_g1": "_ZN2za15ec_carry_kernelINS_2FpINS_7QParamsEEEEE",
-    "ec_carry_g2": "_ZN2za15ec_carry_kernelINS_3Fq2EEE",
+    "ec_carry_g1": "_ZN2za15ec_carry_kernelINS_2FpINS_7QParamsEEELi6ELb1E",
+    "ec_carry_g2": "_ZN2za15ec_carry_kernelINS_3Fq2ELi8ELb0E",
     "ntt_prefix_fr": "_ZN2za17ntt_prefix_kernelE",
     "r1cs_matvec_fr": "_ZN2za18r1cs_matvec_kernelE",
 }
@@ -645,14 +648,12 @@ FREE_OPS = {"empty", "empty_like", "empty_strided", "view", "_unsafe_view",
 
 
 def check_tail_launches(per_proof, staged, log2n) -> None:
-    """A prove runs a lane fold per MSM, a carry per chunk of a tree MSM
-    and no elementwise ec_add (staging alone runs it)."""
+    """A prove runs a lane fold per MSM, a carry per tree MSM and no
+    elementwise ec_add (staging alone runs it)."""
     tree = "g1abl" in staged
     want = {"ec_fold_g1": 2 if tree else 1, "ec_fold_g2": 1,
             "ec_add_g1": 0, "ec_add_g2": 0,
-            "ec_carry_g1": staged["g1abl"].chunks + staged["g1h"].chunks
-            if tree else 0,
-            "ec_carry_g2": staged["b_g2x"].chunks if tree else 0}
+            "ec_carry_g1": 2 if tree else 0, "ec_carry_g2": int(tree)}
     got = {k: per_proof[k] for k in want}
     assert got == want, f"2^{log2n}: folds, carries and adds a proof: {got}"
 
@@ -663,7 +664,7 @@ def msm_tail_torch_ops(eng, staged, z_l, h, ni) -> dict:
     {tag: {"ops": the ops other than allocations and views that run
     after the first tree-level or window-sum launch, "launches": the
     kernel launches from there on}}.  Past that point the chunk loop's
-    carries, the lane fold and Horner must be kernels alone."""
+    levels, the carry, the lane fold and Horner must be kernels alone."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from za_tpu_torch.engine import _build, cuda_tree as CT
@@ -711,7 +712,7 @@ def msm_tail_torch_ops(eng, staged, z_l, h, ni) -> dict:
         g = "g2" if tabs.is_g2 else "g1"
         want = {f"ec_fold_{g}": 1, f"horner_{g}": 1}
         if isinstance(tabs, MT.AffineTables):
-            want[f"ec_carry_{g}"] = tabs.chunks
+            want[f"ec_carry_{g}"] = 1
         assert not out[tag]["ops"] and launches == want, \
             f"{tag}: the MSM tail is not its kernels alone: {out[tag]}"
     return out
@@ -728,7 +729,7 @@ def msm_queries(staged, z_l, h, ni):
 
 def msm_breakdowns(torch, eng, staged, z_l, h, ni, sync: bool) -> dict:
     """Each MSM of one prove split into its steps (tree: digits, then per
-    chunk level 0, the levels and the carry, summed over the chunks,
+    chunk level 0 and the levels, summed over the chunks, the carry,
     lane fold, Horner; dense: digits, window sums, lane fold, Horner),
     the steps timed alone (sync) or back to back inside the stage, and
     the stage's span ("{tag}.total")."""
@@ -789,21 +790,62 @@ def tree_steps(split, tabs, sc, tag):
 
     g2 = tabs.is_g2
     d = split(f"{tag}.digits", lambda: CT.window_digits(tabs, sc))
-    acc = None
+    px, py, pinf = CT.partials_buffer(tabs, d.device)
     for c in range(tabs.chunks):
+        out = (px[c], py[c], pinf[c])
         x, y, inf = split(f"{tag}.level0", lambda: CT.tree_level0(
-            tabs.tx[c], tabs.ty[c], d[c], g2))
+            tabs.tx[c], tabs.ty[c], d[c], g2,
+            out if d.shape[-1] // 2 <= CT.TAIL else None))
 
-        def levels(x=x, y=y, inf=inf):
+        def levels(x=x, y=y, inf=inf, out=out):
             while x.shape[-1] > CT.TAIL:
-                x, y, inf = CT.tree_level(x, y, inf, g2)
+                x, y, inf = CT.tree_level(
+                    x, y, inf, g2, out if x.shape[-1] // 2 <= CT.TAIL
+                    else None)
             return x, y, inf
 
-        x, y, inf = split(f"{tag}.levels", levels)
-        acc = split(f"{tag}.carry",
-                    lambda: CT.chunk_carry(acc, x, y, inf, g2))
+        split(f"{tag}.levels", levels)
+    acc = split(f"{tag}.carry", lambda: CT.chunk_carry(px, py, pinf, g2))
     w = split(f"{tag}.lane_fold", lambda: MSM.lane_fold(acc, g2))
     return split(f"{tag}.horner", lambda: MSM.horner_windows(w, g2, 4))
+
+
+def legacy_carry_api(CT) -> None:
+    """For the tools' --root: a cuda_tree whose carry runs a launch a
+    chunk (chunk_carry(acc, x, y, inf, is_g2)) gets this one's
+    interface over its own launches: partials_buffer hands out slots, a
+    level given a slot as out keeps its output there (no copy), and
+    chunk_carry runs the old carry over the slots, chunk by chunk."""
+    if hasattr(CT, "partials_buffer"):
+        return
+    carry, level0, level = CT.chunk_carry, CT.tree_level0, CT.tree_level
+
+    class Slots(list):
+        def __getitem__(self, c):
+            return self, c
+
+    def keep(res, out):
+        if out is not None:
+            slots, c = out[0]
+            list.__setitem__(slots, c, res)
+        return res
+
+    def partials_buffer(tables, device):
+        slots = Slots([None] * tables.chunks)
+        return slots, slots, slots
+
+    def chunk_carry(x, y, inf, is_g2):   # slots, or stacked tensors
+        acc = None
+        for part in (list.__iter__(x) if isinstance(x, Slots)
+                     else zip(x, y, inf)):
+            acc = carry(acc, *part, is_g2)
+        return acc
+
+    CT.partials_buffer, CT.chunk_carry = partials_buffer, chunk_carry
+    CT.tree_level0 = lambda tx, ty, d, g2, out=None: keep(
+        level0(tx, ty, d, g2), out)
+    CT.tree_level = lambda x, y, inf, g2, out=None: keep(
+        level(x, y, inf, g2), out)
 
 
 def legacy_dense_api(MD) -> None:
@@ -1202,15 +1244,35 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
     return rows
 
 
+def carry_muls(C: int, g2: bool) -> int:
+    """Fq products of one column of the carry's fold-half over C chunks:
+    C - 1 complete adds, less the products an operand still a partial
+    (Z 0 or 1) saves (csrc/curve.cuh point_add's z01; csrc/ec.cu
+    fold_levels: at level h lane c + h is one if c + 3h >= C, lane c
+    too if c + 2h >= C): z1 z2 where the second is (1 in G1, an Fq2
+    product, 3, in G2), and the two cross terms too where both are."""
+    fq2 = 3 if g2 else 1
+    P = 1 << (C - 1).bit_length()
+    muls, h = 0, P // 2
+    while h >= 1:
+        for c in range(h):
+            if c + h < C:
+                muls += ADD_MULS[g2] - fq2 * (3 if c + 2 * h >= C else
+                                              1 if c + 3 * h >= C else 0)
+        h //= 2
+    return muls
+
+
 def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
     """Rows of the lane fold at every shape a proof gives it (each MSM's
-    (M, W, L)) and of the carry at each 2^17 chunk's (M, 64, 128), on
-    random points (a tenth of the carry's flagged at infinity), exact
-    against the plain versions; ms the device time of one launch, median
-    of 5 (device_ms).  Bounds
-    count one complete add per pair (the carry's Z2 = 1 product left
-    out); "chain_floor_ms" is the dependent adds (log2 L levels, or one)
-    times the staged add's latency measured by the Horner rows."""
+    (M, W, L)) and of the carry at each 2^17 MSM's (C, M, 64, 128), on
+    random points (a tenth of the carry's partials flagged at infinity),
+    exact against the plain versions; ms the device time of one launch,
+    median of 5 (device_ms).  Bounds count one complete add per pair
+    (carry_muls: the (C - 1) M W T adds, the products left out that a
+    partial's Z of 0 or 1 saves); "chain_floor_ms" is the
+    dependent levels (log2 L of a fold, ceil(log2 C) of a carry) times
+    the staged add's latency measured by the Horner rows."""
     from za_tpu_torch.engine import cuda_tree as CT, msm as MSM
     from za_tpu_torch.engine import msm_dense as MD, msm_tree as MT
 
@@ -1265,22 +1327,21 @@ def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
                 nbytes(*pts, *outs), ADD_MULS[g2] * tabs.m * W * (L - 1),
                 (L.bit_length() - 1) * warp_us[g])
         if isinstance(tabs, MT.AffineTables):
-            acc = [rand_fq(torch, E + (tabs.m, W, L), gen) for _ in range(3)]
-            x, y = (rand_fq(torch, E + (tabs.m, W, L), gen) for _ in "xy")
-            inf = torch.rand((tabs.m, W, L), generator=gen,
+            C, n = tabs.chunks, tabs.m * W * L
+            x, y = (rand_fq(torch, (C,) + E + (tabs.m, W, L),
+                            gen).movedim(0, 1).contiguous() for _ in "xy")
+            inf = torch.rand((C, tabs.m, W, L), generator=gen,
                              device="cuda") < 0.1
-            want, pms = timer(
-                lambda: CT.chunk_carry_plain(acc, x, y, inf, g2))
-            outs = CT.chunk_carry([c.clone() for c in acc], x, y, inf, g2)
+            want, pms = timer(lambda: CT.chunk_carry_plain(x, y, inf, g2))
+            outs = CT.chunk_carry(x, y, inf, g2)
             err = differ(f"ec_carry_{g}", outs, want)
-            # in place: each timed launch adds the partials once more
-            ms = device_ms(torch, lambda: CT.chunk_carry(outs, x, y, inf,
-                                                         g2))
-            n = tabs.m * W * L
-            add_row(f"ec_carry_{g}", f"{where} M={tabs.m} W={W} T={L}", ms,
-                    pms * 1e3, err,
-                    nbytes(*acc, x, y, inf) + nbytes(*acc),
-                    (ADD_MULS[g2] - (3 if g2 else 1)) * n, warp_us[g])
+            ms = device_ms(torch, lambda: CT.chunk_carry(x, y, inf, g2))
+            B, warps = CT.carry_plan(C, n, g2, x.device)
+            add_row(f"ec_carry_{g}", f"{where} C={C} M={tabs.m} W={W} T={L}"
+                    f", {B} columns a block, {warps} warps", ms,
+                    pms * 1e3, err, nbytes(x, y, inf, *outs),
+                    n * carry_muls(C, g2),
+                    (C - 1).bit_length() * warp_us[g])
     return out
 
 

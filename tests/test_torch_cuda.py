@@ -394,19 +394,29 @@ def test_lane_fold_kernel_all_identity_and_bad_shapes(gen, is_g2):
     assert MSM.FOLD[is_g2].launches == before
 
 
+@pytest.mark.parametrize("C", [1, 5, 8, 64])
 @pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
-def test_chunk_carry_kernel_matches_plain(gen, is_g2):
-    """The first chunk, then two more, at the 2^17 shapes and small ones;
-    partials at infinity (a share, whole windows) and accumulators at
-    (0 : 1 : 0)."""
+def test_chunk_carry_kernel_matches_plain(gen, is_g2, C):
+    """The carry over C chunks' stacked partials at the 2^17 shapes and
+    small ones: partials at infinity (a share, a whole window in every
+    chunk, every partial of chunk 0 in the last MSM), each against the
+    plain fold-half over the chunks; column counts with few factors of
+    two (4 127 8 and 2: blocks of 32 and 2 columns).  Bad shapes and
+    types raise, no launch."""
     E = (2,) if is_g2 else ()
     for M, W, T in ((3, 64, 128), (1, 64, 128), (4, 127, 8), (2, 1, 1)):
-        got = want = None
-        for c in range(3):
-            x, y = (_rand_fq(E + (M, W, T), gen) for _ in "xy")
-            inf = torch.rand((M, W, T), generator=gen, device="cuda") < 0.2
-            inf[0, 0] = True
-            inf[-1] = c == 0   # MSM M-1: every partial of chunk 0
-            want = CT.chunk_carry_plain(want, x, y, inf, is_g2)
-            got = CT.chunk_carry(got, x, y, inf, is_g2)
-            assert _same(got, want), (M, W, T, c)
+        if C == 64 and (M, W, T) == (3, 64, 128) and is_g2:
+            continue   # G2 at 2^20 runs M = 1
+        x, y = (_rand_fq((C,) + E + (M, W, T), gen).movedim(0, 1)
+                .contiguous() for _ in "xy")
+        inf = torch.rand((C, M, W, T), generator=gen, device="cuda") < 0.2
+        inf[:, 0, 0] = True
+        inf[0, -1] = True
+        assert _same(CT.chunk_carry(x, y, inf, is_g2),
+                     CT.chunk_carry_plain(x, y, inf, is_g2)), (M, W, T, C)
+    before = CT.CARRY[is_g2].launches
+    for bad in ((x[:, :4], y, inf), (x, y, inf.to(torch.uint8)),
+                (x.to(torch.int64), y, inf), (x, y, inf[0])):
+        with pytest.raises(ValueError, match="chunk_carry"):
+            CT.chunk_carry(*bad, is_g2)
+    assert CT.CARRY[is_g2].launches == before

@@ -89,3 +89,32 @@ def test_chunk_loop_select_only_path():
     X, Y, Z = CT.msm_tree(tabs, eng._scalars(tabs, scal))
     got = ec.g1_points_from_device(X, Y, Z)
     assert got == [_host_msm(p, s, g1_add, g1_mul) for p, s in zip(pts, scal)]
+
+
+def test_tree_window_sums_three_chunks_match_reference(monkeypatch):
+    """Three chunks (n = 96, chunk 32) through the port's window sums
+    (levels down to 8 partials into the stacked buffer, the carry's
+    fold-half over the chunks, the lane fold) and the reference's
+    tree_window_sums (its scan over the chunks): the same 64 window
+    sums mod p, an identity point and a zero scalar among them."""
+    monkeypatch.setattr(CT, "TAIL", 8)
+    rng = random.Random(45)
+    n, chunk = 96, 32
+    zpts = [z_g1_mul(ZG1, rng.randrange(1, R)) for _ in range(n)]
+    zpts[40] = None
+    scalars = [rng.randrange(1, R) for _ in range(n)]
+    scalars[70] = 0
+    eng = GpuEngine(device="cpu")
+    tabs = eng.stage_g1_affine([zpts], chunk=chunk)
+    assert tabs.chunks == 3
+    X, Y, Z = CT.tree_window_sums(tabs, eng._scalars(tabs, [scalars]))
+    got = ec.g1_points_from_device(*(c.reshape(8, -1) for c in (X, Y, Z)))
+
+    staged = tuple(s[:, None] for s in ZEC.g1_points_to_rns(zpts))
+    rtabs = ZMT.stage_affine_tables(staged, is_g2=False, n=n, chunk=chunk)
+    sc = jnp.asarray(ZF.ints_to_limbs(scalars))[:, None, :]
+    RX, RY, RZ = (np.asarray(c) for c in ZMT.tree_window_sums(
+        rtabs, sc, ZEC.make_g1_ops_rns()))
+    ref = [ZEC.g1_point_from_rns(RX[:, w, 0], RY[:, w, 0], RZ[:, w, 0])
+           for w in range(RX.shape[1])]
+    assert len(got) == 64 and got == ref

@@ -2,48 +2,49 @@
 """The tail of the port's MSMs (the tree's chunk carry and the lane fold
 of both routes) timed on one CUDA card, for any checkout of
 za_tpu_torch: inside each MSM of one prove at 2^17 (tree) and 2^13
-(dense), and alone at every shape those proofs give it.
+(dense), and alone at the carry's shapes, with the variants of the
+carry and the fold.
 
     python3 tools/torch_fold_sweep.py [--root DIR] [--no-stages]
-                                      [--no-kernels]
+                                      [--no-kernels] [--fold-sweep]
+                                      [--chunks 5,8,64,128]
 
 --root: the checkout whose za_tpu_torch is measured (default: this
 repository); the inputs and the step split are this repository's
-chip_smoke.py (chain_inputs, msm_breakdowns).  A package without the
-carry kernel runs its tail as it was written: the carry as
-msm_tree.proj_of_affine plus one ec_add launch, the lane fold as one
-ec_add launch per level on slices of the lanes.
+chip_smoke.py (chain_inputs, msm_breakdowns).  A package whose carry
+runs a launch a chunk runs it that way (chip_smoke.legacy_carry_api).
 
 Prints JSON lines, CUDA-event times in seconds (stages) or ms:
   {"stages": {rung: {step: s}}}: each MSM of one prove split into its
     steps, each step alone ("sync", a host sync after it) and back to
     back inside the stage ("inline", one sync), median of 3, with the
     stage's span ("{tag}.total");
-  {"ec_add_at_tail_shapes": [...]}: ec_add alone on contiguous operands
-    at the carry's shapes and at every level of each fold's;
-  {"legacy_tail": [...]}: the carry and the fold as ec_add launches, as
-    the package before the fold kernel ran them: with the host's time to
-    issue them ("fold_ms", "carry_ms") and on the device alone
-    ("fold_device_ms", "carry_device_ms"), with one sync a level
-    ("fold_sync_ms");
-  {"fold_sweep": [...]}, {"carry": [...]}: where the package has them,
-    ec_fold at each shape under every (warps, widest staged level, blocks
-    a window) variant and ec_carry at each carry shape, each exact
-    against its plain version;
-  {"ptxas": {...}}: registers and spill bytes of the curve kernels, from
-    the build's ec.log;
+  {"carry": [...]}: at each 2^17 MSM's (M, W = 64, T = 128) and C
+    chunks of random partials (a tenth flagged at infinity): the
+    package's carry ("ms"; a launch a chunk: the old kernel launched C
+    times, "launches": C) and the carry and the lane fold back to back
+    ("tail_ms"), exact against the package's plain version; where the
+    package has the carry a MSM, its plan ("plan": columns, warps) and
+    every variant (columns a block, warps, levels one add a thread or
+    staged, the G2 staged add's lanes from a build of csrc/ec.cu with
+    -DZA_EC_VARIANTS), each exact;
+  {"fold_sweep": [...]} with --fold-sweep: ec_fold at each MSM's shape
+    under every (warps, widest staged level, blocks a window);
+  {"ptxas": {...}}: registers and spill bytes of the curve kernels and
+    of the variant build's carries;
 then the card's name and power limit.  Kernel times are medians of 5,
-of the device alone (chip_smoke.device_ms) where not said otherwise.
-Exits non-zero without a card.
+of the device alone (chip_smoke.device_ms).  Exits non-zero without a
+card.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import itertools
 import json
-import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -59,6 +60,12 @@ CARRY_SHAPES = FOLD_SHAPES[:3]
 WARPS = (4, 8, 16)
 STAGED_MAX = (1 << 30, 64, 16)
 SPLIT = (1, 2, 4, 8)
+# the carry's variants: columns a block, warps, staged levels, G2 lanes
+CARRY_COLS = (4, 8, 16, 32, 64, 128)
+CARRY_WARPS = (2, 4, 8, 16)
+CARRY_WIDTHS = (32, 16, 8)
+SMEM = 232448   # bytes of shared memory a block may take
+SLOTS = {False: 25, True: 90}   # hw1::SLOTS, hw2::SLOTS
 
 
 def load_smoke():
@@ -69,23 +76,28 @@ def load_smoke():
     return mod
 
 
-def legacy_fold(p, is_g2):
-    """The lane fold as the package before ec_fold ran it."""
-    from za_tpu_torch.engine import ec
-
-    while p[0].shape[-1] > 1:
-        h = p[0].shape[-1] // 2
-        p = ec.ec_add(tuple(c[..., :h] for c in p),
-                      tuple(c[..., h:] for c in p), is_g2)
-    return tuple(c[..., 0] for c in p)
-
-
-def legacy_carry(acc, x, y, inf, is_g2):
-    """The chunk carry as the package before ec_carry ran it."""
-    from za_tpu_torch.engine import ec, msm_tree as MT
-
-    p = MT.proj_of_affine(x, y, inf, is_g2)
-    return p if acc is None else ec.ec_add(acc, p, is_g2)
+def build_variants(_build, root: Path):
+    """csrc/ec.cu with -DZA_EC_VARIANTS -> (ctypes lib, ptxas log), or
+    (None, None) where the package has no such variants."""
+    src = root / "za_tpu_torch" / "csrc" / "ec.cu"
+    if "ZA_EC_VARIANTS" not in src.read_text():
+        return None, None
+    out = _build.BUILD_ROOT / "ec_variants" / _build._digest()
+    out.mkdir(parents=True, exist_ok=True)
+    lib, log = out / "libec_variants.so", out / "ec_variants.log"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DZA_EC_VARIANTS", "-o",
+           str(lib), str(src)]
+    with open(log, "w") as out_log:
+        rc = subprocess.run(cmd, stdout=out_log,
+                            stderr=subprocess.STDOUT).returncode
+    if rc:
+        raise RuntimeError("nvcc failed:\n" + log.read_text()[-4000:])
+    cdll = ctypes.CDLL(str(lib))
+    cdll.ec_carry_g2_width.restype = ctypes.c_int
+    cdll.ec_carry_g2_width.argtypes = ([ctypes.c_void_p] * 6
+                                       + [ctypes.c_int] * 6
+                                       + [ctypes.c_void_p])
+    return cdll, log.read_text()
 
 
 def stages(torch, cs) -> dict:
@@ -110,140 +122,170 @@ def stages(torch, cs) -> dict:
     return out
 
 
+def carry_rows(torch, cs, gen, chunks, var) -> list:
+    """The "carry" line (module docstring)."""
+    from za_tpu_torch.engine import cuda_tree as CT, msm as MSM
+
+    per_msm = "carry_plan" in vars(CT)
+    rows = []
+    for (g2, M, W, T, where), C in itertools.product(CARRY_SHAPES, chunks):
+        E = (2,) if g2 else ()
+        x, y = (cs.rand_fq(torch, (C,) + E + (M, W, T), gen).movedim(
+            0, 1).contiguous() for _ in "xy")
+        inf = torch.rand((C, M, W, T), generator=gen, device="cuda") < 0.1
+        if per_msm:
+            want = CT.chunk_carry_plain(x, y, inf, g2)
+        else:   # the package's own plain version, chunk by chunk
+            want = None
+            for c in range(C):
+                want = CT.chunk_carry_plain(want, x[c], y[c], inf[c], g2)
+        got = CT.chunk_carry(x, y, inf, g2)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), where
+        row = {"where": where, "C": C, "M": M, "launches": 1 if per_msm
+               else C, "ms": cs.device_ms(
+                   torch, lambda: CT.chunk_carry(x, y, inf, g2)),
+               "tail_ms": cs.device_ms(torch, lambda: MSM.lane_fold(
+                   CT.chunk_carry(x, y, inf, g2), g2))}
+        if per_msm:
+            row["plan"] = CT.carry_plan(C, M * W * T, g2, x.device)
+            row["variants"] = carry_variants(torch, cs, CT, var, x, y,
+                                             inf, want, g2)
+            best = min(row["variants"], key=lambda r: r["ms"])
+            cs.log(f"carry {where} C={C}: {row['ms']:.4f} ms, best {best}")
+            cs.log(json.dumps(row))
+        else:
+            cs.log(f"carry {where} C={C}: {row['ms']:.4f} ms in {C} "
+                   f"launches")
+        rows.append(row)
+    return rows
+
+
+def carry_variants(torch, cs, CT, var, x, y, inf, want, g2) -> list:
+    """Every (columns, warps, levels one add a thread, G2 lanes) that
+    fits shared memory, each exact."""
+    C, M, W, T = inf.shape
+    N = M * W * T
+    P = 1 << (C - 1).bit_length()
+    out = [torch.empty_like(want[0]) for _ in range(3)]
+    default = 32 // CT.CARRY_PER_WARP[True] if g2 else 6
+    if g2:   # G2's thread adds lost everywhere (128 registers, spills)
+        grid = [(cols, warps, 1 << 30, width) for cols, warps, width
+                in itertools.product(CARRY_COLS, CARRY_WARPS, CARRY_WIDTHS
+                                     if var is not None else (default,))]
+    else:    # wide: every level one add a thread, the last one or two
+        grid = [(cols, warps, wide, 6) for cols, warps in
+                itertools.product(CARRY_COLS, CARRY_WARPS)
+                for wide in (0, cols, 2 * cols, 1 << 30)]
+    rows, seen = [], set()
+    for cols, warps, wide, width in grid:
+        levels = [cols * P >> k for k in range(1, max(P.bit_length(), 1))]
+        threads = sum(h > wide for h in levels)   # levels one add a thread
+        units = 32 // width if g2 else 5
+        smem = 32 * (C * cols * (6 if g2 else 3) + (
+            warps * units * SLOTS[g2] if threads < len(levels) else 0))
+        key = (cols, warps, threads, width)
+        if smem > SMEM or N % cols or key in seen:
+            continue   # does not fit, or the same variant
+        seen.add(key)
+
+        def launch():
+            args = [x, y, inf, *out, C, N, cols, wide, warps]
+            if width == default:
+                CT.CARRY[g2](*args)
+                return
+            rc = var.ec_carry_g2_width(
+                *(a.data_ptr() for a in args[:6]), *args[6:], width,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"ec_carry_g2_width: CUDA error {rc}")
+
+        launch()
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), key
+        rows.append({"cols": cols, "warps": warps, "thread_levels": threads,
+                     "levels": len(levels), "width": width,
+                     "ms": cs.device_ms(torch, launch)})
+    return rows
+
+
+def fold_sweep(torch, cs, MSM, gen) -> list:
+    """ec_fold at each shape under every (warps, widest staged level,
+    blocks a window) variant, each exact."""
+    sweep = []
+    for g2, M, W, L, where in FOLD_SHAPES:
+        E = (2,) if g2 else ()
+        pts = [cs.rand_fq(torch, E + (M, W, L), gen) for _ in range(3)]
+        want = MSM.lane_fold_plain(pts, g2)
+        keep = (MSM.FOLD_WARPS[g2], MSM.FOLD_STAGED_MAX[g2], MSM.fold_split)
+        for warps, wide, split in itertools.product(WARPS, STAGED_MAX, SPLIT):
+            if wide < (1 << 30) and wide >= L // 2:
+                continue   # no level is wider: the same variant
+            MSM.FOLD_WARPS[g2], MSM.FOLD_STAGED_MAX[g2] = warps, wide
+            MSM.fold_split = lambda G, L, device, k=split: min(k, L)
+            got = MSM.lane_fold(pts, g2)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                f"ec_fold {where} warps={warps} staged<={wide} {split}"
+            sweep.append({"where": where, "warps": warps, "staged_max": wide,
+                          "split": split, "ms": cs.device_ms(
+                              torch, lambda: MSM.lane_fold(pts, g2))})
+        MSM.FOLD_WARPS[g2], MSM.FOLD_STAGED_MAX[g2], MSM.fold_split = keep
+        sweep.append({"where": where, "default": True, "ms": cs.device_ms(
+            torch, lambda: MSM.lane_fold(pts, g2))})
+    return sweep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--no-stages", action="store_true")
     ap.add_argument("--no-kernels", action="store_true",
                     help="the stages alone, no kernel-level lines")
+    ap.add_argument("--fold-sweep", action="store_true")
+    ap.add_argument("--chunks", default="5,8,64,128")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("torch_fold_sweep: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(args.root).resolve()))
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
     sys.setrecursionlimit(100_000)
     cs = load_smoke()
-    from za_tpu_torch.engine import _build, cuda_tree as CT, ec
+    from za_tpu_torch.engine import _build, cuda_tree as CT
     from za_tpu_torch.engine import msm as MSM, msm_dense as MD
 
     cs.log(f"package {Path(_build.__file__).resolve().parent.parent}")
     _build.build_all()
     cs.legacy_dense_api(MD)
-    if not hasattr(CT, "chunk_carry"):
-        CT.chunk_carry = legacy_carry
-    has_kernels = hasattr(MSM, "FOLD")
+    cs.legacy_carry_api(CT)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    timer = cs.Timer(torch)
-
-    def host_ms(fn, reps=5):
-        fn()
-        return statistics.median(timer(fn)[1] for _ in range(reps)) * 1e3
-
-    def points(g2, *shape):
-        E = (2,) if g2 else ()
-        return [cs.rand_fq(torch, E + shape, gen) for _ in range(3)]
 
     if not args.no_stages:
         print(json.dumps({"stages": stages(torch, cs)}), flush=True)
     if args.no_kernels:
         print(cs.card_line())
         return 0
+    var, var_log = build_variants(_build, root)
+    chunks = [int(c) for c in args.chunks.split(",")]
+    print(json.dumps({"carry": carry_rows(torch, cs, gen, chunks, var)}),
+          flush=True)
+    if args.fold_sweep:
+        print(json.dumps({"fold_sweep": fold_sweep(torch, cs, MSM, gen)}),
+              flush=True)
 
-    adds, legacy = [], []
-    for g2, M, W, L, where in FOLD_SHAPES:
-        n = M * W * L
-        ns = [("carry", n)] if (g2, M, W, L, where) in CARRY_SHAPES else []
-        ns += [(f"fold level h={h}", M * W * h)
-               for h in (L >> k for k in range(1, L.bit_length())) if h]
-        for step, k in ns:
-            p, q = points(g2, k), points(g2, k)
-            adds.append({"where": where, "step": step, "adds": k,
-                         "ms": cs.device_ms(torch,
-                                            lambda: ec.ec_add(p, q, g2))})
-        pts = points(g2, M, W, L)
-        per_level = 0.0
-        while pts[0].shape[-1] > 1:   # the fold, one sync a level
-            h = pts[0].shape[-1] // 2
-            pts, dt = timer(lambda: ec.ec_add(
-                tuple(c[..., :h] for c in pts), tuple(c[..., h:] for c in pts),
-                g2))
-            per_level += dt * 1e3
-        pts = points(g2, M, W, L)
-        row = {"where": where, "fold_ms": host_ms(
-            lambda: legacy_fold(pts, g2)), "fold_device_ms": cs.device_ms(
-            torch, lambda: legacy_fold(pts, g2)), "fold_sync_ms": per_level}
-        if (g2, M, W, L, where) in CARRY_SHAPES:
-            acc = points(g2, M, W, L)
-            x, y = points(g2, M, W, L)[:2]
-            inf = torch.rand((M, W, L), generator=gen, device="cuda") < 0.1
-            row["carry_ms"] = host_ms(
-                lambda: legacy_carry(acc, x, y, inf, g2))
-            row["carry_device_ms"] = cs.device_ms(
-                torch, lambda: legacy_carry(acc, x, y, inf, g2))
-        legacy.append(row)
-        cs.log(f"legacy tail {row}")
-    print(json.dumps({"ec_add_at_tail_shapes": adds}), flush=True)
-    print(json.dumps({"legacy_tail": legacy}), flush=True)
-
-    if has_kernels:
-        sweep, carry = [], []
-        for g2, M, W, L, where in FOLD_SHAPES:
-            pts = points(g2, M, W, L)
-            want = MSM.lane_fold_plain(pts, g2)
-            keep = (MSM.FOLD_WARPS[g2], MSM.FOLD_STAGED_MAX[g2],
-                    MSM.fold_split)
-            for warps, wide, split in itertools.product(WARPS, STAGED_MAX,
-                                                        SPLIT):
-                if wide < (1 << 30) and wide >= L // 2:
-                    continue   # no level is wider: the same variant
-                MSM.FOLD_WARPS[g2], MSM.FOLD_STAGED_MAX[g2] = warps, wide
-                MSM.fold_split = lambda G, L, device, k=split: min(k, L)
-                got = MSM.lane_fold(pts, g2)
-                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
-                    f"ec_fold {where} warps={warps} staged<={wide} {split}"
-                sweep.append({"where": where, "warps": warps,
-                              "staged_max": wide, "split": split,
-                              "ms": cs.device_ms(
-                                  torch, lambda: MSM.lane_fold(pts, g2)),
-                              "host_ms": host_ms(
-                                  lambda: MSM.lane_fold(pts, g2))})
-            MSM.FOLD_WARPS[g2], MSM.FOLD_STAGED_MAX[g2], MSM.fold_split = keep
-            sweep.append({"where": where, "default": True, "ms": cs.device_ms(
-                torch, lambda: MSM.lane_fold(pts, g2))})
-            best = min((r for r in sweep if r["where"] == where
-                        and "default" not in r), key=lambda r: r["ms"])
-            cs.log(f"fold {where}: best {best}")
-        for g2, M, W, L, where in CARRY_SHAPES:
-            acc = points(g2, M, W, L)
-            x, y = points(g2, M, W, L)[:2]
-            inf = torch.rand((M, W, L), generator=gen, device="cuda") < 0.1
-            want = CT.chunk_carry_plain(acc, x, y, inf, g2)
-            got = CT.chunk_carry([c.clone() for c in acc], x, y, inf, g2)
-            assert all(torch.equal(a, b) for a, b in zip(got, want)), \
-                f"ec_carry {where}"
-            first = CT.chunk_carry(None, x, y, inf, g2)
-            assert all(torch.equal(a, b) for a, b in zip(
-                first, CT.chunk_carry_plain(None, x, y, inf, g2))), \
-                f"ec_carry {where}, first chunk"
-            carry.append({"where": where, "ms": cs.device_ms(
-                torch, lambda: CT.chunk_carry(got, x, y, inf, g2)),
-                "host_ms": host_ms(
-                    lambda: CT.chunk_carry(got, x, y, inf, g2)),
-                "first_ms": cs.device_ms(
-                    torch, lambda: CT.chunk_carry(None, x, y, inf, g2))})
-        print(json.dumps({"fold_sweep": sweep}), flush=True)
-        print(json.dumps({"carry": carry}), flush=True)
-
-    log_text = (_build.build_dir() / "ec.log").read_text()
     usage = {}
-    for name, prefix in cs.KERNEL_FN.items():
-        if name.startswith("ec_") or name.startswith("horner_"):
-            try:
-                usage[name] = cs.ptxas_usage(log_text, prefix)
-            except AssertionError:
-                usage[name] = None   # not in this package's build
+    variants = {f"ec_carry_g2_w{w}":  # the variant build's staged carries
+                f"_ZN2za15ec_carry_kernelINS_3Fq2ELi{w}ELb0E"
+                for w in CARRY_WIDTHS}
+    for log_text, names in (((_build.build_dir() / "ec.log").read_text(),
+                             cs.KERNEL_FN), (var_log, variants)):
+        for name, prefix in names.items():
+            if log_text and (name.startswith("ec_")
+                             or name.startswith("horner_")):
+                try:
+                    usage[name] = cs.ptxas_usage(log_text, prefix)
+                except AssertionError:
+                    usage[name] = None   # not in this package's build
     print(json.dumps({"ptxas": usage}))
     print(cs.card_line())
     return 0

@@ -108,23 +108,36 @@ struct OpsCallFq {
 // (x1:y1:z1) + (x2:y2:z2), RCB algorithm 7 (a = 0): the same operation
 // order as engine/ec.py point_add, so both give the same coordinates.
 // The outputs may alias the inputs: no input is read after xo is set.
+// z01: 1 where z2 is 0 or 1 (Montgomery), the Z of a flagged affine
+// point, 2 where z1 is too: z1 z2 is then z1 or 0, and with both the
+// cross terms y1 z2 + y2 z1 and x1 z2 + x2 z1 (the two products less t1
+// + t2 and t0 + t2) are sums of selections, the same canonical values
+// in 9 products instead of 12.
 template <class F, class O = Ops>
 __device__ __forceinline__ void point_add(const F& x1, const F& y1,
                                           const F& z1, const F& x2,
                                           const F& y2, const F& z2, F& xo,
-                                          F& yo, F& zo) {
+                                          F& yo, F& zo, int z01 = 0) {
   F t0 = O::mul(x1, x2);
   F t1 = O::mul(y1, y2);
-  F t2 = O::mul(z1, z2);
+  F t2 = z01 ? (is_zero(z2) ? zero<F>() : z1) : O::mul(z1, z2);
   F t3 = O::mul(add(x1, y1), add(x2, y2));
   F t4 = add(t0, t1);
   t3 = sub(t3, t4);
-  t4 = O::mul(add(y1, z1), add(y2, z2));
-  F x3 = add(t1, t2);
-  t4 = sub(t4, x3);
-  x3 = O::mul(add(x1, z1), add(x2, z2));
-  F y3 = add(t0, t2);
-  y3 = sub(x3, y3);
+  F x3, y3;
+  if (z01 == 2) {
+    const F z = zero<F>();
+    const bool f1 = !is_zero(z1), f2 = !is_zero(z2);
+    t4 = add(f2 ? y1 : z, f1 ? y2 : z);
+    y3 = add(f2 ? x1 : z, f1 ? x2 : z);
+  } else {
+    t4 = O::mul(add(y1, z1), add(y2, z2));
+    x3 = add(t1, t2);
+    t4 = sub(t4, x3);
+    x3 = O::mul(add(x1, z1), add(x2, z2));
+    y3 = add(t0, t2);
+    y3 = sub(x3, y3);
+  }
   x3 = add(t0, t0);
   t0 = add(x3, t0);
   t2 = O::mul3b(t2);

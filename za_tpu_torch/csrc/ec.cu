@@ -4,8 +4,9 @@
 // algorithm 7, a = 0), one point pair per thread.  It serves the
 // {1P..8P} table build at staging.
 // ec_fold: the lane fold of both MSM routes, one launch per MSM, and
-// ec_carry: the tree MSM's chunk carry, one launch per chunk; both on the
-// Horner kernels' staged add (below).
+// ec_carry: the tree MSM's chunk carry, one launch per MSM over every
+// chunk's partials; both fold-half levels in shared memory, on
+// curve.cuh's add a thread or the Horner kernels' staged add (below).
 // horner: the window combine sum_w 2^(bits w) S_w of M MSMs in one
 // launch (320 dependent adds each at radix 16, 381 at radix 4): as that
 // many ec_add launches on a few points it cost more in launches than in
@@ -264,25 +265,37 @@ __device__ __forceinline__ void combine(const Fq* s, Fq* out, int nv,
 
 // p = p + q: p and q the six Fq slots (X, Y, Z; c0, c1 each) of two
 // points (in this scratch or elsewhere in shared memory; the same slots
-// double), s the scratch
-__device__ __noinline__ void point_add(Fq* s, Fq* p, const Fq* q,
-                                       int lane) {
-  const int j = min(lane >> 2, 5);
-  const int o1 = L1_OPS[j][0], o2 = L1_OPS[j][1];
+// double), s the scratch.  W lanes (sub = 0 .. W-1) run the add: a
+// stage of n values takes ceil(n / W) rounds, lane sub taking the
+// stage's lanes sub, sub + W, ... (W = 32: one round each, the Horner
+// kernel's warp).
+template <int W = 32>
+__device__ __noinline__ void point_add(Fq* s, Fq* p, const Fq* q, int sub) {
   const Fq* z = s + ZERO;
-  product(s, L1, 6, lane, p + o1, o2 < 0 ? z : p + o2, q + o1,
-          o2 < 0 ? z : q + o2);
+#pragma unroll
+  for (int lane = sub; lane < sub + 24 + (W - 24 % W) % W; lane += W) {
+    const int j = min(lane >> 2, 5);
+    const int o1 = L1_OPS[j][0], o2 = L1_OPS[j][1];
+    product(s, L1, 6, lane, p + o1, o2 < 0 ? z : p + o2, q + o1,
+            o2 < 0 ? z : q + o2);
+  }
   __syncwarp();
-  combine(s, s + C1, 6, lane, L1, C1_TERMS, nullptr);
+#pragma unroll
+  for (int lane = sub; lane < sub + 12 + (W - 12 % W) % W; lane += W)
+    combine(s, s + C1, 6, lane, L1, C1_TERMS, nullptr);
   __syncwarp();
-  product(s, L2, 2, lane, s + B3, z,
-          s + ((lane >> 2) & 1 ? C1 + 10 : C1 + 4), z);  // 3b t2, 3b y3
+  product(s, L2, 2, sub, s + B3, z,
+          s + ((sub >> 2) & 1 ? C1 + 10 : C1 + 4), z);  // 3b t2, 3b y3
   __syncwarp();
-  combine(s, s + C2, 3, lane, L2, C2_TERMS, C2_KEEP);
+  combine(s, s + C2, 3, sub, L2, C2_TERMS, C2_KEEP);
   __syncwarp();
-  product(s, L3, 6, lane, s + L3_OPS[j][0], z, s + L3_OPS[j][1], z);
+#pragma unroll
+  for (int lane = sub; lane < sub + 24 + (W - 24 % W) % W; lane += W) {
+    const int j = min(lane >> 2, 5);
+    product(s, L3, 6, lane, s + L3_OPS[j][0], z, s + L3_OPS[j][1], z);
+  }
   __syncwarp();
-  combine(s, p, 3, lane, L3, C3_TERMS, nullptr);
+  combine(s, p, 3, sub, L3, C3_TERMS, nullptr);
   __syncwarp();
 }
 }  // namespace hw2
@@ -336,25 +349,26 @@ horner_warp_g2_kernel(const uint32_t* __restrict__ WX,
 
 // -- the lane fold and the chunk carry: staged adds on shared memory ---------
 //
-// Both run the Horner kernels' staged add (hw1 / hw2 point_add): one add
-// on WIDTH lanes with a scratch of SLOTS Fq of its own, UNITS of them a
-// warp: five G1 adds on lanes 0-29 (lanes 30 and 31 ride along with the
-// fifth and only read), one G2 add on the whole warp.  A point is NS
-// consecutive Fq slots, hw1::P's and hw2::P's layout: X, Y, Z (G1); X.c0,
-// X.c1, Y.c0, Y.c1, Z.c0, Z.c1 (G2).  The staged add's latency is two
-// (G1) or three (G2) products where one thread's add is a chain of 14 or
-// 42 (~10 and ~48 us, NVIDIA H100 80GB HBM3, 700 W): the proof gives
-// these kernels 8k-25k adds (a carry) or a fold whose levels shrink to
-// M * W adds, too few threads to hide that chain.  Measured on that
-// card: a fold 0.026-0.037 ms (G1) and 0.057-0.15 ms (G2), a carry
-// 0.014-0.026 (G1) and 0.043 ms (G2), against 0.15-0.54 ms and
-// 0.057-0.095 ms of device time for the ec_add launches they replace
+// Both sum points by fold-half levels in shared memory, a level's adds
+// one a thread (curve.cuh's add in registers, thread_add) or on the
+// Horner kernels' staged add (hw1 / hw2 point_add): one add on WIDTH
+// lanes with a scratch of SLOTS Fq of its own, UNITS of them a warp:
+// five G1 adds on lanes 0-29 (lanes 30 and 31 ride along with the fifth
+// and only read), in G2 32 / WIDTH adds of WIDTH = 32, 16 or 8 lanes.
+// A point is NS consecutive Fq slots, hw1::P's and hw2::P's layout: X,
+// Y, Z (G1); X.c0, X.c1, Y.c0, Y.c1, Z.c0, Z.c1 (G2).  The staged add's
+// latency is two (G1) or three (G2, WIDTH 32) products where one
+// thread's add is a chain of 12 or 42 (~10 and ~48 us, NVIDIA H100 80GB
+// HBM3, 700 W); it costs more instructions an add (lanes idle in the
+// combines, the scratch's traffic), so wide levels go one add a thread.
+// Measured on that card: a fold 0.026-0.037 ms (G1) and 0.057-0.15 ms
+// (G2) against 0.15-0.54 ms of the ec_add launches it replaced
 // (tools/torch_fold_sweep.py).  Bound: operations at these shapes
-// (0.0015-0.021 ms); what holds them is the chain of dependent staged
-// adds, log2 L of them in a fold (a floor of 0.017-0.037 ms) and one in
-// a carry.
-template <class F> struct Staged;
-template <> struct Staged<Fq> {
+// (0.0015-0.021 ms); what holds a fold is its chain of log2 L dependent
+// levels (a floor of 0.017-0.037 ms).
+// W: the add's lanes, by default G1's 6 and G2's warp
+template <class F, int W = sizeof(F) == sizeof(Fq) ? 6 : 32> struct Staged;
+template <> struct Staged<Fq, 6> {
   static constexpr int NS = 3, UNITS = 5, WIDTH = 6;
   static constexpr int SLOTS = hw1::SLOTS, P = hw1::P, Q = hw1::Q;
   __device__ static void init(Fq* s, int sub) {  // ZERO
@@ -364,19 +378,19 @@ template <> struct Staged<Fq> {
     hw1::point_add(s, p, q, sub);
   }
 };
-template <> struct Staged<Fq2> {
-  static constexpr int NS = 6, UNITS = 1, WIDTH = 32;
+template <int W> struct Staged<Fq2, W> {
+  static constexpr int NS = 6, UNITS = 32 / W, WIDTH = W;
   static constexpr int SLOTS = hw2::SLOTS, P = hw2::P, Q = hw2::Q;
   __device__ static void init(Fq* s, int sub) {  // ZERO and 3b
-    if (sub < 16) {
-      const Fq2 b = b3<Fq2>();
-      s[hw2::ZERO + (sub >> 3)].v[sub & 7] = 0u;
-      s[hw2::B3 + (sub >> 3)].v[sub & 7] =
-          (sub >> 3) ? b.c1.v[sub & 7] : b.c0.v[sub & 7];
+    const Fq2 b = b3<Fq2>();
+    for (int w = sub; w < 16; w += WIDTH) {
+      s[hw2::ZERO + (w >> 3)].v[w & 7] = 0u;
+      s[hw2::B3 + (w >> 3)].v[w & 7] = (w >> 3) ? b.c1.v[w & 7]
+                                                : b.c0.v[w & 7];
     }
   }
   __device__ static void add(Fq* s, Fq* p, const Fq* q, int sub) {
-    hw2::point_add(s, p, q, sub);
+    hw2::point_add<W>(s, p, q, sub);
   }
 };
 
@@ -404,8 +418,10 @@ __device__ __forceinline__ void put(Fq* s, const Fq2& a) {
   s[1] = a.c1;
 }
 
-// lane i += lane i + h on one thread: curve.cuh's add in registers
-template <class F>
+// lane i += lane i + h on one thread: curve.cuh's add in registers;
+// LEAVES: 1 where lane i + h is a flagged affine point (Z 0 or 1), 2
+// where lane i is too (point_add's z01)
+template <class F, int LEAVES>
 __device__ __noinline__ void thread_add(Fq* pts, int i, int h) {
   constexpr int w = Staged<F>::NS / 3;
   Fq* a = pts + Staged<F>::NS * i;
@@ -417,37 +433,52 @@ __device__ __noinline__ void thread_add(Fq* pts, int i, int h) {
   get(x2, b);
   get(y2, b + w);
   get(z2, b + 2 * w);
-  point_add(x1, y1, z1, x2, y2, z2, x1, y1, z1);
+  point_add(x1, y1, z1, x2, y2, z2, x1, y1, z1, LEAVES);
   put(a, x1);
   put(a + w, y1);
   put(a + 2 * w, z1);
 }
 
 constexpr int FOLD_MAX_LANES = 512;    // lanes of one group
-constexpr int FOLD_MAX_THREADS = 512;  // threads of a fold block
+constexpr int FOLD_MAX_THREADS = 512;  // threads of a fold or carry block
 constexpr int FOLD_MAX_SPLIT = 8;      // blocks of a group (a cluster)
 
-// Fold-half levels of lanes 0 .. n-1 into lane 0, on the block: level h
-// = n/2 .. 1 adds lane i + h into lane i for i < h, __syncthreads after
-// each.  A level of more than `wide` adds runs one add per thread; a
-// narrower one runs staged adds, unit u (of warps * UNITS) taking adds
-// u, u + warps * UNITS, ...
-template <class F>
-__device__ __forceinline__ void fold_levels(Fq* pts, Fq* s, int n, int wide,
+// Fold-half levels of lanes 0 .. n-1 (n a power of two), of which
+// lanes 0 .. nv-1 hold points (nv > n/2), on the block: level h = n/2,
+// n/4, .., stop adds lane i + h into lane i for i < h where lane i + h
+// holds a point (i + h < nv; a missing lane is no add, not an add of
+// the identity), __syncthreads after each.  A level of more than
+// `wide` adds runs one add per thread; a narrower one runs staged adds,
+// unit u (of warps * UNITS) taking adds u, u + warps * UNITS, ...
+// leaves: the lanes start as flagged affine points, so lane j is still
+// one at level h where j + 2h >= nv (no earlier level added into it),
+// and a thread's add then runs fewer products (point_add's z01): lane i
+// + h is a leaf where i + 3h >= nv, lane i too where i + 2h >= nv.
+// !THREADS: every level staged (no add in registers compiled in, which
+// would hold G2's registers at the cap).
+template <class F, int W = Staged<F>::WIDTH, bool THREADS = true>
+__device__ __forceinline__ void fold_levels(Fq* pts, Fq* s, int n, int stop,
+                                            int nv, bool leaves, int wide,
                                             int k, int sub) {
-  using S = Staged<F>;
+  using S = Staged<F, W>;
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
   const int units = (nt >> 5) * S::UNITS;
 #pragma unroll 1
-  for (int h = n >> 1; h > 0; h >>= 1) {
-    if (h > wide) {
-      for (int i = tid; i < h; i += nt) thread_add<F>(pts, i, h);
+  for (int h = n >> 1; h >= stop; h >>= 1) {
+    if (THREADS && h > wide) {
+      for (int i = tid; i < h; i += nt) {
+        if (i + h >= nv) continue;
+        if (leaves && i + 2 * h >= nv) thread_add<F, 2>(pts, i, h);
+        else if (leaves && i + 3 * h >= nv) thread_add<F, 1>(pts, i, h);
+        else thread_add<F, 0>(pts, i, h);
+      }
     } else {
 #pragma unroll 1
       for (int b = warp * S::UNITS; b < h; b += units) {
-        const int i = b + k;  // past h the unit adds its own P and Q
-        S::add(s, i < h ? pts + i * S::NS : s + S::P,
-               i < h ? pts + (i + h) * S::NS : s + S::Q, sub);
+        const int i = b + k;  // else the unit adds its own P and Q
+        const bool on = i < h && i + h < nv;
+        S::add(s, on ? pts + i * S::NS : s + S::P,
+               on ? pts + (i + h) * S::NS : s + S::Q, sub);
       }
     }
     __syncthreads();
@@ -495,7 +526,7 @@ ec_fold_kernel(const uint32_t* __restrict__ X,
   }
   S::init(s, sub);
   __syncthreads();
-  fold_levels<F>(pts, s, n, wide, k, sub);
+  fold_levels<F>(pts, s, n, 1, n, false, wide, k, sub);
   if (K > 1) {
     cluster.sync();  // every block's lane r is final
     if (r == 0) {
@@ -506,7 +537,7 @@ ec_fold_kernel(const uint32_t* __restrict__ X,
     }
     cluster.sync();  // read: the other blocks may leave
     if (r != 0) return;
-    fold_levels<F>(pts, s, K, wide, k, sub);
+    fold_levels<F>(pts, s, K, 1, K, false, wide, k, sub);
   }
   for (int e = tid; e < 8 * S::NS; e += nt) {
     int c, pl, slot, limb;
@@ -516,57 +547,71 @@ ec_fold_kernel(const uint32_t* __restrict__ X,
   }
 }
 
-constexpr int CARRY_WARPS = 4;  // warps of a carry block
-
-// The tree MSM's chunk carry in one launch, in place: acc += (x : y : 1),
-// or + (0 : 1 : 0) where inf, for each of the n partials of a chunk (the
-// last tree level's affine output); `first` writes that point into acc
-// instead (msm_tree.proj_of_affine).  One staged unit a partial: its
-// lanes load acc into the scratch's P slots and the point into Q, add,
-// store P.  Replaces proj_of_affine's tensor ops and an ec_add launch.
-template <class F>
-__global__ void __launch_bounds__(32 * CARRY_WARPS)
-ec_carry_kernel(uint32_t* __restrict__ X, uint32_t* __restrict__ Y,
-                uint32_t* __restrict__ Z, const uint32_t* __restrict__ x,
+// The tree MSM's chunk carry, one launch a MSM: the C chunks' flagged
+// affine partials of each of the N columns (m, w, t) summed into the
+// projective (*E, M, W, T) that msm.lane_fold takes.  Input: x, y (C,
+// *E, M, W, T) limb planes, inf (C, M, W, T) bytes, the last tree
+// level's output of each chunk (cuda_tree.tree_window_sums); a partial
+// flagged inf is (0 : 1 : 0) under the complete add.  Block b takes B
+// columns with their whole chunk axis into shared memory (chunk-major:
+// lane c B + col) and runs fold-half levels over the chunks, C padded
+// to a power of two P in the schedule only: level h = P/2, .., 1 adds
+// chunk c + h into chunk c for c < h where c + h < C.  In lanes that is
+// fold_levels on P B lanes of which C B hold points, stopped at level B,
+// so the plain version (cuda_tree.chunk_carry_plain) is that fold-half
+// on the chunk axis.  The first level's operands are affine, and a
+// later level's where no level added into them (leaves): a thread's add
+// there runs 9 products (both leaves) or 11 (the second), point_add's
+// z01.  Replaces the reference's carry scan (za_tpu/engine/
+// msm_tree.py tree_window_sums, point_add(carry, chunk) under
+// jax.lax.scan, XLA code, no Pallas kernel) and the port's carry launch
+// a chunk.  Bound: operations, (C - 1) N adds.  Measured (NVIDIA H100
+// 80GB HBM3, 700 W, tools/torch_fold_sweep.py): one add a thread wins
+// in G1, the staged add on 8 lanes in G2 (cuda_tree.carry_plan); the
+// levels' adds run at the rate of the port's other curve kernels, and
+// at 2^17 a level holds too few of them to fill the card.
+template <class F, int W, bool THREADS>
+__global__ void __launch_bounds__(FOLD_MAX_THREADS)
+ec_carry_kernel(const uint32_t* __restrict__ x,
                 const uint32_t* __restrict__ y,
-                const uint8_t* __restrict__ inf, int n, int first) {
-  using S = Staged<F>;
-  __shared__ Fq scratch[CARRY_WARPS * S::UNITS * S::SLOTS];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                const uint8_t* __restrict__ inf, uint32_t* __restrict__ X,
+                uint32_t* __restrict__ Y, uint32_t* __restrict__ Z, int C,
+                int N, int B, int wide) {
+  using S = Staged<F, W>;
+  extern __shared__ Fq smem[];  // C B points, then the units' scratch
+  int P = 1;
+  while (P < C) P <<= 1;
+  const int nv = C * B, tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int k = min(lane / S::WIDTH, S::UNITS - 1);
   const int sub = lane - S::WIDTH * k;
-  Fq* s = scratch + (warp * S::UNITS + k) * S::SLOTS;
-  const size_t i =
-      ((size_t)blockIdx.x * CARRY_WARPS + warp) * S::UNITS + k;
-  const bool on = i < (size_t)n && sub < S::WIDTH;  // the unit's own lanes
-  S::init(s, sub);
-  if (on) {
-    const bool at_inf = inf[i] != 0;
-    for (int r = sub; r < 8 * S::NS; r += S::WIDTH) {
-      int c, pl, slot, limb;
-      point_word<F>(r, c, pl, slot, limb);
-      // 1 in Montgomery form in component 0, 0 in component 1
-      const uint32_t one_w =
-          pl % (S::NS / 3) == 0 ? QParams::one(limb) : 0u;
-      uint32_t v;
-      if (c == 2) v = at_inf ? 0u : one_w;
-      else if (at_inf) v = c == 1 ? one_w : 0u;
-      else v = (c == 0 ? x : y)[pl * (size_t)n + i];
-      s[S::Q + slot].v[limb] = v;
-      if (!first)
-        s[S::P + slot].v[limb] =
-            (c == 0 ? X : c == 1 ? Y : Z)[pl * (size_t)n + i];
-    }
+  Fq* pts = smem;
+  Fq* s = smem + nv * S::NS + (warp * S::UNITS + k) * S::SLOTS;
+  const size_t j0 = (size_t)blockIdx.x * B;
+  constexpr int per = S::NS / 3;  // Fq slots of a coordinate
+  for (int e = tid; e < 8 * S::NS * nv; e += nt) {  // coalesced over columns
+    const int col = e % B, a = e / B, c = a % C;
+    int cc, pl, slot, limb;
+    point_word<F>(a / C, cc, pl, slot, limb);
+    // (x : y : 1), or (0 : 1 : 0) where inf; 1 in Montgomery form in
+    // component 0, 0 in component 1
+    const bool at_inf = inf[(size_t)c * N + j0 + col] != 0;
+    const uint32_t one_w = pl % per == 0 ? QParams::one(limb) : 0u;
+    uint32_t v;
+    if (cc == 2) v = at_inf ? 0u : one_w;
+    else if (at_inf) v = cc == 1 ? one_w : 0u;
+    else v = (cc == 0 ? x : y)[((size_t)c * 8 * per + pl) * N + j0 + col];
+    pts[(c * B + col) * S::NS + slot].v[limb] = v;
   }
-  __syncwarp();
-  if (!first) S::add(s, s + S::P, s + S::Q, sub);  // warp-uniform
-  if (on) {
-    const Fq* res = first ? s + S::Q : s + S::P;
-    for (int r = sub; r < 8 * S::NS; r += S::WIDTH) {
-      int c, pl, slot, limb;
-      point_word<F>(r, c, pl, slot, limb);
-      (c == 0 ? X : c == 1 ? Y : Z)[pl * (size_t)n + i] = res[slot].v[limb];
-    }
+  if (wide >= B) S::init(s, sub);  // a staged level runs: the scratch exists
+  __syncthreads();
+  fold_levels<F, W, THREADS>(pts, s, P * B, B, nv, true, wide, k, sub);
+  for (int e = tid; e < 8 * S::NS * B; e += nt) {
+    const int col = e % B;
+    int c, pl, slot, limb;
+    point_word<F>(e / B, c, pl, slot, limb);
+    (c == 0 ? X : c == 1 ? Y : Z)[pl * (size_t)N + j0 + col] =
+        pts[col * S::NS + slot].v[limb];
   }
 }
 
@@ -629,6 +674,16 @@ int launch_add(const void* X1, const void* Y1, const void* Z1,
   return (int)cudaGetLastError();
 }
 
+// Lets kernel take smem bytes of dynamic shared memory; 0 or the error.
+template <class K>
+int allow_smem(K kernel, int smem) {
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) cudaGetLastError();  // or the next launch reports it
+  return (int)rc;
+}
+
 template <class F>
 int launch_fold(const void* X, const void* Y, const void* Z, void* OX,
                 void* OY, void* OZ, int G, int L, int wide, int warps,
@@ -642,12 +697,8 @@ int launch_fold(const void* X, const void* Y, const void* Z, void* OX,
   const int lanes = L / split > split ? L / split : split;
   const int smem =
       (lanes * S::NS + warps * S::UNITS * S::SLOTS) * (int)sizeof(Fq);
-  cudaError_t rc = cudaFuncSetAttribute(
-      ec_fold_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc != cudaSuccess) {
-    cudaGetLastError();  // clear it, or the next launch reports it
-    return (int)rc;
-  }
+  int rc = allow_smem(ec_fold_kernel<F>, smem);
+  if (rc) return rc;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)G * split);
   cfg.blockDim = dim3(32 * warps);
@@ -660,28 +711,44 @@ int launch_fold(const void* X, const void* Y, const void* Z, void* OX,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  rc = cudaLaunchKernelEx(&cfg, ec_fold_kernel<F>, (const uint32_t*)X,
-                          (const uint32_t*)Y, (const uint32_t*)Z,
-                          (uint32_t*)OX, (uint32_t*)OY, (uint32_t*)OZ, G, L,
-                          wide);
-  if (rc != cudaSuccess) {
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, ec_fold_kernel<F>, (const uint32_t*)X, (const uint32_t*)Y,
+      (const uint32_t*)Z, (uint32_t*)OX, (uint32_t*)OY, (uint32_t*)OZ, G, L,
+      wide);
+  if (err != cudaSuccess) {
     cudaGetLastError();
-    return (int)rc;
+    return (int)err;
   }
   return (int)cudaGetLastError();
 }
 
-template <class F>
-int launch_carry(void* X, void* Y, void* Z, const void* x, const void* y,
-                 const void* inf, int n, int first, void* stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const int per = CARRY_WARPS * Staged<F>::UNITS;
-    ec_carry_kernel<F><<<(n + per - 1) / per, 32 * CARRY_WARPS, 0,
-                         (cudaStream_t)stream>>>(
-        (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, (const uint32_t*)x,
-        (const uint32_t*)y, (const uint8_t*)inf, n, first);
-  }
+// The G2 carry's staged add: 8 lanes, four a warp (tools/
+// torch_fold_sweep.py: 1.3-1.9x the warp's 32 at C = 5, 8 and 64).
+constexpr int CARRY_G2_WIDTH = 8;
+
+// The carry over C chunks of N columns, B columns a block of `warps`
+// warps; levels of more than `wide` adds one add a thread.
+template <class F, int W = Staged<F>::WIDTH>
+int launch_carry(const void* x, const void* y, const void* inf, void* X,
+                 void* Y, void* Z, int C, int N, int B, int wide, int warps,
+                 void* stream) {
+  if (C < 1 || N < 0 || B < 1 || (B & (B - 1)) || N % B || warps < 1
+      || 32 * warps > FOLD_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaGetLastError();
+  using S = Staged<F, W>;
+  int P = 1;
+  while (P < C) P <<= 1;
+  const int scratch = wide >= B ? warps * S::UNITS * S::SLOTS : 0;
+  const int smem = (C * B * S::NS + scratch) * (int)sizeof(Fq);
+  // a level wider than `wide` (the first is the widest) runs thread adds
+  auto kernel = P * B / 2 > wide ? ec_carry_kernel<F, W, true>
+                                 : ec_carry_kernel<F, W, false>;
+  const int rc = allow_smem(kernel, smem);
+  if (rc) return rc;
+  kernel<<<N / B, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const uint32_t*)y, (const uint8_t*)inf,
+      (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, C, N, B, wide);
   return (int)cudaGetLastError();
 }
 
@@ -730,15 +797,38 @@ int ec_fold_g2(const void* X, const void* Y, const void* Z, void* OX,
                                   split, stream);
 }
 
-int ec_carry_g1(void* X, void* Y, void* Z, const void* x, const void* y,
-                const void* inf, int n, int first, void* stream) {
-  return za::launch_carry<za::Fq>(X, Y, Z, x, y, inf, n, first, stream);
+int ec_carry_g1(const void* x, const void* y, const void* inf, void* X,
+                void* Y, void* Z, int C, int N, int B, int wide, int warps,
+                void* stream) {
+  return za::launch_carry<za::Fq>(x, y, inf, X, Y, Z, C, N, B, wide, warps,
+                                  stream);
 }
 
-int ec_carry_g2(void* X, void* Y, void* Z, const void* x, const void* y,
-                const void* inf, int n, int first, void* stream) {
-  return za::launch_carry<za::Fq2>(X, Y, Z, x, y, inf, n, first, stream);
+int ec_carry_g2(const void* x, const void* y, const void* inf, void* X,
+                void* Y, void* Z, int C, int N, int B, int wide, int warps,
+                void* stream) {
+  return za::launch_carry<za::Fq2, za::CARRY_G2_WIDTH>(
+      x, y, inf, X, Y, Z, C, N, B, wide, warps, stream);
 }
+
+#ifdef ZA_EC_VARIANTS
+// tools/torch_fold_sweep.py's variants: the G2 carry on staged adds of
+// 32, 16 or 8 lanes.
+int ec_carry_g2_width(const void* x, const void* y, const void* inf,
+                      void* X, void* Y, void* Z, int C, int N, int B,
+                      int wide, int warps, int width, void* stream) {
+  if (width == 32)
+    return za::launch_carry<za::Fq2, 32>(x, y, inf, X, Y, Z, C, N, B, wide,
+                                         warps, stream);
+  if (width == 16)
+    return za::launch_carry<za::Fq2, 16>(x, y, inf, X, Y, Z, C, N, B, wide,
+                                         warps, stream);
+  if (width == 8)
+    return za::launch_carry<za::Fq2, 8>(x, y, inf, X, Y, Z, C, N, B, wide,
+                                        warps, stream);
+  return (int)cudaErrorInvalidValue;
+}
+#endif
 
 int horner_g1(const void* WX, const void* WY, const void* WZ, void* X,
               void* Y, void* Z, int M, int W, int bits, void* stream) {
