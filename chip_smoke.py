@@ -45,22 +45,23 @@ Phases:
   5. each kernel against its plain PyTorch version on the shapes of the
      path that runs it, exact equality (integers mod p), timed beside
      its bound; the tree levels at every level of one 2^17 chunk
-     ("per_level_ms"); the matvec at the 2^17 chain's three legs, the
-     NTT prefix in each mode (scale on load, combine on load, scale on
-     store); the tree, dense, Horner, prefix and matvec kernels'
-     registers and spill bytes from the build's ptxas logs ("regs",
-     "spill_bytes"), every row's launches per 2^17 proof
-     ("launches_per_proof"), the Horner rows' time per complete add of
-     one MSM's chain and the dense rows' per add of one lane's chain
-     ("us_per_add"), the dense rows' resident warps an SM
-     ("warps_per_sm", the occupancy query) and points a thread walks
-     ("adds_a_thread", n / (S L)), at the (L, S) the proof takes; the
-     lane fold at every MSM's shape and the carry
-     at each 2^17 MSM's (C chunks of partials), device time with a
-     chain floor (dependent adds x the Horner rows' time per add,
-     "chain_floor_ms"), the
-     curve kernels' registers; printed as one JSON
-     line {"kernels": [...]}; then one
+     ("per_level_ms"); the matvec and the twiddle transpose at each
+     rung's shapes (the chain's three legs; 3 x 512 x 512 at 2^17, 3 x
+     128 x 128 at 2^13), the NTT prefix in each mode (scale on load,
+     combine on load, scale on store); every kernel's registers and
+     spill bytes from the build's ptxas logs ("regs", "spill_bytes"),
+     every row's launches per 2^17 and per 2^13 proof
+     ("launches_per_proof", "launches_per_proof_2^13"), the Horner
+     rows' time per complete add of one MSM's chain and the dense
+     rows' per add of one lane's chain ("us_per_add"), the dense rows'
+     resident warps an SM ("warps_per_sm", the occupancy query) and
+     points a thread walks ("adds_a_thread", n / (S L)), at the (L, S)
+     the proof takes; the lane fold at every MSM's shape (its plan:
+     windows a block, blocks a window, warps, levels one add a thread)
+     and the carry at each 2^17 MSM's (C chunks of partials), device
+     time with a chain floor (dependent adds x the Horner rows' time
+     per add, "chain_floor_ms"); printed as one JSON line {"kernels":
+     [...]}; then one
      NTT through both routes (radix-2, four-step) at sizes from 2^9 to
      2^20, equal results, timed (the 2^17 line's "ntt_routes_ms");
   6. the card's name and power limit, then the result line.
@@ -102,11 +103,14 @@ ADD_MULS = {False: 12, True: 3 * 14}
 # csrc/ntt.cu and csrc/r1cs.cu, as ptxas names it, up to its last
 # template argument: tree_level_rolled_kernel<Fq, true, 8, ...>, <Fq,
 # false, 8, ...>, <Fq2, true, 4, ...> and <Fq2, false, 4, ...>;
-# horner_warp_g1_kernel, horner_warp_g2_kernel; ec_add_kernel and
-# ec_fold_kernel <Fq> and <Fq2>, ec_carry_kernel <Fq, 6, true> and <Fq2,
-# 8, false> (the staged add's lanes, levels one add a thread or all
-# staged); dense_sums_kernel <Fq, true, ...>, <Fq2, true, ...> (signed radix 16),
-# <Fq, false, ...>, <Fq2, false, ...> (radix 4); ntt_prefix_kernel;
+# horner_warp_g1_kernel, horner_warp_g2_kernel; ec_add_kernel <Fq> and
+# <Fq2>; ec_sum_kernel <F, staged add's lanes, thread adds compiled in,
+# fold> (the fold <Fq, 6, true, true>, or <Fq, 6, false, true> where no
+# level runs thread adds, and <Fq2, 16, false, true>; the carry <Fq, 6,
+# true, false> and <Fq2, 8, false, false>); to_affine_kernel <Fq, 8>
+# and <Fq2, 4>; dense_sums_kernel <Fq, true, ...>, <Fq2, true, ...>
+# (signed radix 16), <Fq, false, ...>, <Fq2, false, ...> (radix 4);
+# ntt_prefix_kernel, ntt_twiddle_kernel, ntt_stage_kernel;
 # r1cs_matvec_kernel
 KERNEL_FN = {
     "dense_window_sums_g1":
@@ -125,11 +129,19 @@ KERNEL_FN = {
     "horner_g2": "_ZN2za21horner_warp_g2_kernelE",
     "ec_add_g1": "_ZN2za13ec_add_kernelINS_2FpINS_7QParamsEEEEE",
     "ec_add_g2": "_ZN2za13ec_add_kernelINS_3Fq2EEE",
-    "ec_fold_g1": "_ZN2za14ec_fold_kernelINS_2FpINS_7QParamsEEEEE",
-    "ec_fold_g2": "_ZN2za14ec_fold_kernelINS_3Fq2EEE",
-    "ec_carry_g1": "_ZN2za15ec_carry_kernelINS_2FpINS_7QParamsEEELi6ELb1E",
-    "ec_carry_g2": "_ZN2za15ec_carry_kernelINS_3Fq2ELi8ELb0E",
+    "ec_fold_g1":
+        "_ZN2za13ec_sum_kernelINS_2FpINS_7QParamsEEELi6ELb1ELb1E",
+    "ec_fold_g1.staged":
+        "_ZN2za13ec_sum_kernelINS_2FpINS_7QParamsEEELi6ELb0ELb1E",
+    "ec_fold_g2": "_ZN2za13ec_sum_kernelINS_3Fq2ELi16ELb0ELb1E",
+    "ec_carry_g1":
+        "_ZN2za13ec_sum_kernelINS_2FpINS_7QParamsEEELi6ELb1ELb0E",
+    "ec_carry_g2": "_ZN2za13ec_sum_kernelINS_3Fq2ELi8ELb0ELb0E",
+    "to_affine_g1": "_ZN2za16to_affine_kernelINS_2FpINS_7QParamsEEELi8E",
+    "to_affine_g2": "_ZN2za16to_affine_kernelINS_3Fq2ELi4E",
     "ntt_prefix_fr": "_ZN2za17ntt_prefix_kernelE",
+    "ntt_twiddle_fr": "_ZN2za18ntt_twiddle_kernelE",
+    "ntt_stage_fr": "_ZN2za16ntt_stage_kernelE",
     "r1cs_matvec_fr": "_ZN2za18r1cs_matvec_kernelE",
 }
 
@@ -1168,30 +1180,37 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         rows[-1]["mode"] = mode
         rows[-1].update(ptxas_usage(ntt_log, KERNEL_FN["ntt_prefix_fr"]))
 
-    # the matvec at the 2^17 chain: A (with the input rows), B, C in one
-    # launch
-    r1cs, z_l, mm = tctx["r1cs"], tctx["z_l"], tctx["m"]
-    csr = RC.r1cs_csr(r1cs, mm, "cuda")
-    z32 = F.pack(z_l.to(F.I64))
-    outs, ms, pms, err = compare(
-        torch, "r1cs_matvec_fr", lambda c, z: (RC.matvec(c, z),),
-        lambda c, z: (RC.matvec_plain(c, z),), (csr, z32), reps=5)
-    nnz = csr.cols.numel()
-    row("r1cs_matvec_fr", "za_tpu_torch/csrc/r1cs.cu",
-        "za_tpu/engine/engine.py:1891",
-        f"2^{LOG2N} chain, 3 legs x {mm} rows, {nnz} entries", ms, pms, err,
-        nbytes(csr.row_ptr, csr.cols, csr.coeffs, z32, outs[0]), nnz)
-    rows[-1].update(ptxas_usage(
-        (_build.build_dir() / "r1cs.log").read_text(),
-        KERNEL_FN["r1cs_matvec_fr"]))
-    outs, ms, pms, err = compare(
-        torch, "ntt_twiddle_fr", lambda a, w: (NTT.ntt_twiddle(a, w),),
-        lambda a, w: (NTT.ntt_twiddle_plain(a, w),), (x, fs.inter_fwd),
-        reps=5)
-    # inter[k2, j1] = w^(k2 j1) is 1 in row 0 and column 0
-    row("ntt_twiddle_fr", ntt_src, "za_tpu/engine/ntt_rns.py:276",
-        f"3 x {fs.n2} x {fs.n1}", ms, pms, err,
-        nbytes(x, fs.inter_fwd, outs[0]), 3 * (fs.n2 - 1) * (fs.n1 - 1))
+    # the matvec and the twiddle transpose at each rung: the chain's
+    # three legs (A with the input rows, B, C in one launch); the first
+    # sub-NTT's output, 3 legs x n2 x n1 (512 x 512 at 2^17, 128 x 128 at
+    # 2^13)
+    r1cs_log = (_build.build_dir() / "r1cs.log").read_text()
+    for log2n, ctx in ((LOG2N, tctx), (LOG2N_DENSE, dctx)):
+        r1cs, zl, mm = ctx["r1cs"], ctx["z_l"], ctx["m"]
+        csr = RC.r1cs_csr(r1cs, mm, "cuda")
+        z32 = F.pack(zl.to(F.I64))
+        outs, ms, pms, err = compare(
+            torch, "r1cs_matvec_fr", lambda c, z: (RC.matvec(c, z),),
+            lambda c, z: (RC.matvec_plain(c, z),), (csr, z32), reps=5)
+        nnz = csr.cols.numel()
+        row("r1cs_matvec_fr", "za_tpu_torch/csrc/r1cs.cu",
+            "za_tpu/engine/engine.py:1891",
+            f"2^{log2n} chain, 3 legs x {mm} rows, {nnz} entries", ms, pms,
+            err, nbytes(csr.row_ptr, csr.cols, csr.coeffs, z32, outs[0]),
+            nnz)
+        rows[-1].update(ptxas_usage(r1cs_log, KERNEL_FN["r1cs_matvec_fr"]))
+        tfs = ctx["eng"]._domain(mm).fourstep
+        xt = rand_fq(torch, (3, tfs.n2, tfs.n1), gen)
+        outs, ms, pms, err = compare(
+            torch, "ntt_twiddle_fr", lambda a, w: (NTT.ntt_twiddle(a, w),),
+            lambda a, w: (NTT.ntt_twiddle_plain(a, w),),
+            (xt, tfs.inter_fwd), reps=5)
+        # inter[k2, j1] = w^(k2 j1) is 1 in row 0 and column 0
+        row("ntt_twiddle_fr", ntt_src, "za_tpu/engine/ntt_rns.py:276",
+            f"2^{log2n} rung, 3 x {tfs.n2} x {tfs.n1}", ms, pms, err,
+            nbytes(xt, tfs.inter_fwd, outs[0]),
+            3 * (tfs.n2 - 1) * (tfs.n1 - 1))
+        rows[-1].update(ptxas_usage(ntt_log, KERNEL_FN["ntt_twiddle_fr"]))
 
     # the stage kernel where it runs on a path: the 510-constraint
     # check's radix-2 transforms (3 legs x 2^k, one lane)
@@ -1205,6 +1224,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         f"3 x 2^{stages} x 1", ms / stages, pms / stages, err,
         nbytes(x, outs[0], dom.w_fwd),
         3 * dit_muls(dom.size, dom.size) // stages)
+    rows[-1].update(ptxas_usage(ntt_log, KERNEL_FN["ntt_stage_fr"]))
 
     for is_g2 in (False, True):
         g = "g2" if is_g2 else "g1"
@@ -1233,6 +1253,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         row(f"to_affine_{g}", ec_src, "za_tpu/engine/msm_tree.py:422",
             f"{8 * npts} points", ms, pms, err, nbytes(*coords, *outs),
             5 * fmul * nz + fermat)
+        rows[-1].update(ptxas_usage(ec_log, KERNEL_FN[f"to_affine_{g}"]))
     # launches of one prove at each rung, staging excluded
     for r in rows:
         key = r["name"]
@@ -1266,14 +1287,15 @@ def carry_muls(C: int, g2: bool) -> int:
 def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
     """Rows of the lane fold at every shape a proof gives it (each MSM's
     (M, W, L)) and of the carry at each 2^17 MSM's (C, M, 64, 128), on
-    random points (a tenth of the carry's partials flagged at infinity),
+    random points (a tenth of the fold's lanes at (0 : 1 : 0), and two
+    whole windows; a tenth of the carry's partials flagged at infinity),
     exact against the plain versions; ms the device time of one launch,
     median of 5 (device_ms).  Bounds count one complete add per pair
     (carry_muls: the (C - 1) M W T adds, the products left out that a
     partial's Z of 0 or 1 saves); "chain_floor_ms" is the
     dependent levels (log2 L of a fold, ceil(log2 C) of a carry) times
     the staged add's latency measured by the Horner rows."""
-    from za_tpu_torch.engine import cuda_tree as CT, msm as MSM
+    from za_tpu_torch.engine import cuda_tree as CT, ec, msm as MSM
     from za_tpu_torch.engine import msm_dense as MD, msm_tree as MT
 
     timer = Timer(torch)
@@ -1295,7 +1317,8 @@ def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
         assert err == 0, f"{name}: kernel differs from its plain version"
         return err
 
-    def add_row(name, shape, ms, pms, err, bmoved, muls, floor_us):
+    def add_row(name, shape, ms, pms, err, bmoved, muls, floor_us,
+                fn=None):
         b_ms, by = bound(bmoved, muls)
         out.append({
             "name": name, "route": "cuda", "source": src,
@@ -1303,7 +1326,7 @@ def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
             "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
             "bound_by": by, "library_ms": None, "shape": shape,
             "chain_floor_ms": floor_us / 1e3,
-            **ptxas_usage(ec_log, KERNEL_FN[name])})
+            **ptxas_usage(ec_log, KERNEL_FN[fn or name])})
         log(f"{name} [{shape}]: {ms:.4f} ms (plain {pms:.1f} ms, bound "
             f"{b_ms:.4f} ms by {by}, chain floor {floor_us / 1e3:.4f} ms)")
 
@@ -1313,19 +1336,28 @@ def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
                         else MD.BITS[tabs.radix]]
         E = (2,) if g2 else ()
         pts = [rand_fq(torch, E + (tabs.m, W, L), gen) for _ in range(3)]
+        # identity lanes: a tenth of them, and every lane of window 1 of
+        # the first MSM and of the last window of the last MSM
+        ident = torch.rand((tabs.m, W, L), generator=gen,
+                           device="cuda") < 0.1
+        ident[0, 1] = True
+        ident[-1, -1] = True
+        m = ident.view((1,) * ec.elem_axes(g2) + tuple(ident.shape))
+        pts = [torch.where(m, i, c)
+               for c, i in zip(pts, ec.identity_like(pts[0], g2))]
         want, pms = timer(lambda: MSM.lane_fold_plain(pts, g2))
         outs = MSM.lane_fold(pts, g2)
         err = differ(f"ec_fold_{g}", outs, want)
         ms = device_ms(torch, lambda: MSM.lane_fold(pts, g2))
-        split = MSM.fold_split(tabs.m * W, L, pts[0].device)
-        wide = MSM.FOLD_STAGED_MAX[g2]
+        B, K, warps, wide = MSM.fold_plan(tabs.m * W, L, g2, pts[0].device)
+        threads = not g2 and max(L // K, K) * B // 2 > wide
         add_row(f"ec_fold_{g}", f"{where} M={tabs.m} W={W} L={L}, "
-                f"{MSM.FOLD_WARPS[g2]} warps, " + (
-                    "every level staged" if wide >= L // 2 else
-                    f"levels over {wide} adds one a thread")
-                + f", {split} blocks a window", ms, pms * 1e3, err,
+                f"{B} windows a block, {K} blocks a window, {warps} warps, "
+                + (f"levels over {wide} adds one a thread" if threads else
+                   "every level staged"), ms, pms * 1e3, err,
                 nbytes(*pts, *outs), ADD_MULS[g2] * tabs.m * W * (L - 1),
-                (L.bit_length() - 1) * warp_us[g])
+                (L.bit_length() - 1) * warp_us[g],
+                f"ec_fold_{g}" + ("" if threads or g2 else ".staged"))
         if isinstance(tabs, MT.AffineTables):
             C, n = tabs.chunks, tabs.m * W * L
             x, y = (rand_fq(torch, (C,) + E + (tabs.m, W, L),

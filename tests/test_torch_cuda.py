@@ -356,21 +356,25 @@ def _with_identities(p, is_g2, gen, share=0.1):
             for c, i in zip(p, ec.identity_like(p[0], is_g2))]
 
 
-@pytest.mark.parametrize("variant", ["default", "per_thread", "staged"])
+@pytest.mark.parametrize("variant", ["default", "per_thread", "staged",
+                                     "windows"])
 @pytest.mark.parametrize("L", [1, 2, 512])
 @pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
 def test_lane_fold_kernel_matches_plain(gen, is_g2, L, variant,
                                         monkeypatch):
     """M = 1-4 MSMs, W = 64 and 127 windows, identity lanes and windows;
-    every level per thread over 2 blocks a window, every level staged
-    over 8, and the defaults."""
+    every level per thread (G1; G2 every level staged) over 2 blocks a
+    window, every level staged over 8, several windows a block (3, 4 or
+    2, the first that divides the M W windows) over 8 blocks a window
+    with levels of more than 8 adds one a thread, and fold_plan's
+    defaults."""
     if variant != "default":
-        per_thread = variant == "per_thread"
-        monkeypatch.setitem(MSM.FOLD_STAGED_MAX, is_g2,
-                            0 if per_thread else 1 << 30)
-        monkeypatch.setitem(MSM.FOLD_WARPS, is_g2, 4 if per_thread else 16)
-        monkeypatch.setattr(MSM, "fold_split", lambda G, L, device: min(
-            2 if per_thread else 8, L))
+        B0, K0, warps, wide = {"per_thread": (1, 2, 4, 0),
+                               "staged": (1, 8, 16, 1 << 30),
+                               "windows": (None, 8, 8, 8)}[variant]
+        monkeypatch.setattr(MSM, "fold_plan", lambda G, L, g2, device: (
+            B0 or next(b for b in (3, 4, 2, 1) if G % b == 0), min(K0, L),
+            warps, wide))
     E = (2,) if is_g2 else ()
     for M, W in ((1, 64), (4, 127), (3, 64), (2, 127)):
         p = _with_identities([_rand_fq(E + (M, W, L), gen)

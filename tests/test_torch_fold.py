@@ -3,13 +3,14 @@ tree's chunk carry (engine.cuda_tree.chunk_carry), plain versions on the
 CPU, against the reference's msm.lane_fold (recursive doubling, not
 fold-half) and its carry scan (msm_tree.tree_window_sums), and against
 host arithmetic; points compared normalized.  Then a Python model of the
-schedules of csrc/ec.cu's ec_fold and ec_carry kernels, their constants
-and loop heads parsed from the source: every level of a fold pairs lane
-i with lane i + h for each i < h exactly once, whatever the block's
-warps, the level from which adds run staged and the blocks a group is
-split over, so the kernel's sum is the fold-half tree of the plain
-version; the carry's units and lanes cover every partial and every word
-once.
+schedules of csrc/ec.cu's ec_sum_kernel (the fold and the carry), its
+constants and loop heads parsed from the source: every level of a fold
+pairs lane i with lane i + h for each i < h exactly once, whatever the
+block's warps, the level from which adds run staged, the windows a
+block, the blocks a window is split over and G2's unit width, so the
+kernel's sum is the fold-half tree of the plain version; the carry's
+units and lanes cover every partial and every word once; fold_plan and
+carry_plan at the proofs' shapes.
 
 The points are multiples k P of the generators by small numpy-seeded k
 (G1 and G2 from the same k), so each window's expected sum is one short
@@ -17,6 +18,7 @@ host multiplication; reference compiles stay at 256 points or fewer."""
 
 import functools
 import importlib.util
+import itertools
 import re
 from pathlib import Path
 
@@ -221,8 +223,8 @@ LEVEL_LINES = [  # the loops the model below runs, as fold_levels has them
     "if (THREADS && h > wide) {",
     "for (int i = tid; i < h; i += nt) {",
     "if (i + h >= nv) continue;",
-    "if (leaves && i + 2 * h >= nv) thread_add<F, 2>(pts, i, h);",
-    "else if (leaves && i + 3 * h >= nv) thread_add<F, 1>(pts, i, h);",
+    "if (LEAVES && i + 2 * h >= nv) thread_add<F, 2>(pts, i, h);",
+    "else if (LEAVES && i + 3 * h >= nv) thread_add<F, 1>(pts, i, h);",
     "else thread_add<F, 0>(pts, i, h);",
     "for (int b = warp * S::UNITS; b < h; b += units) {",
     "const int i = b + k;",
@@ -230,34 +232,42 @@ LEVEL_LINES = [  # the loops the model below runs, as fold_levels has them
     "S::add(s, on ? pts + i * S::NS : s + S::P,",
     "on ? pts + (i + h) * S::NS : s + S::Q, sub);",
 ]
-FOLD_LINES = [  # ec_fold_kernel: block r of K takes lanes r, r + K, ...
-    "const int n = L / K, tid = threadIdx.x, nt = blockDim.x;",
+SUM_LINES = [  # ec_sum_kernel: B columns, lane c of column col at c B + col
+    "const int n = C / K;",
+    "const int nv = n * B, tid = threadIdx.x, nt = blockDim.x;",
     "const int k = min(lane / S::WIDTH, S::UNITS - 1);",
     "const int sub = lane - S::WIDTH * k;",
-    "pts[j * S::NS + slot].v[limb] = src[pl * plane + g * L + j * K + r];",
-    "fold_levels<F>(pts, s, n, 1, n, false, wide, k, sub);",
-    "const Fq* far = cluster.map_shared_rank(smem, e / S::NS + 1);",
-    "pts[S::NS + e] = far[e % S::NS];",
-    "fold_levels<F>(pts, s, K, 1, K, false, wide, k, sub);",
-]
-CARRY_LINES = [  # ec_carry_kernel: B columns, chunk-major lanes c B + col
-    "const int nv = C * B, tid = threadIdx.x, nt = blockDim.x;",
-    "const size_t j0 = (size_t)blockIdx.x * B;",
+    "Fq* s = smem + max(n, K) * B * S::NS + (warp * S::UNITS + k) * S::SLOTS;",
+    "const size_t j0 = (size_t)(blockIdx.x / K) * B;",
     "for (int e = tid; e < 8 * S::NS * nv; e += nt) {",
-    "const int col = e % B, a = e / B, c = a % C;",
-    "point_word<F>(a / C, cc, pl, slot, limb);",
-    "const bool at_inf = inf[(size_t)c * N + j0 + col] != 0;",
-    "if (cc == 2) v = at_inf ? 0u : one_w;",
-    "else if (at_inf) v = cc == 1 ? one_w : 0u;",
-    "else v = (cc == 0 ? x : y)[((size_t)c * 8 * per + pl) * N + j0 + col];",
+    "const int col = e % B, a = e / B, c = a % n;",
+    "point_word<F>(a / n, cc, pl, slot, limb);",
     "pts[(c * B + col) * S::NS + slot].v[limb] = v;",
-    "if (wide >= B) S::init(s, sub);",
-    "fold_levels<F, W, THREADS>(pts, s, P * B, B, nv, true, wide, k, sub);",
+    "if (!THREADS || wide >= B) S::init(s, sub);",
+    "fold_levels<F, W, THREADS, !FOLD>(pts, s, P * B, B, nv, wide, k, sub);",
     "for (int e = tid; e < 8 * S::NS * B; e += nt) {",
     "const int col = e % B;",
     "point_word<F>(e / B, c, pl, slot, limb);",
     "(c == 0 ? X : c == 1 ? Y : Z)[pl * (size_t)N + j0 + col] =",
     "pts[col * S::NS + slot].v[limb];",
+]
+FOLD_LINES = [  # FOLD: block r of K takes lanes r, r + K, ... of B windows
+    "v = src[(pl * (size_t)N + j0 + col) * C + c * K + r];",
+    "const Fq* far = cluster.map_shared_rank(smem, e / (S::NS * B) + 1);",
+    "pts[S::NS * B + e] = far[e % (S::NS * B)];",
+    "fold_levels<F, W, THREADS, false>(pts, s, K * B, B, K * B, wide, k,",
+]
+CARRY_LINES = [  # !FOLD: the chunks' flagged affine partials
+    "const bool at_inf = zi[(size_t)c * N + j0 + col] != 0;",
+    "if (cc == 2) v = at_inf ? 0u : one_w;",
+    "else if (at_inf) v = cc == 1 ? one_w : 0u;",
+    "else v = (cc == 0 ? x : y)[((size_t)c * 8 * per + pl) * N + j0 + col];",
+]
+ENTRY_LINES = [  # the fold and the carry of each group, one launcher
+    "za::launch_sum<za::Fq, 6, true>(X, Y, Z, OX, OY, OZ, L, G, B, split,",
+    "za::launch_sum<za::Fq2, za::FOLD_G2_WIDTH, true>(",
+    "za::launch_sum<za::Fq, 6, false>(x, y, inf, X, Y, Z, C, N, B, 1,",
+    "za::launch_sum<za::Fq2, za::CARRY_G2_WIDTH, false>(",
 ]
 
 
@@ -266,61 +276,64 @@ def test_fold_and_carry_source_matches_the_model():
     levels = levels[:levels.index("\n}\n")]
     for line in LEVEL_LINES:
         assert line in levels, line
-    for name, lines in (("ec_fold_kernel", FOLD_LINES),
-                        ("ec_carry_kernel", CARRY_LINES)):
-        body = _kernel(name)
-        for line in lines:
-            assert line in body, (name, line)
+    body = _kernel("ec_sum_kernel")
+    for line in SUM_LINES + FOLD_LINES + CARRY_LINES:
+        assert line in body, line
+    for line in ENTRY_LINES:
+        assert line in SRC, line
     assert _staged("Fq") == {"NS": 3, "UNITS": 5, "WIDTH": 6}
     assert _const("FOLD_MAX_LANES") == MSM.FOLD_MAX_LANES
     assert _const("FOLD_MAX_SPLIT") == MSM.FOLD_MAX_SPLIT
-    fold_max = _const("FOLD_MAX_THREADS")
+    assert _const("FOLD_MAX_THREADS") == 32 * MSM.FOLD_MAX_WARPS
     for g2, grp in ((False, "Fq"), (True, "Fq2")):
-        st = _staged(grp)
-        units = st["UNITS"] * st["WIDTH"]
-        assert units <= 32 and 32 * MSM.FOLD_WARPS[g2] <= fold_max
-        # the widest group and its scratch fit a block's shared memory
+        fold, carry = ((_staged(grp, _const("FOLD_G2_WIDTH")),
+                        _staged(grp, _const("CARRY_G2_WIDTH"))) if g2
+                       else (_staged(grp),) * 2)
         slots = 90 if g2 else 25      # hw2::SLOTS, hw1::SLOTS
         assert re.search(rf"constexpr int SLOTS = {slots};",
                          SRC[SRC.index(f"namespace hw{2 if g2 else 1} {{"):])
-        smem = (MSM.FOLD_MAX_LANES * st["NS"]
-                + MSM.FOLD_WARPS[g2] * st["UNITS"] * slots) * 32
-        assert smem <= 232448
-        # the carry's plan: a point's bytes, a warp's adds at once and
-        # its staged scratch (G2: units of CARRY_G2_WIDTH lanes)
-        assert CT.POINT_BYTES[g2] == 32 * st["NS"]
-        cw = _staged(grp, _const("CARRY_G2_WIDTH")) if g2 else st
-        assert CT.CARRY_PER_WARP[g2] == (cw["UNITS"] if g2 else 32)
-        assert CT.CARRY_SCRATCH[g2] == (cw["UNITS"] * slots * 32 if g2
+        # the plans: a point's bytes, a warp's staged adds at once and
+        # their scratch (the fold's, the carry's), a warp's thread adds
+        assert MSM.POINT_BYTES[g2] == 32 * fold["NS"]
+        assert MSM.STAGED_UNITS[g2] == fold["UNITS"]
+        assert MSM.STAGED_SCRATCH[g2] == fold["UNITS"] * slots * 32
+        assert CT.CARRY_PER_WARP[g2] == (carry["UNITS"] if g2
+                                         else MSM.THREAD_ADDS)
+        assert CT.CARRY_SCRATCH[g2] == (carry["UNITS"] * slots * 32 if g2
                                         else 0)
         assert CT.CARRY_STAGED_MAX[g2] == (1 << 30 if g2 else 0)
-        assert CT.SMEM == 232448
+        assert MSM.FOLD_STAGED_MAX[g2] >= (1 << 30 if g2 else 0)
+    assert MSM.THREAD_ADDS == 32 and MSM.SMEM == 232448
 
 
 def test_ptxas_names_follow_the_kernel_templates():
     """chip_smoke.KERNEL_FN names the __global__ functions whose ptxas
     registers the fold and carry rows report, by the prefix of their
-    mangled names: the fold <F>, the carry <F, lanes, thread adds> at
-    G1's 6 lanes with thread adds (CARRY_STAGED_MAX 0) and G2's
-    CARRY_G2_WIDTH lanes, every level staged."""
+    mangled names: ec_sum_kernel <F, staged lanes, thread adds, fold>,
+    the G1 fold with and without thread adds (a plan whose levels all
+    run staged launches the latter), G2's on FOLD_G2_WIDTH lanes, the
+    carry <Fq, 6, true, false> (CARRY_STAGED_MAX 0) and <Fq2,
+    CARRY_G2_WIDTH, false, false>; G2 compiles no thread add."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    heads = dict(re.findall(r"template <([^>]*)>\n__global__ void "
-                            r"__launch_bounds__\(FOLD_MAX_THREADS\)\n"
-                            r"(ec_fold_kernel|ec_carry_kernel)\(", SRC))
-    assert {v: k for k, v in heads.items()} == {
-        "ec_fold_kernel": "class F",
-        "ec_carry_kernel": "class F, int W, bool THREADS"}
+    heads = re.findall(r"template <([^>]*)>\n__global__ void "
+                       r"__launch_bounds__\(FOLD_MAX_THREADS\)\n(\w+)\(",
+                       SRC)
+    assert heads == [("class F, int W, bool THREADS, bool FOLD",
+                      "ec_sum_kernel")]
     fq, fq2 = "NS_2FpINS_7QParamsEEE", "NS_3Fq2E"
-    assert cs.KERNEL_FN["ec_fold_g1"] == f"_ZN2za14ec_fold_kernelI{fq}EE"
-    assert cs.KERNEL_FN["ec_fold_g2"] == f"_ZN2za14ec_fold_kernelI{fq2}EE"
+    fw, cw = _const("FOLD_G2_WIDTH"), _const("CARRY_G2_WIDTH")
+    pre = "_ZN2za13ec_sum_kernelI"
     assert CT.CARRY_STAGED_MAX == {False: 0, True: 1 << 30}
-    assert (cs.KERNEL_FN["ec_carry_g1"]
-            == f"_ZN2za15ec_carry_kernelI{fq}Li6ELb1E")
-    assert (cs.KERNEL_FN["ec_carry_g2"] == "_ZN2za15ec_carry_kernelI"
-            f"{fq2}Li{_const('CARRY_G2_WIDTH')}ELb0E")
+    assert {k: v for k, v in cs.KERNEL_FN.items()
+            if k.startswith(("ec_fold", "ec_carry"))} == {
+        "ec_fold_g1": f"{pre}{fq}Li6ELb1ELb1E",
+        "ec_fold_g1.staged": f"{pre}{fq}Li6ELb0ELb1E",
+        "ec_fold_g2": f"{pre}{fq2}Li{fw}ELb0ELb1E",
+        "ec_carry_g1": f"{pre}{fq}Li6ELb1ELb0E",
+        "ec_carry_g2": f"{pre}{fq2}Li{cw}ELb0ELb0E"}
 
 
 def _levels(lanes, warps, wide, st, stop=1, nv=None, leaves=False):
@@ -364,13 +377,17 @@ def _levels(lanes, warps, wide, st, stop=1, nv=None, leaves=False):
     return lanes
 
 
-def _fold_model(L, warps, wide, split, st):
-    """ec_fold_kernel over a cluster of `split` blocks: block r folds
-    lanes r, r + split, ...; block 0 then folds the blocks' results."""
-    n = L // split
-    ends = [_levels([j * split + r for j in range(n)], warps, wide, st)[0]
-            for r in range(split)]
-    return _levels(ends, warps, wide, st)[0]
+def _fold_model(L, B, K, warps, wide, st):
+    """ec_sum_kernel's fold over a cluster of K blocks of B windows
+    (lanes of window b numbered b L + j): block r holds lane j K + r of
+    window b at c B + b (c = j) and folds to level B; block 0 then
+    gathers block q's B sums into lanes q B + b and folds them to level
+    B -> the B windows' trees."""
+    n = L // K
+    ends = [_levels([b * L + c * K + r for c in range(n) for b in range(B)],
+                    warps, wide, st, B) for r in range(K)]
+    lanes = [ends[q][b] for q in range(K) for b in range(B)]
+    return _levels(lanes, warps, wide, st, B) if K > 1 else lanes
 
 
 def _fold_half(lo, n):
@@ -397,32 +414,63 @@ def _carry_half(leaves):
 @pytest.mark.parametrize("L", [1 << k for k in range(10)])
 @pytest.mark.parametrize("grp", ["Fq", "Fq2"])
 def test_fold_schedule_is_fold_half(grp, L):
-    """At every L up to 512, every block size, every switch level (all
-    per thread, all staged, and each level in between) and every split
-    of a group over blocks, each add of a level runs once, and the
-    result is the fold-half tree."""
-    st = _staged(grp)
-    want = _fold_half(0, L)
-    for warps in (1, 4, 16):
-        for wide in [0] + [1 << k for k in range(0, 10, 2)] + [1 << 30]:
-            for split in (1, 2, 4, 8):
-                if split <= L:
-                    assert _fold_model(L, warps, wide, split, st) == want
+    """At every L up to 512, windows a block (1, 2, 3), blocks a window
+    (1, 2, 4, 8: a cluster), block size, switch level (G1: all per
+    thread, all staged, and levels in between; G2 every level staged,
+    its thread add not compiled in) and G2 unit width (FOLD_G2_WIDTH and
+    the variants'), the load covers each lane of the block's windows
+    once, each add of a level runs once, and every window's result is
+    the fold-half tree."""
+    widths = (6,) if grp == "Fq" else (_const("FOLD_G2_WIDTH"), 32, 8)
+    wides = ([0] + [1 << k for k in range(0, 10, 2)] + [1 << 30]
+             if grp == "Fq" else [1 << 30])
+    for width, B, K in itertools.product(widths, (1, 2, 3), (1, 2, 4, 8)):
+        if K > L:
+            continue
+        st = _staged(grp, width)
+        want = [_fold_half(b * L, L) for b in range(B)]
+        n, NS = L // K, st["NS"]
+        # the load: block r of the cluster, word e -> (plane, window,
+        # lane); over the cluster each (plane, window, lane) once
+        got = sorted((e // B // n, e % B, e // B % n * K + r)
+                     for r in range(K) for e in range(8 * NS * n * B))
+        assert got == [(p, b, j) for p in range(8 * NS) for b in range(B)
+                       for j in range(L)]
+        for warps, wide in itertools.product((1, 4, 16), wides):
+            assert _fold_model(L, B, K, warps, wide, st) == want, (
+                width, B, K, warps, wide)
 
 
-def test_fold_split_rule():
-    """The most blocks a group (a power of two up to FOLD_MAX_SPLIT and
-    L) that keep all groups' blocks to one per SM of the card."""
+def test_fold_plan_rule():
+    """(windows a block, blocks a window, warps, widest staged level) of
+    the fold at every shape a proof gives it, on a card of 132 SMs (2^17
+    g1abl / g1h / b2, 2^13 g1x4 / b2, the fused radix-4 g1x4 / b2), and
+    at edge cases: one window, one lane, G2 at 512 lanes, windows past
+    one wave; every plan fits shared memory, B divides G, K divides L."""
     MSM._SMS["card"] = 132
     try:
-        got = {(G, L): MSM.fold_split(G, L, "card") for G, L in (
-            (192, 128), (64, 128), (64, 512), (127, 256), (256, 128),
-            (508, 64), (1, 4), (1, 512), (16, 2))}
+        got = {(G, L, g2): MSM.fold_plan(G, L, g2, "card") for G, L, g2 in (
+            (192, 128, False), (64, 128, False), (64, 128, True),
+            (256, 512, False), (508, 256, False), (127, 128, True),
+            (1, 4, False), (1, 512, True), (2, 1, False),
+            (508, 512, True), (508, 512, False), (16, 2, False))}
     finally:
         del MSM._SMS["card"]
-    assert got == {(192, 128): 1, (64, 128): 2, (64, 512): 2,
-                   (127, 256): 1, (256, 128): 1, (508, 64): 1, (1, 4): 4,
-                   (1, 512): 8, (16, 2): 2}
+    assert MSM.FOLD_STAGED_MAX == {False: 96, True: 1 << 30}
+    g2 = 1 << 30
+    assert got == {
+        (192, 128, False): (3, 2, 16, 96), (64, 128, False): (1, 2, 8, 96),
+        (64, 128, True): (1, 2, 16, g2), (256, 512, False): (2, 1, 16, 96),
+        (508, 256, False): (4, 1, 16, 96), (127, 128, True): (1, 1, 16, g2),
+        (1, 4, False): (1, 4, 4, 96), (1, 512, True): (1, 8, 16, g2),
+        (2, 1, False): (1, 1, 4, 96), (508, 512, True): (1, 8, 16, g2),
+        (508, 512, False): (4, 1, 8, 96), (16, 2, False): (1, 2, 4, 96)}
+    for (G, L, is_g2), (B, K, warps, wide) in got.items():
+        lanes = max(L // K, K) * B
+        smem = (lanes * MSM.POINT_BYTES[is_g2]
+                + warps * MSM.STAGED_SCRATCH[is_g2])
+        assert G % B == 0 and L % K == 0 and K <= MSM.FOLD_MAX_SPLIT
+        assert smem <= MSM.SMEM and 1 <= warps <= MSM.FOLD_MAX_WARPS
 
 
 @pytest.mark.parametrize("grp,width", WIDTHS)
@@ -442,10 +490,10 @@ def test_fold_staged_units_are_disjoint(grp, width):
 
 @pytest.mark.parametrize("grp,width", WIDTHS)
 def test_carry_schedule_covers_each_partial_and_word_once(grp, width):
-    """ec_carry_kernel: the load covers every (chunk, column, word) of a
-    block once; at every C, columns a block, block size and switch
-    level, each chunk partial of a column is added exactly once, no
-    add runs for a padded chunk, and each column's sum is
+    """ec_sum_kernel's carry: the load covers every (chunk, column,
+    word) of a block once; at every C, columns a block, block size and
+    switch level, each chunk partial of a column is added exactly once,
+    no add runs for a padded chunk, and each column's sum is
     chunk_carry_plain's tree."""
     st = _staged(grp, width)
     NS = st["NS"]
@@ -502,8 +550,8 @@ def test_carry_plan_rule():
                    (128, 8192, True): (4, 8), (1, 2, False): (1, 4),
                    (3000, 8192, True): (1, 1)}
     for (C, N, g2), (B, warps) in got.items():
-        smem = C * B * CT.POINT_BYTES[g2] + warps * CT.CARRY_SCRATCH[g2]
-        assert N % B == 0 and (smem <= CT.SMEM or C == 3000)
+        smem = C * B * MSM.POINT_BYTES[g2] + warps * CT.CARRY_SCRATCH[g2]
+        assert N % B == 0 and (smem <= MSM.SMEM or C == 3000)
 
 
 def test_point_word_layout_matches_the_limb_planes():

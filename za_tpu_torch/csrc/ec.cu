@@ -36,6 +36,8 @@
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "curve.cuh"
 
 namespace za {
@@ -349,23 +351,28 @@ horner_warp_g2_kernel(const uint32_t* __restrict__ WX,
 
 // -- the lane fold and the chunk carry: staged adds on shared memory ---------
 //
-// Both sum points by fold-half levels in shared memory, a level's adds
-// one a thread (curve.cuh's add in registers, thread_add) or on the
-// Horner kernels' staged add (hw1 / hw2 point_add): one add on WIDTH
-// lanes with a scratch of SLOTS Fq of its own, UNITS of them a warp:
-// five G1 adds on lanes 0-29 (lanes 30 and 31 ride along with the fifth
-// and only read), in G2 32 / WIDTH adds of WIDTH = 32, 16 or 8 lanes.
-// A point is NS consecutive Fq slots, hw1::P's and hw2::P's layout: X,
-// Y, Z (G1); X.c0, X.c1, Y.c0, Y.c1, Z.c0, Z.c1 (G2).  The staged add's
-// latency is two (G1) or three (G2, WIDTH 32) products where one
-// thread's add is a chain of 12 or 42 (~10 and ~48 us, NVIDIA H100 80GB
-// HBM3, 700 W); it costs more instructions an add (lanes idle in the
-// combines, the scratch's traffic), so wide levels go one add a thread.
-// Measured on that card: a fold 0.026-0.037 ms (G1) and 0.057-0.15 ms
-// (G2) against 0.15-0.54 ms of the ec_add launches it replaced
-// (tools/torch_fold_sweep.py).  Bound: operations at these shapes
-// (0.0015-0.021 ms); what holds a fold is its chain of log2 L dependent
-// levels (a floor of 0.017-0.037 ms).
+// Both sum points by fold-half levels in shared memory (one kernel,
+// ec_sum_kernel below), a level's adds one a thread (curve.cuh's add in
+// registers, thread_add) or on the Horner kernels' staged add (hw1 /
+// hw2 point_add): one add on WIDTH lanes with a scratch of SLOTS Fq of
+// its own, UNITS of them a warp: five G1 adds on lanes 0-29 (lanes 30
+// and 31 ride along with the fifth and only read), in G2 32 / WIDTH
+// adds of WIDTH = 32, 16 or 8 lanes.  A point is NS consecutive Fq
+// slots, hw1::P's and hw2::P's layout: X, Y, Z (G1); X.c0, X.c1, Y.c0,
+// Y.c1, Z.c0, Z.c1 (G2).  The staged add's latency is two (G1) or three
+// (G2, WIDTH 32) products where one thread's add is a chain of 12 or 42
+// (~10 and ~48 us, NVIDIA H100 80GB HBM3, 700 W); it costs more
+// instructions an add (lanes idle in the combines, the scratch's
+// traffic), so in G1 a level with many adds runs one add a thread (the
+// carry's levels, the fold's from 128 adds a block) and one with few
+// staged; G2 runs every level staged (CARRY_G2_WIDTH, FOLD_G2_WIDTH).
+// Measured on that card (tools/torch_fold_sweep.py): a fold 0.028-0.072
+// ms (G1) and 0.058-0.075 ms (G2) at the proofs' shapes: ~6 us of
+// launch, load and store, ~2.5 us a narrow G1 level and ~4-5 us a G2
+// one (the chain), and the widest levels at the card's rate for their
+// adds.  Bound: operations at these shapes (0.0015-0.024 ms); what holds
+// a fold is its chain of log2 L dependent levels (a floor of
+// 0.017-0.028 ms).
 // W: the add's lanes, by default G1's 6 and G2's warp
 template <class F, int W = sizeof(F) == sizeof(Fq) ? 6 : 32> struct Staged;
 template <> struct Staged<Fq, 6> {
@@ -439,27 +446,35 @@ __device__ __noinline__ void thread_add(Fq* pts, int i, int h) {
   put(a + 2 * w, z1);
 }
 
-constexpr int FOLD_MAX_LANES = 512;    // lanes of one group
+constexpr int FOLD_MAX_LANES = 512;    // lanes of one window
 constexpr int FOLD_MAX_THREADS = 512;  // threads of a fold or carry block
-constexpr int FOLD_MAX_SPLIT = 8;      // blocks of a group (a cluster)
+constexpr int FOLD_MAX_SPLIT = 8;      // blocks of a window (a cluster)
+// G2's staged adds (no thread add compiled in, which would hold the
+// registers at the cap and spill): the carry's on 8 lanes, four a warp
+// (1.3-1.9x the warp's 32 at C = 5, 8 and 64), the fold's on 16, two a
+// warp (inside the proof's stages 0.058 ms a G2 fold against 0.060 on
+// 32 lanes and 0.075 on 8: a fold's narrow levels wait on one add's
+// latency); tools/torch_fold_sweep.py, NVIDIA H100 80GB HBM3, 700 W
+constexpr int CARRY_G2_WIDTH = 8;
+constexpr int FOLD_G2_WIDTH = 16;
 
-// Fold-half levels of lanes 0 .. n-1 (n a power of two), of which
-// lanes 0 .. nv-1 hold points (nv > n/2), on the block: level h = n/2,
-// n/4, .., stop adds lane i + h into lane i for i < h where lane i + h
-// holds a point (i + h < nv; a missing lane is no add, not an add of
-// the identity), __syncthreads after each.  A level of more than
+// Fold-half levels of lanes 0 .. n-1 (n a power of two times `stop`),
+// of which lanes 0 .. nv-1 hold points (nv > n/2), on the block: level h
+// = n/2, n/4, .., stop adds lane i + h into lane i for i < h where lane
+// i + h holds a point (i + h < nv; a missing lane is no add, not an add
+// of the identity), __syncthreads after each.  A level of more than
 // `wide` adds runs one add per thread; a narrower one runs staged adds,
 // unit u (of warps * UNITS) taking adds u, u + warps * UNITS, ...
-// leaves: the lanes start as flagged affine points, so lane j is still
+// LEAVES: the lanes start as flagged affine points, so lane j is still
 // one at level h where j + 2h >= nv (no earlier level added into it),
 // and a thread's add then runs fewer products (point_add's z01): lane i
 // + h is a leaf where i + 3h >= nv, lane i too where i + 2h >= nv.
 // !THREADS: every level staged (no add in registers compiled in, which
 // would hold G2's registers at the cap).
-template <class F, int W = Staged<F>::WIDTH, bool THREADS = true>
+template <class F, int W, bool THREADS, bool LEAVES>
 __device__ __forceinline__ void fold_levels(Fq* pts, Fq* s, int n, int stop,
-                                            int nv, bool leaves, int wide,
-                                            int k, int sub) {
+                                            int nv, int wide, int k,
+                                            int sub) {
   using S = Staged<F, W>;
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
   const int units = (nt >> 5) * S::UNITS;
@@ -468,8 +483,8 @@ __device__ __forceinline__ void fold_levels(Fq* pts, Fq* s, int n, int stop,
     if (THREADS && h > wide) {
       for (int i = tid; i < h; i += nt) {
         if (i + h >= nv) continue;
-        if (leaves && i + 2 * h >= nv) thread_add<F, 2>(pts, i, h);
-        else if (leaves && i + 3 * h >= nv) thread_add<F, 1>(pts, i, h);
+        if (LEAVES && i + 2 * h >= nv) thread_add<F, 2>(pts, i, h);
+        else if (LEAVES && i + 3 * h >= nv) thread_add<F, 1>(pts, i, h);
         else thread_add<F, 0>(pts, i, h);
       }
     } else {
@@ -485,127 +500,111 @@ __device__ __forceinline__ void fold_levels(Fq* pts, Fq* s, int n, int stop,
   }
 }
 
-// The lane fold of msm.lane_fold in one launch: input (*E, G, L), output
-// (*E, G); a cluster of K blocks sums the L lanes of group g (one window
-// of one MSM), the output equal to the plain fold-half's bit for bit.
-// Fold-half pairs lane i with i + h, and for h >= K both lie in one
-// residue class mod K, so block r of the cluster takes lanes r, r + K,
-// r + 2K, ... (its local lanes 0 .. L/K - 1) and folds them alone in
-// shared memory, ending with lane r; after a cluster barrier block 0
-// reads lanes 1 .. K-1 from the other blocks' shared memory (Hopper's
-// distributed shared memory) and folds the K lanes.  K spreads a group
-// whose first levels hold more adds than one SM turns over quickly
-// across SMs (64 windows of a G2 MSM fill 64 SMs at K = 1).  Replaces the
-// lane fold's chain of ec_add launches (log2 L per MSM, each after its
-// own slicing copies).
-template <class F>
-__global__ void __launch_bounds__(FOLD_MAX_THREADS)
-ec_fold_kernel(const uint32_t* __restrict__ X,
-               const uint32_t* __restrict__ Y,
-               const uint32_t* __restrict__ Z, uint32_t* __restrict__ OX,
-               uint32_t* __restrict__ OY, uint32_t* __restrict__ OZ, int G,
-               int L, int wide) {
-  using S = Staged<F>;
-  namespace cg = cooperative_groups;
-  extern __shared__ Fq smem[];  // max(L/K, K) points, then the scratch
-  cg::cluster_group cluster = cg::this_cluster();
-  const int K = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
-  const int n = L / K, tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int k = min(lane / S::WIDTH, S::UNITS - 1);
-  const int sub = lane - S::WIDTH * k;
-  Fq* pts = smem;
-  Fq* s = smem + max(n, K) * S::NS + (warp * S::UNITS + k) * S::SLOTS;
-  const size_t plane = (size_t)G * L, g = blockIdx.x / K;
-  for (int e = tid; e < 8 * S::NS * n; e += nt) {  // coalesced over lanes
-    const int j = e % n;
-    int c, pl, slot, limb;
-    point_word<F>(e / n, c, pl, slot, limb);
-    const uint32_t* src = c == 0 ? X : c == 1 ? Y : Z;
-    pts[j * S::NS + slot].v[limb] = src[pl * plane + g * L + j * K + r];
-  }
-  S::init(s, sub);
-  __syncthreads();
-  fold_levels<F>(pts, s, n, 1, n, false, wide, k, sub);
-  if (K > 1) {
-    cluster.sync();  // every block's lane r is final
-    if (r == 0) {
-      for (int e = tid; e < S::NS * (K - 1); e += nt) {
-        const Fq* far = cluster.map_shared_rank(smem, e / S::NS + 1);
-        pts[S::NS + e] = far[e % S::NS];
-      }
-    }
-    cluster.sync();  // read: the other blocks may leave
-    if (r != 0) return;
-    fold_levels<F>(pts, s, K, 1, K, false, wide, k, sub);
-  }
-  for (int e = tid; e < 8 * S::NS; e += nt) {
-    int c, pl, slot, limb;
-    point_word<F>(e, c, pl, slot, limb);
-    uint32_t* dst = c == 0 ? OX : c == 1 ? OY : OZ;
-    dst[pl * (size_t)G + g] = pts[slot].v[limb];
-  }
-}
-
-// The tree MSM's chunk carry, one launch a MSM: the C chunks' flagged
-// affine partials of each of the N columns (m, w, t) summed into the
+// The lane fold and the tree MSM's chunk carry, one kernel: block b
+// sums each of B columns over its lanes by fold-half levels in shared
+// memory, lane c of column col at c B + col, so that fold_levels on
+// those lanes stopped at level B leaves column col's sum in lane col.
+// FOLD, the lane fold of msm.lane_fold in one launch: input X, Y, Z
+// (*E, N, C), output (*E, N), N windows of C = L lanes, the sum equal
+// to the plain fold-half's bit for bit.  A window may be split over a
+// cluster of K blocks: fold-half pairs lane i with i + h, and for h >=
+// K both lie in one residue class mod K, so block r of the cluster
+// takes lanes r, r + K, r + 2K, ... of its B windows (L/K a column) and
+// folds them alone, ending with lane r of each; after a cluster barrier
+// block 0 reads the other blocks' B sums from their shared memory
+// (Hopper's distributed shared memory) and folds the K B lanes.  B and
+// K spread the windows over the card's SMs (msm.fold_plan): a G2 MSM's
+// 64 windows on 128 SMs at K = 2, the 192 of 2^17 g1abl on 128 at B =
+// 3, K = 2, the 256 of 2^13 g1x4 on 128 at B = 2; and several windows
+// keep a block's staged units busy in the narrow levels.  Replaces the
+// reference's lane fold (za_tpu/engine/msm.py lane_fold, XLA code, no
+// Pallas kernel) and the port's log2 L ec_add launches a MSM.
+// !FOLD, the chunk carry, one launch a MSM: the C chunks' flagged affine
+// partials of each of the N columns (m, w, t) summed into the
 // projective (*E, M, W, T) that msm.lane_fold takes.  Input: x, y (C,
 // *E, M, W, T) limb planes, inf (C, M, W, T) bytes, the last tree
 // level's output of each chunk (cuda_tree.tree_window_sums); a partial
-// flagged inf is (0 : 1 : 0) under the complete add.  Block b takes B
-// columns with their whole chunk axis into shared memory (chunk-major:
-// lane c B + col) and runs fold-half levels over the chunks, C padded
-// to a power of two P in the schedule only: level h = P/2, .., 1 adds
-// chunk c + h into chunk c for c < h where c + h < C.  In lanes that is
-// fold_levels on P B lanes of which C B hold points, stopped at level B,
-// so the plain version (cuda_tree.chunk_carry_plain) is that fold-half
-// on the chunk axis.  The first level's operands are affine, and a
-// later level's where no level added into them (leaves): a thread's add
-// there runs 9 products (both leaves) or 11 (the second), point_add's
-// z01.  Replaces the reference's carry scan (za_tpu/engine/
-// msm_tree.py tree_window_sums, point_add(carry, chunk) under
-// jax.lax.scan, XLA code, no Pallas kernel) and the port's carry launch
-// a chunk.  Bound: operations, (C - 1) N adds.  Measured (NVIDIA H100
-// 80GB HBM3, 700 W, tools/torch_fold_sweep.py): one add a thread wins
-// in G1, the staged add on 8 lanes in G2 (cuda_tree.carry_plan); the
-// levels' adds run at the rate of the port's other curve kernels, and
-// at 2^17 a level holds too few of them to fill the card.
-template <class F, int W, bool THREADS>
+// flagged inf is (0 : 1 : 0) under the complete add.  C is padded to a
+// power of two P in the schedule only: level h = P/2, .., 1 adds chunk
+// c + h into chunk c for c < h where c + h < C, in lanes fold_levels on
+// P B lanes of which C B hold points, so the plain version
+// (cuda_tree.chunk_carry_plain) is that fold-half on the chunk axis.
+// The first level's operands are affine, and a later level's where no
+// level added into them (leaves): a thread's add there runs 9 products
+// (both leaves) or 11 (the second), point_add's z01.  Replaces the
+// reference's carry scan (za_tpu/engine/msm_tree.py tree_window_sums,
+// point_add(carry, chunk) under jax.lax.scan, XLA code, no Pallas
+// kernel) and the port's carry launch a chunk.
+// Bound: operations, (C - 1) N adds.  Measured (NVIDIA H100 80GB HBM3,
+// 700 W, tools/torch_fold_sweep.py): the carry's levels one add a thread
+// in G1, the staged add on 8 lanes in G2 (cuda_tree.carry_plan); at
+// 2^17 a carry level holds too few adds to fill the card.
+template <bool FOLD>  // the third input: Z limb planes, or inf flags
+using SumIn = typename std::conditional<FOLD, uint32_t, uint8_t>::type;
+
+template <class F, int W, bool THREADS, bool FOLD>
 __global__ void __launch_bounds__(FOLD_MAX_THREADS)
-ec_carry_kernel(const uint32_t* __restrict__ x,
-                const uint32_t* __restrict__ y,
-                const uint8_t* __restrict__ inf, uint32_t* __restrict__ X,
-                uint32_t* __restrict__ Y, uint32_t* __restrict__ Z, int C,
-                int N, int B, int wide) {
+ec_sum_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+              const SumIn<FOLD>* __restrict__ zi, uint32_t* __restrict__ X,
+              uint32_t* __restrict__ Y, uint32_t* __restrict__ Z, int C,
+              int N, int B, int wide) {
   using S = Staged<F, W>;
-  extern __shared__ Fq smem[];  // C B points, then the units' scratch
+  namespace cg = cooperative_groups;
+  extern __shared__ Fq smem[];  // max(n, K) B points, then the scratch
+  int K = 1, r = 0;
+  if constexpr (FOLD) {
+    K = (int)cg::this_cluster().num_blocks();
+    r = (int)cg::this_cluster().block_rank();
+  }
+  const int n = C / K;  // lanes of a column in this block
   int P = 1;
-  while (P < C) P <<= 1;
-  const int nv = C * B, tid = threadIdx.x, nt = blockDim.x;
+  while (P < n) P <<= 1;
+  const int nv = n * B, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int k = min(lane / S::WIDTH, S::UNITS - 1);
   const int sub = lane - S::WIDTH * k;
   Fq* pts = smem;
-  Fq* s = smem + nv * S::NS + (warp * S::UNITS + k) * S::SLOTS;
-  const size_t j0 = (size_t)blockIdx.x * B;
+  Fq* s = smem + max(n, K) * B * S::NS + (warp * S::UNITS + k) * S::SLOTS;
+  const size_t j0 = (size_t)(blockIdx.x / K) * B;
   constexpr int per = S::NS / 3;  // Fq slots of a coordinate
   for (int e = tid; e < 8 * S::NS * nv; e += nt) {  // coalesced over columns
-    const int col = e % B, a = e / B, c = a % C;
+    const int col = e % B, a = e / B, c = a % n;
     int cc, pl, slot, limb;
-    point_word<F>(a / C, cc, pl, slot, limb);
-    // (x : y : 1), or (0 : 1 : 0) where inf; 1 in Montgomery form in
-    // component 0, 0 in component 1
-    const bool at_inf = inf[(size_t)c * N + j0 + col] != 0;
-    const uint32_t one_w = pl % per == 0 ? QParams::one(limb) : 0u;
+    point_word<F>(a / n, cc, pl, slot, limb);
     uint32_t v;
-    if (cc == 2) v = at_inf ? 0u : one_w;
-    else if (at_inf) v = cc == 1 ? one_w : 0u;
-    else v = (cc == 0 ? x : y)[((size_t)c * 8 * per + pl) * N + j0 + col];
+    if constexpr (FOLD) {
+      const uint32_t* src = cc == 0 ? x : cc == 1 ? y : zi;
+      v = src[(pl * (size_t)N + j0 + col) * C + c * K + r];
+    } else {
+      // (x : y : 1), or (0 : 1 : 0) where inf; 1 in Montgomery form in
+      // component 0, 0 in component 1
+      const bool at_inf = zi[(size_t)c * N + j0 + col] != 0;
+      const uint32_t one_w = pl % per == 0 ? QParams::one(limb) : 0u;
+      if (cc == 2) v = at_inf ? 0u : one_w;
+      else if (at_inf) v = cc == 1 ? one_w : 0u;
+      else v = (cc == 0 ? x : y)[((size_t)c * 8 * per + pl) * N + j0 + col];
+    }
     pts[(c * B + col) * S::NS + slot].v[limb] = v;
   }
-  if (wide >= B) S::init(s, sub);  // a staged level runs: the scratch exists
+  if (!THREADS || wide >= B) S::init(s, sub);  // a staged level runs
   __syncthreads();
-  fold_levels<F, W, THREADS>(pts, s, P * B, B, nv, true, wide, k, sub);
+  fold_levels<F, W, THREADS, !FOLD>(pts, s, P * B, B, nv, wide, k, sub);
+  if constexpr (FOLD) {
+    if (K > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();  // every block's B sums are final
+      if (r == 0) {
+        for (int e = tid; e < S::NS * B * (K - 1); e += nt) {
+          const Fq* far = cluster.map_shared_rank(smem, e / (S::NS * B) + 1);
+          pts[S::NS * B + e] = far[e % (S::NS * B)];
+        }
+      }
+      cluster.sync();  // read: the other blocks may leave
+      if (r != 0) return;
+      fold_levels<F, W, THREADS, false>(pts, s, K * B, B, K * B, wide, k,
+                                        sub);
+    }
+  }
   for (int e = tid; e < 8 * S::NS * B; e += nt) {
     const int col = e % B;
     int c, pl, slot, limb;
@@ -684,37 +683,51 @@ int allow_smem(K kernel, int smem) {
   return (int)rc;
 }
 
-template <class F>
-int launch_fold(const void* X, const void* Y, const void* Z, void* OX,
-                void* OY, void* OZ, int G, int L, int wide, int warps,
-                int split, void* stream) {
-  if (G < 0 || L < 1 || L > FOLD_MAX_LANES || (L & (L - 1)) || warps < 1
-      || 32 * warps > FOLD_MAX_THREADS || split < 1 || split > L
-      || split > FOLD_MAX_SPLIT || (split & (split - 1)))
+// The sum of N columns over C lanes each (FOLD: windows of C = L lanes,
+// a window over a cluster of K blocks; else chunks, K = 1), B columns a
+// block of `warps` warps; levels of more than `wide` adds one add a
+// thread where F is G1's Fq (G2's thread add is never compiled in).
+template <class F, int W, bool FOLD>
+int launch_sum(const void* x, const void* y, const void* z, void* X,
+               void* Y, void* Z, int C, int N, int B, int K, int wide,
+               int warps, void* stream) {
+  if (C < 1 || N < 0 || B < 1 || N % B || warps < 1
+      || 32 * warps > FOLD_MAX_THREADS || K < 1 || K > FOLD_MAX_SPLIT
+      || (K & (K - 1)) || C % K || (!FOLD && K != 1)
+      || (FOLD && (C > FOLD_MAX_LANES || (C & (C - 1)))))
     return (int)cudaErrorInvalidValue;
-  if (G == 0) return (int)cudaGetLastError();
-  using S = Staged<F>;
-  const int lanes = L / split > split ? L / split : split;
-  const int smem =
-      (lanes * S::NS + warps * S::UNITS * S::SLOTS) * (int)sizeof(Fq);
-  int rc = allow_smem(ec_fold_kernel<F>, smem);
+  if (N == 0) return (int)cudaGetLastError();
+  using S = Staged<F, W>;
+  const int n = C / K, lanes = (n > K ? n : K) * B;
+  int P = 1;
+  while (P < n) P <<= 1;
+  // a level wider than `wide` (the first is the widest) runs thread adds
+  constexpr bool g1 = sizeof(F) == sizeof(Fq);
+  const bool threads = g1 && (P > K ? P : K) * B / 2 > wide;
+  const int scratch = !threads || wide >= B ? warps * S::UNITS * S::SLOTS : 0;
+  const int smem = (lanes * S::NS + scratch) * (int)sizeof(Fq);
+  auto kernel = ec_sum_kernel<F, W, false, FOLD>;
+  if constexpr (g1) {
+    if (threads) kernel = ec_sum_kernel<F, W, true, FOLD>;
+  }
+  int rc = allow_smem(kernel, smem);
   if (rc) return rc;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)G * split);
+  cfg.gridDim = dim3((unsigned)(N / B * K));
   cfg.blockDim = dim3(32 * warps);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.x = K;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;
+  cfg.numAttrs = K > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, ec_fold_kernel<F>, (const uint32_t*)X, (const uint32_t*)Y,
-      (const uint32_t*)Z, (uint32_t*)OX, (uint32_t*)OY, (uint32_t*)OZ, G, L,
-      wide);
+      &cfg, kernel, (const uint32_t*)x, (const uint32_t*)y,
+      (const SumIn<FOLD>*)z, (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, C, N,
+      B, wide);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
@@ -722,35 +735,25 @@ int launch_fold(const void* X, const void* Y, const void* Z, void* OX,
   return (int)cudaGetLastError();
 }
 
-// The G2 carry's staged add: 8 lanes, four a warp (tools/
-// torch_fold_sweep.py: 1.3-1.9x the warp's 32 at C = 5, 8 and 64).
-constexpr int CARRY_G2_WIDTH = 8;
-
-// The carry over C chunks of N columns, B columns a block of `warps`
-// warps; levels of more than `wide` adds one add a thread.
-template <class F, int W = Staged<F>::WIDTH>
-int launch_carry(const void* x, const void* y, const void* inf, void* X,
-                 void* Y, void* Z, int C, int N, int B, int wide, int warps,
-                 void* stream) {
-  if (C < 1 || N < 0 || B < 1 || (B & (B - 1)) || N % B || warps < 1
-      || 32 * warps > FOLD_MAX_THREADS)
-    return (int)cudaErrorInvalidValue;
-  if (N == 0) return (int)cudaGetLastError();
-  using S = Staged<F, W>;
-  int P = 1;
-  while (P < C) P <<= 1;
-  const int scratch = wide >= B ? warps * S::UNITS * S::SLOTS : 0;
-  const int smem = (C * B * S::NS + scratch) * (int)sizeof(Fq);
-  // a level wider than `wide` (the first is the widest) runs thread adds
-  auto kernel = P * B / 2 > wide ? ec_carry_kernel<F, W, true>
-                                 : ec_carry_kernel<F, W, false>;
-  const int rc = allow_smem(kernel, smem);
-  if (rc) return rc;
-  kernel<<<N / B, 32 * warps, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const uint32_t*)y, (const uint8_t*)inf,
-      (uint32_t*)X, (uint32_t*)Y, (uint32_t*)Z, C, N, B, wide);
-  return (int)cudaGetLastError();
+#ifdef ZA_EC_VARIANTS
+// tools/torch_fold_sweep.py's variants: G2 on staged adds of 32, 16 or 8
+// lanes
+template <bool FOLD>
+int g2_width(const void* x, const void* y, const void* z, void* X, void* Y,
+             void* Z, int C, int N, int B, int K, int wide, int warps,
+             int width, void* stream) {
+  if (width == 32)
+    return launch_sum<Fq2, 32, FOLD>(x, y, z, X, Y, Z, C, N, B, K, wide,
+                                     warps, stream);
+  if (width == 16)
+    return launch_sum<Fq2, 16, FOLD>(x, y, z, X, Y, Z, C, N, B, K, wide,
+                                     warps, stream);
+  if (width == 8)
+    return launch_sum<Fq2, 8, FOLD>(x, y, z, X, Y, Z, C, N, B, K, wide,
+                                    warps, stream);
+  return (int)cudaErrorInvalidValue;
 }
+#endif
 
 template <class F, int K>
 int launch_affine(const void* X, const void* Y, const void* Z, void* x,
@@ -784,49 +787,47 @@ int ec_add_g2(const void* X1, const void* Y1, const void* Z1, const void* X2,
 }
 
 int ec_fold_g1(const void* X, const void* Y, const void* Z, void* OX,
-               void* OY, void* OZ, int G, int L, int wide, int warps,
-               int split, void* stream) {
-  return za::launch_fold<za::Fq>(X, Y, Z, OX, OY, OZ, G, L, wide, warps,
-                                 split, stream);
+               void* OY, void* OZ, int G, int L, int B, int split, int wide,
+               int warps, void* stream) {
+  return za::launch_sum<za::Fq, 6, true>(X, Y, Z, OX, OY, OZ, L, G, B, split,
+                                         wide, warps, stream);
 }
 
 int ec_fold_g2(const void* X, const void* Y, const void* Z, void* OX,
-               void* OY, void* OZ, int G, int L, int wide, int warps,
-               int split, void* stream) {
-  return za::launch_fold<za::Fq2>(X, Y, Z, OX, OY, OZ, G, L, wide, warps,
-                                  split, stream);
+               void* OY, void* OZ, int G, int L, int B, int split, int wide,
+               int warps, void* stream) {
+  return za::launch_sum<za::Fq2, za::FOLD_G2_WIDTH, true>(
+      X, Y, Z, OX, OY, OZ, L, G, B, split, wide, warps, stream);
 }
 
 int ec_carry_g1(const void* x, const void* y, const void* inf, void* X,
                 void* Y, void* Z, int C, int N, int B, int wide, int warps,
                 void* stream) {
-  return za::launch_carry<za::Fq>(x, y, inf, X, Y, Z, C, N, B, wide, warps,
-                                  stream);
+  return za::launch_sum<za::Fq, 6, false>(x, y, inf, X, Y, Z, C, N, B, 1,
+                                          wide, warps, stream);
 }
 
 int ec_carry_g2(const void* x, const void* y, const void* inf, void* X,
                 void* Y, void* Z, int C, int N, int B, int wide, int warps,
                 void* stream) {
-  return za::launch_carry<za::Fq2, za::CARRY_G2_WIDTH>(
-      x, y, inf, X, Y, Z, C, N, B, wide, warps, stream);
+  return za::launch_sum<za::Fq2, za::CARRY_G2_WIDTH, false>(
+      x, y, inf, X, Y, Z, C, N, B, 1, wide, warps, stream);
 }
 
 #ifdef ZA_EC_VARIANTS
-// tools/torch_fold_sweep.py's variants: the G2 carry on staged adds of
-// 32, 16 or 8 lanes.
+// the G2 carry and fold on staged adds of 32, 16 or 8 lanes
 int ec_carry_g2_width(const void* x, const void* y, const void* inf,
                       void* X, void* Y, void* Z, int C, int N, int B,
                       int wide, int warps, int width, void* stream) {
-  if (width == 32)
-    return za::launch_carry<za::Fq2, 32>(x, y, inf, X, Y, Z, C, N, B, wide,
-                                         warps, stream);
-  if (width == 16)
-    return za::launch_carry<za::Fq2, 16>(x, y, inf, X, Y, Z, C, N, B, wide,
-                                         warps, stream);
-  if (width == 8)
-    return za::launch_carry<za::Fq2, 8>(x, y, inf, X, Y, Z, C, N, B, wide,
-                                        warps, stream);
-  return (int)cudaErrorInvalidValue;
+  return za::g2_width<false>(x, y, inf, X, Y, Z, C, N, B, 1, wide, warps,
+                             width, stream);
+}
+
+int ec_fold_g2_width(const void* X, const void* Y, const void* Z, void* OX,
+                     void* OY, void* OZ, int G, int L, int B, int split,
+                     int wide, int warps, int width, void* stream) {
+  return za::g2_width<true>(X, Y, Z, OX, OY, OZ, L, G, B, split, wide,
+                            warps, width, stream);
 }
 #endif
 

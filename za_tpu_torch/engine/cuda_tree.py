@@ -44,8 +44,6 @@ CARRY_STAGED_MAX = {False: 0, True: 1 << 30}
 CARRY_COLS = {False: 128, True: 32}
 CARRY_PER_WARP = {False: 32, True: 4}   # adds a warp runs at once
 CARRY_SCRATCH = {False: 0, True: 4 * 90 * 32}  # a warp's staged scratch, B
-POINT_BYTES = {False: 96, True: 192}  # a projective point in shared memory
-SMEM = 232448  # shared memory a block may take, bytes
 
 
 def _elem_shape(is_g2: bool) -> tuple[int, ...]:
@@ -170,13 +168,13 @@ def carry_plan(C: int, N: int, is_g2: bool, device) -> tuple[int, int]:
     fit."""
     P = 1 << (C - 1).bit_length()
     widest = max(C - P // 2, P // 4, 1)     # adds a column in one level
-    pts, scratch = C * POINT_BYTES[is_g2], CARRY_SCRATCH[is_g2]
+    pts, scratch = C * MSM.POINT_BYTES[is_g2], CARRY_SCRATCH[is_g2]
     B = CARRY_COLS[is_g2]
     while B > 1 and (N % B or N // B < MSM.sm_count(device)
-                     or B * pts + 4 * scratch > SMEM):
+                     or B * pts + 4 * scratch > MSM.SMEM):
         B //= 2
     warps = min(16, max(4, -(-B * widest // CARRY_PER_WARP[is_g2])))
-    while warps > 1 and B * pts + warps * scratch > SMEM:
+    while warps > 1 and B * pts + warps * scratch > MSM.SMEM:
         warps //= 2
     return B, warps
 

@@ -16,6 +16,7 @@ the MSM.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -50,17 +51,25 @@ def radix4_digits(scalars: torch.Tensor) -> torch.Tensor:
     return raw[:WINDOWS[2]].to(torch.int8)
 
 
-FOLD = {False: kernel("ec_fold_g1", "ec", "ppppppiiiii"),
-        True: kernel("ec_fold_g2", "ec", "ppppppiiiii")}
-FOLD_MAX_LANES = 512   # csrc/ec.cu FOLD_MAX_LANES (a group in shared memory)
+FOLD = {False: kernel("ec_fold_g1", "ec", "ppppppiiiiii"),
+        True: kernel("ec_fold_g2", "ec", "ppppppiiiiii")}
+FOLD_MAX_LANES = 512   # csrc/ec.cu FOLD_MAX_LANES (a window in shared memory)
 FOLD_MAX_SPLIT = 8     # csrc/ec.cu FOLD_MAX_SPLIT (blocks of a cluster)
-# warps of a fold block, and the widest level (in adds) that still runs
-# staged adds over lanes, a wider one running one add per thread; with
-# fold_split's rule, chosen by tools/torch_fold_sweep.py at the proofs'
-# shapes (PERF.md): every G1 level staged, G2 levels of more than 64
-# adds (L >= 256) one add a thread.
-FOLD_WARPS = {False: 8, True: 16}
-FOLD_STAGED_MAX = {False: 1 << 30, True: 64}
+FOLD_MAX_WARPS = 16    # csrc/ec.cu FOLD_MAX_THREADS / 32
+SMEM = 232448          # shared memory a block may take, bytes
+POINT_BYTES = {False: 96, True: 192}   # a projective point in shared memory
+# a warp's staged adds at once (G1 on 6-lane units, G2 on 16-lane:
+# csrc/ec.cu FOLD_G2_WIDTH) and their scratch (hw1::SLOTS, hw2::SLOTS
+# Fq each), bytes; a warp's thread adds at once
+STAGED_UNITS = {False: 5, True: 2}
+STAGED_SCRATCH = {False: 5 * 25 * 32, True: 2 * 90 * 32}
+THREAD_ADDS = 32
+# The widest level (adds a block) that still runs staged, a wider one
+# one add a thread (G1; G2's thread add is not compiled in): chosen with
+# fold_plan's rule by tools/torch_fold_sweep.py at the proofs' shapes
+# (PERF.md): G1's levels of 128 adds and more (2^13) one add a thread,
+# its 96 (2^17 g1abl, B = 3) staged.
+FOLD_STAGED_MAX = {False: 96, True: 1 << 30}
 _SMS: dict = {}
 
 
@@ -73,16 +82,53 @@ def sm_count(device) -> int:
     return sms
 
 
-def fold_split(G: int, L: int, device) -> int:
-    """Blocks per group: the most (a power of two, at most
-    FOLD_MAX_SPLIT and L) that keep the G groups' blocks to one per SM
-    of the card; past that the split lost at every shape measured (a G2
-    block, 512 threads at 128 registers, fills an SM's register file)."""
-    sms = sm_count(device)
-    k = 1
-    while 2 * k <= min(FOLD_MAX_SPLIT, L) and G * 2 * k <= sms:
-        k *= 2
-    return k
+def fold_plan(G: int, L: int, is_g2: bool, device) -> tuple[int, int, int,
+                                                             int]:
+    """The fold's plan on this card (_fold_plan, cached: a proof asks for
+    the same few shapes, and the search costs the host ~10 us)."""
+    return _fold_plan(G, L, is_g2, sm_count(device), FOLD_STAGED_MAX[is_g2])
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_plan(G: int, L: int, is_g2: bool, sms: int,
+               wide: int) -> tuple[int, int, int, int]:
+    """(B windows a block, K blocks a window, warps, widest staged
+    level) of the fold of G windows of L lanes on a card of sms SMs,
+    levels of more than `wide` adds one a thread: the G windows spread as
+    evenly as the card's SMs allow in one wave of blocks (a block an
+    SM), the fewest windows an SM (B / K; K a power of two up to
+    FOLD_MAX_SPLIT and L, B a divisor of G whose lanes fit shared
+    memory), ties to the smaller K; where no plan fits one wave, the
+    fewest windows an SM over the waves; warps for the block's widest
+    thread and staged levels (THREAD_ADDS and STAGED_UNITS adds a warp),
+    a power of two from 4 to FOLD_MAX_WARPS, as many as fit."""
+    pb, best = POINT_BYTES[is_g2], None
+    K = 1
+    while K <= min(FOLD_MAX_SPLIT, L):
+        for B in range(1, G + 1):
+            if G % B:
+                continue
+            lanes = max(L // K, K) * B
+            if lanes * pb + STAGED_SCRATCH[is_g2] > SMEM:
+                break
+            waves = -(-(G // B * K) // sms)
+            key = (waves > 1, waves * B / K, K)
+            if best is None or key < best[0]:
+                best = (key, B, K)
+            if waves == 1:      # a larger B only adds windows an SM
+                break
+        K *= 2
+    _, B, K = best
+    lanes = max(L // K, K) * B
+    top = staged = lanes // 2                # adds of the widest level
+    while staged > wide:                     # and of the widest staged one
+        staged //= 2
+    need = max(-(-staged // STAGED_UNITS[is_g2]),
+               -(-top // THREAD_ADDS) if top > wide else 1)
+    warps = min(FOLD_MAX_WARPS, max(4, 1 << (need - 1).bit_length()))
+    while warps > 1 and lanes * pb + warps * STAGED_SCRATCH[is_g2] > SMEM:
+        warps //= 2
+    return B, K, warps, wide
 
 
 def lane_fold_plain(p, is_g2: bool):
@@ -96,7 +142,8 @@ def lane_fold_plain(p, is_g2: bool):
 def lane_fold(p, is_g2: bool):
     """Sum over the last axis L (a power of two, at most FOLD_MAX_LANES)
     by fold-half levels, lane i + L/2 into lane i, then the same on the
-    first half: leaves (*E, .., L) -> (*E, ..).  One launch."""
+    first half: leaves (*E, .., L) -> (*E, ..).  One launch, planned by
+    fold_plan."""
     if p[0].device.type == "cpu":
         return lane_fold_plain(p, is_g2)
     p = tuple(c.contiguous() for c in p)
@@ -110,8 +157,10 @@ def lane_fold(p, is_g2: bool):
     outs = [torch.empty(shape[:-1], dtype=torch.int32, device=p[0].device)
             for _ in range(3)]
     G = math.prod(shape[ne:-1])
-    FOLD[is_g2](*p, *outs, G, L, FOLD_STAGED_MAX[is_g2], FOLD_WARPS[is_g2],
-                fold_split(G, L, p[0].device))
+    if G == 0:
+        return tuple(outs)
+    B, K, warps, wide = fold_plan(G, L, is_g2, p[0].device)
+    FOLD[is_g2](*p, *outs, G, L, B, K, wide, warps)
     return tuple(outs)
 
 
