@@ -107,11 +107,11 @@ ADD_MULS = {False: 12, True: 3 * 14}
 # <Fq2>; ec_sum_kernel <F, staged add's lanes, thread adds compiled in,
 # fold> (the fold <Fq, 6, true, true>, or <Fq, 6, false, true> where no
 # level runs thread adds, and <Fq2, 16, false, true>; the carry <Fq, 6,
-# true, false> and <Fq2, 8, false, false>); to_affine_kernel <Fq, 8>
-# and <Fq2, 4>; dense_sums_kernel <Fq, true, ...>, <Fq2, true, ...>
-# (signed radix 16), <Fq, false, ...>, <Fq2, false, ...> (radix 4);
-# ntt_prefix_kernel, ntt_twiddle_kernel, ntt_stage_kernel;
-# r1cs_matvec_kernel
+# true, false> and <Fq2, 8, false, false>); to_affine_wave_kernel
+# <Gcd> and to_affine_kernel <Fq2, 4>; dense_sums_kernel <Fq, true, ...>,
+# <Fq2, true, ...> (signed radix 16), <Fq, false, ...>, <Fq2, false,
+# ...> (radix 4); ntt_prefix_kernel, ntt_twiddle_kernel<true> (vector
+# accesses: the proof's shapes), ntt_stage_kernel; r1cs_matvec_kernel
 KERNEL_FN = {
     "dense_window_sums_g1":
         "_ZN2za17dense_sums_kernelINS_2FpINS_7QParamsEEELb1E",
@@ -137,10 +137,10 @@ KERNEL_FN = {
     "ec_carry_g1":
         "_ZN2za13ec_sum_kernelINS_2FpINS_7QParamsEEELi6ELb1ELb0E",
     "ec_carry_g2": "_ZN2za13ec_sum_kernelINS_3Fq2ELi8ELb0ELb0E",
-    "to_affine_g1": "_ZN2za16to_affine_kernelINS_2FpINS_7QParamsEEELi8E",
+    "to_affine_g1": "_ZN2za21to_affine_wave_kernelINS_3GcdE",
     "to_affine_g2": "_ZN2za16to_affine_kernelINS_3Fq2ELi4E",
     "ntt_prefix_fr": "_ZN2za17ntt_prefix_kernelE",
-    "ntt_twiddle_fr": "_ZN2za18ntt_twiddle_kernelE",
+    "ntt_twiddle_fr": "_ZN2za18ntt_twiddle_kernelILb1E",
     "ntt_stage_fr": "_ZN2za16ntt_stage_kernelE",
     "r1cs_matvec_fr": "_ZN2za18r1cs_matvec_kernelE",
 }
@@ -398,6 +398,7 @@ def prove_path(torch, timer, log2n: int):
     stages, totals, warm = median_runs(prove_compute)
     torch_ops = h_torch_ops(eng, r1cs, z_l, domain)
     assert not any(torch_ops.values()), f"h(x) ran tensor code: {torch_ops}"
+    h_in = h_inline(torch, eng, r1cs, z_l, domain)
     parts = breakdown(timer, eng, r1cs, z_l, domain, staged, out["h"])
     inline = median_split(lambda: msm_breakdowns(
         torch, eng, staged, z_l, out["h"], ni, sync=False))
@@ -469,6 +470,7 @@ def prove_path(torch, timer, log2n: int):
         "prove_cold_s": prove_cold_s,
         "sat_check_s": sat_s,
         "h_torch_ops": torch_ops,
+        "h_inline_ms": h_in,
         "launches_per_proof": per_proof,
         "constraints": n,
         "domain": m,
@@ -573,12 +575,15 @@ def off_curve_refused(params, r1cs) -> dict:
 
 def h_torch_ops(eng, r1cs, z_l, domain) -> dict:
     """One h_coeffs_limbs with the tensor code it must not run counted:
-    torch field products, the plain matvec, the NTT's tensor scaling
-    and the prefix modes' tensor versions -> {name: calls}."""
+    torch field products, the limb packing (F.pack, which the matvec
+    made unnecessary by taking the uploaded witness), the plain matvec,
+    the NTT's tensor scaling and the prefix modes' tensor versions ->
+    {name: calls}."""
     from za_tpu_torch.engine import field as F, ntt as NTT, r1cs as RC
 
     calls = {}
-    patched = [(F.FR, "mul"), (NTT, "_scale"), (NTT, "load_plain"),
+    patched = [(F.FR, "mul"), (F, "pack"), (NTT, "_scale"),
+               (NTT, "load_plain"),
                (NTT, "store_plain"), (NTT, "ntt_prefix_plain"),
                (RC, "matvec_plain")]
     saved = [(obj, name, getattr(obj, name)) for obj, name in patched]
@@ -621,14 +626,13 @@ def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
     t = {}
     legs, t["h.matvec3"] = timer(lambda: eng._legs(r1cs, z_l, m))
     csr = RC.r1cs_csr(r1cs, m, eng.device)
-    z32 = F.pack(z_l.to(F.I64))
     for k, name in enumerate("AABC"):   # leg A twice: the first warms up
         k = max(k - 1, 0)
         lo, hi = (int(v) for v in csr.row_ptr[[k * m, (k + 1) * m]])
         leg = RC.Csr(csr.row_ptr[k * m:(k + 1) * m + 1] - lo,
                      csr.cols[lo:hi], csr.coeffs[:, lo:hi].contiguous(), m)
         got, t[f"h.matvec_plain.{name}"] = timer(
-            lambda: RC.matvec_plain(leg, z32))
+            lambda: RC.matvec_plain(leg, z_l))
         assert torch.equal(got[:, 0], legs[:, k]), f"matvec leg {name}"
     t.update(fourstep_breakdown(timer, dom, legs))
     x, t["h.intt3"] = timer(lambda: NTT.transform(dom, legs, True))
@@ -982,18 +986,71 @@ def device_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(out)
 
 
-def compare(torch, name, kern, plain, args, reps: int = 3):
-    """Run kernel and plain version on the same inputs; exact check;
-    CUDA-event times (kernel: mean of reps after a warm-up)."""
-    out_k = kern(*args)
+def issue_ms(torch, fn, reps: int = 5) -> float:
+    """Mean ms of reps calls of fn() back to back after a warm-up, the
+    host's time to issue them included."""
+    fn()
     torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(reps):
-        kern(*args)
+        fn()
     b.record()
     torch.cuda.synchronize()
-    ms = a.elapsed_time(b) / reps
+    return a.elapsed_time(b) / reps
+
+
+def h_inline(torch, eng, r1cs, z_l, domain, reps: int = 5) -> dict:
+    """One h_coeffs_limbs (the matvec, then the three transforms) with
+    every kernel launch between CUDA events, queued behind a sleep
+    kernel so that the host has issued them all before the card reaches
+    them -> {kernel: device ms of its launches in h, "h": h's span},
+    medians of reps after a warm-up."""
+    from za_tpu_torch.engine import _build
+
+    call = _build.Kernel.__call__
+    runs = []
+    for _ in range(reps + 1):
+        marks = []
+
+        def timed(self, *args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            call(self, *args)
+            b.record()
+            marks.append((self.name, a, b))
+
+        eng._sat_legs = None            # the matvec runs inside h
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000)    # cycles
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        _build.Kernel.__call__ = timed
+        try:
+            s.record()
+            eng.h_coeffs_limbs(r1cs, z_l, domain)
+            e.record()
+        finally:
+            _build.Kernel.__call__ = call
+        torch.cuda.synchronize()
+        run = {"h": s.elapsed_time(e)}
+        for name, a, b in marks:
+            run[name] = run.get(name, 0.0) + a.elapsed_time(b)
+        runs.append(run)
+    return {k: statistics.median(r[k] for r in runs[1:]) for k in runs[1]}
+
+
+def compare(torch, name, kern, plain, args, reps: int = 3):
+    """Run kernel and plain version on the same inputs; exact check;
+    CUDA-event times: the kernel's device time (device_ms) and the mean
+    of reps calls back to back after a warm-up, host issue included
+    ("issue_ms"); the plain version once."""
+    out_k = kern(*args)
+    issue = issue_ms(torch, lambda: kern(*args), reps)
+    dev = device_ms(torch, lambda: kern(*args))
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     out_p = plain(*args)
     b.record()
@@ -1007,7 +1064,17 @@ def compare(torch, name, kern, plain, args, reps: int = 3):
             d = (k.to(torch.int64) & 0xFFFFFFFF) - (p.to(torch.int64) & 0xFFFFFFFF)
             err = max(err, int(d.abs().max()))
     assert err == 0, f"{name}: kernel differs from its plain version ({err})"
-    return out_k, ms, plain_ms, err
+    return out_k, Times(dev, issue), plain_ms, err
+
+
+class Times(float):
+    """A kernel's device ms (the float) with its back-to-back issue mean
+    beside it (.issue)."""
+
+    def __new__(cls, dev: float, issue: float):
+        t = super().__new__(cls, dev)
+        t.issue = issue
+        return t
 
 
 def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
@@ -1027,7 +1094,8 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": float(ms), "device_ms": float(ms),
+            "issue_ms": getattr(ms, "issue", None), "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "shape": shape,
         })
@@ -1188,15 +1256,15 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
     for log2n, ctx in ((LOG2N, tctx), (LOG2N_DENSE, dctx)):
         r1cs, zl, mm = ctx["r1cs"], ctx["z_l"], ctx["m"]
         csr = RC.r1cs_csr(r1cs, mm, "cuda")
-        z32 = F.pack(zl.to(F.I64))
         outs, ms, pms, err = compare(
             torch, "r1cs_matvec_fr", lambda c, z: (RC.matvec(c, z),),
-            lambda c, z: (RC.matvec_plain(c, z),), (csr, z32), reps=5)
+            lambda c, z: (RC.matvec_plain(c, z),), (csr, zl), reps=5)
         nnz = csr.cols.numel()
+        # the uploaded (16, nv) int32 witness limbs, read once
         row("r1cs_matvec_fr", "za_tpu_torch/csrc/r1cs.cu",
             "za_tpu/engine/engine.py:1891",
             f"2^{log2n} chain, 3 legs x {mm} rows, {nnz} entries", ms, pms,
-            err, nbytes(csr.row_ptr, csr.cols, csr.coeffs, z32, outs[0]),
+            err, nbytes(csr.row_ptr, csr.cols, csr.coeffs, zl, outs[0]),
             nnz)
         rows[-1].update(ptxas_usage(r1cs_log, KERNEL_FN["r1cs_matvec_fr"]))
         tfs = ctx["eng"]._domain(mm).fourstep
@@ -1221,7 +1289,8 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         lambda a, t: (NTT.ntt_stages_plain(a, t),), (x, dom.w_fwd), reps=5)
     stages = dom.size.bit_length() - 1
     row("ntt_stage_fr", ntt_src, "za_tpu/engine/ntt_rns.py:156",
-        f"3 x 2^{stages} x 1", ms / stages, pms / stages, err,
+        f"3 x 2^{stages} x 1", Times(ms / stages, ms.issue / stages),
+        pms / stages, err,
         nbytes(x, outs[0], dom.w_fwd),
         3 * dit_muls(dom.size, dom.size) // stages)
     rows[-1].update(ptxas_usage(ntt_log, KERNEL_FN["ntt_stage_fr"]))
@@ -1318,12 +1387,14 @@ def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
         return err
 
     def add_row(name, shape, ms, pms, err, bmoved, muls, floor_us,
-                fn=None):
+                fn_ms, fn=None):
         b_ms, by = bound(bmoved, muls)
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name[:-3]], "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+            "max_abs_err": err, "ms": ms, "device_ms": ms,
+            "issue_ms": issue_ms(torch, fn_ms), "plain_ms": pms,
+            "bound_ms": b_ms,
             "bound_by": by, "library_ms": None, "shape": shape,
             "chain_floor_ms": floor_us / 1e3,
             **ptxas_usage(ec_log, KERNEL_FN[fn or name])})
@@ -1348,7 +1419,8 @@ def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
         want, pms = timer(lambda: MSM.lane_fold_plain(pts, g2))
         outs = MSM.lane_fold(pts, g2)
         err = differ(f"ec_fold_{g}", outs, want)
-        ms = device_ms(torch, lambda: MSM.lane_fold(pts, g2))
+        fold = lambda: MSM.lane_fold(pts, g2)   # noqa: E731
+        ms = device_ms(torch, fold)
         B, K, warps, wide = MSM.fold_plan(tabs.m * W, L, g2, pts[0].device)
         threads = not g2 and max(L // K, K) * B // 2 > wide
         add_row(f"ec_fold_{g}", f"{where} M={tabs.m} W={W} L={L}, "
@@ -1356,7 +1428,7 @@ def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
                 + (f"levels over {wide} adds one a thread" if threads else
                    "every level staged"), ms, pms * 1e3, err,
                 nbytes(*pts, *outs), ADD_MULS[g2] * tabs.m * W * (L - 1),
-                (L.bit_length() - 1) * warp_us[g],
+                (L.bit_length() - 1) * warp_us[g], fold,
                 f"ec_fold_{g}" + ("" if threads or g2 else ".staged"))
         if isinstance(tabs, MT.AffineTables):
             C, n = tabs.chunks, tabs.m * W * L
@@ -1367,13 +1439,14 @@ def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
             want, pms = timer(lambda: CT.chunk_carry_plain(x, y, inf, g2))
             outs = CT.chunk_carry(x, y, inf, g2)
             err = differ(f"ec_carry_{g}", outs, want)
-            ms = device_ms(torch, lambda: CT.chunk_carry(x, y, inf, g2))
+            carry = lambda: CT.chunk_carry(x, y, inf, g2)  # noqa: E731
+            ms = device_ms(torch, carry)
             B, warps = CT.carry_plan(C, n, g2, x.device)
             add_row(f"ec_carry_{g}", f"{where} C={C} M={tabs.m} W={W} T={L}"
                     f", {B} columns a block, {warps} warps", ms,
                     pms * 1e3, err, nbytes(x, y, inf, *outs),
                     n * carry_muls(C, g2),
-                    (C - 1).bit_length() * warp_us[g])
+                    (C - 1).bit_length() * warp_us[g], carry)
     return out
 
 

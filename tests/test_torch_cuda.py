@@ -49,6 +49,17 @@ def test_ec_kernels_match_plain(gen, is_g2):
                      MSM.horner_windows_plain(w, is_g2, bits))
 
 
+@pytest.mark.parametrize("n", [1, 1023, 5000, 3 * 1024])
+def test_to_affine_g1_zero_z_and_ragged_blocks(gen, n):
+    """to_affine_g1 (inv_gcd at each block's root): every seventh Z zero,
+    a whole block's Z zero (n = 3 * 1024), a partial last block."""
+    p = [_rand_fq((n,), gen) for _ in range(3)]
+    p[2][:, ::7] = 0
+    if n == 3 * 1024:
+        p[2][:, 1024:2048] = 0
+    assert _same(ec.to_affine(*p, False), ec.to_affine_plain(*p, False))
+
+
 def test_ntt_stage_kernel_matches_plain(gen):
     """L = 1 (the radix-2 transform) and L > 1 from a mid-transform
     start (the four-step's tail stages)."""
@@ -142,12 +153,14 @@ def test_r1cs_matvec_kernel_matches_plain(gen):
             _rows(rng, n - 100, nv, {}),
             _rows(rng, n, nv, {0: 33, 31: 64}))
     csr = RC.pack_csr(legs, m, "cuda")
-    z = _rand_fq((nv,), gen)
+    z = F.unpack(_rand_fq((nv,), gen)).to(torch.int32)   # (16, nv) limbs
     before = RC.R1CS_MATVEC.launches
     got = RC.matvec(csr, z)
     assert RC.R1CS_MATVEC.launches == before + 1
     assert torch.equal(got.cpu(), RC.matvec_plain(
         RC.pack_csr(legs, m, "cpu"), z.cpu()))
+    with pytest.raises(ValueError):
+        RC.matvec(csr, F.pack(z.to(torch.int64)))     # l32 is refused
 
 
 def test_ntt_twiddle_kernel_matches_plain(gen):
@@ -158,6 +171,23 @@ def test_ntt_twiddle_kernel_matches_plain(gen):
     assert torch.equal(NTT.ntt_twiddle(a, fs.inter_inv),
                        NTT.ntt_twiddle_plain(a, fs.inter_inv))
     a, inter = _rand_fq((2, 40, 72), gen), _rand_fq((40, 72), gen)
+    assert torch.equal(NTT.ntt_twiddle(a, inter),
+                       NTT.ntt_twiddle_plain(a, inter))
+
+
+@pytest.mark.parametrize("B,R_,C", [(3, 512, 512), (3, 128, 128),
+                                    (1, 37, 70), (2, 36, 70), (1, 4, 3)])
+def test_ntt_twiddle_kernel_shapes(gen, B, R_, C):
+    """The vector path (R and C multiples of four: both rungs' shapes,
+    a partial tile) and the word-by-word one (R or C not), and an
+    offset view that is not 16-byte aligned."""
+    a, inter = _rand_fq((B, R_, C), gen), _rand_fq((R_, C), gen)
+    assert torch.equal(NTT.ntt_twiddle(a, inter),
+                       NTT.ntt_twiddle_plain(a, inter))
+    buf = torch.empty(a.numel() + 1, dtype=torch.int32, device="cuda")
+    buf[1:] = a.reshape(-1)
+    a = buf[1:].view(a.shape)               # contiguous, 4 bytes off
+    assert a.is_contiguous() and a.data_ptr() % 16
     assert torch.equal(NTT.ntt_twiddle(a, inter),
                        NTT.ntt_twiddle_plain(a, inter))
 

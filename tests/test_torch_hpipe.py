@@ -63,21 +63,41 @@ def _rows(rng, n, nv, long_rows):
     return rows
 
 
-@pytest.mark.parametrize("long_row", [False, True], ids=["short", "long"])
-def test_matvec_plain_matches_reference(ref_engine, long_row):
-    """A, B, C legs of random rows (1-3 entries; with long_row, rows of
+def _witness16(z):
+    """Witness ints -> (16, nv) int32 16-bit plain limbs, as
+    GpuEngine.witness_limbs_dev uploads them."""
+    return torch.from_numpy(F.ints_to_limbs([v % R for v in z])
+                            .astype(np.int32))
+
+
+def _edge_rows(rng, n, nv):
+    """Rows of exactly WARP_ROW and WARP_ROW + 1 entries, empty rows
+    between them, coefficients 0, 1 and r - 1."""
+    w = RC.WARP_ROW
+    rows = _rows(rng, n, nv, {3: w, 4: w + 1, 7: 0, 8: 0, 20: 2 * w})
+    rows[10] = [(0, 0), (1, 1), (nv - 1, R - 1)]
+    return rows
+
+
+@pytest.mark.parametrize("case", ["short", "long", "edge"])
+def test_matvec_plain_matches_reference(ref_engine, case):
+    """A, B, C legs of random rows (1-3 entries; "long": rows of
     WARP_ROW + 1 and 3 WARP_ROW entries, which the kernel gives to one
-    warp) against the reference's matvec, decoded."""
-    rng = np.random.default_rng(7 + long_row)
+    warp; "edge": rows at WARP_ROW, empty rows, coefficients 0, 1,
+    r - 1 and witness values 0 and r - 1), from the (16, nv) witness
+    limbs, against the reference's matvec, decoded."""
+    rng = np.random.default_rng(7 + ["short", "long", "edge"].index(case))
     n, nv, m = 40, 30, 64
     w = RC.WARP_ROW
-    long_rows = {5: w + 1, 9: 3 * w} if long_row else {}
-    legs = [_rows(rng, n, nv, long_rows), _rows(rng, n - 7, nv, {}),
-            _rows(rng, n, nv, {})]
+    long_rows = {5: w + 1, 9: 3 * w} if case == "long" else {}
+    first = (_edge_rows(rng, n, nv) if case == "edge"
+             else _rows(rng, n, nv, long_rows))
+    legs = [first, _rows(rng, n - 7, nv, {}), _rows(rng, n, nv, {})]
     z = _ints(rng, nv)
-    got = RC.matvec_plain(RC.pack_csr(legs, m, "cpu"),
-                          torch.from_numpy(F.ints_to_l32([v % R for v in z])
-                                           .copy()))
+    if case == "edge":
+        z[0], z[-1] = 0, R - 1
+    csr = RC.pack_csr(legs, m, "cpu")
+    got = RC.matvec_plain(csr, _witness16(z))
     assert got.shape == (8, 3, m)
     zr1cs = ZR1CS(num_inputs=2, num_aux=nv - 2, input_names=["main.x"],
                   a_rows=legs[0], b_rows=legs[1], c_rows=legs[2],
@@ -88,6 +108,31 @@ def test_matvec_plain_matches_reference(ref_engine, long_row):
         dec = [RR.from_mont_int(v) % R
                for v in RR.rns_to_ints(np.asarray(want))]
         assert _ints32(got[:, k]) == dec, k
+
+
+def test_legs_on_cpu_equal_the_old_route():
+    """GpuEngine(device="cpu")._legs (the matvec on the uploaded (16, nv)
+    limbs) equals the route it replaces: the witness packed to l32 with
+    F.pack, then per-entry products, row sums, one reduction and a
+    product by R^2."""
+    rng = np.random.default_rng(12)
+    a, b, c, z = _chain(50, rng)
+    r1cs = R1CS(num_inputs=2, num_aux=50, input_names=["main.x"],
+                a_rows=a, b_rows=b, c_rows=c)
+    m = Domain.for_constraints(52).size
+    eng = GpuEngine(device="cpu")
+    got = eng._legs(r1cs, z, m)
+    z16 = eng.witness_limbs_dev(z)
+    assert z16.dtype == torch.int32 and z16.shape == (16, len(z))
+    csr = RC.r1cs_csr(r1cs, m, "cpu")
+    z32 = F.pack(z16.to(F.I64))
+    prod = F.FR.mul(F.unpack(csr.coeffs),
+                    F.unpack(z32).index_select(1, csr.cols.to(F.I64)))
+    t = torch.zeros((33, 3 * m), dtype=F.I64)
+    t[:16].index_add_(1, RC._rows(csr), prod)
+    old = F.pack(F.FR.mul(F.FR.redc(t), F.FR.const(F.FR.r2, t)))
+    assert torch.equal(got, old.reshape(8, 3, m))
+    assert RC.satisfied(got)
 
 
 def test_kernel_constants_match_sources():

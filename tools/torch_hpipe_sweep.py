@@ -1,0 +1,672 @@
+#!/usr/bin/env python3
+"""The h(x) kernels of the port on one CUDA card: the Montgomery product
+alone, ntt_twiddle_fr and r1cs_matvec_fr alone and inside h(x), and
+their variants, each held exactly against its plain version.
+
+    python3 tools/torch_hpipe_sweep.py [--root DIR] [--products]
+        [--kernels] [--staging] [--variants] [--out FILE]
+
+--root DIR runs the za_tpu_torch package of another checkout (an older
+commit unpacked with git archive): its kernels are built from its own
+csrc/.  With no section flag every section runs (--variants only where
+the checkout's sources take the variant macros).  Sections, each one
+JSON line:
+
+  products: a product-only microkernel (csrc/field.cuh of the checkout;
+      this repository's products where the checkout lacks them, and the
+      schoolbook-then-reduce variant "sos" below) at K independent
+      products a thread, every resident block busy: M products/ms, the
+      registers, and the SASS opcodes of one product (cuobjdump: the
+      opcodes of a kernel that loads, multiplies once and stores, less
+      those of the same kernel without the product);
+  kernels: ntt_twiddle_fr and r1cs_matvec_fr at the 2^17 and 2^13
+      rungs' shapes (chip_smoke.py's: the chain's three legs, the first
+      sub-NTT's 3 x n2 x n1): "device_ms" (one call queued behind a
+      sleep kernel, median of 5), "issue_ms" (5 calls back to back, the
+      mean: what chip_smoke.py's ms recorded before device_ms), ptxas
+      registers and spill, the SASS opcodes of each kernel, and "h_ms"
+      (one h(x) with every kernel launch between CUDA events, queued
+      behind a sleep kernel, median of 5: each kernel's device time in
+      its place, and the span of h);
+  staging: to_affine_g1/_g2 and ec_add_g1/_g2 at chip_smoke.py's shapes,
+      device_ms and issue_ms, ptxas registers and spill of to_affine;
+  variants: ntt_twiddle_fr and to_affine_g1 built with the variant
+      macros of csrc/ntt.cu (ZA_TW_COLS, ZA_TW_ROWS, ZA_TW_MUL) and
+      csrc/ec.cu (ZA_AFF_INV1, ZA_AFF_MUL, and a build without the
+      block inversion, timed, not exact), swapped into the engine's
+      wrappers: each exact against the plain version, then the twiddle
+      alone and inside h(x) at both rungs, to_affine_g1 alone at
+      chip_smoke.py's shape.
+Then the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import importlib.util
+import json
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+# the schoolbook product first (even and odd chains a row), then eight
+# reduction rows on 17 words, each row's carry out of word i + 8 kept in
+# cw[i] and added once at the end
+SOS = r"""
+template <class P>
+__device__ __forceinline__ Fp<P> mul_sos(const Fp<P>& a, const Fp<P>& b) {
+  uint32_t e[17], o[17], t[17], cw[8], r[8], c = 0u;
+#pragma unroll
+  for (int i = 0; i < 17; ++i) e[i] = o[i] = t[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) cw[i] = r[i] = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    asm("mul.lo.u32 %0, %4, %6;\n\tmul.hi.u32 %1, %4, %6;\n\t"
+        "mul.lo.u32 %2, %5, %6;\n\tmul.hi.u32 %3, %5, %6;"
+        : "+r"(e[2 * k]), "+r"(e[2 * k + 1]), "+r"(o[2 * k]),
+          "+r"(o[2 * k + 1])
+        : "r"(a.v[2 * k]), "r"(a.v[2 * k + 1]), "r"(b.v[0]));
+  }
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    asm("mad.lo.cc.u32 %0, %18, %26, %0;\n\t"
+        "madc.hi.cc.u32 %1, %18, %26, %1;\n\t"
+        "madc.lo.cc.u32 %2, %20, %26, %2;\n\t"
+        "madc.hi.cc.u32 %3, %20, %26, %3;\n\t"
+        "madc.lo.cc.u32 %4, %22, %26, %4;\n\t"
+        "madc.hi.cc.u32 %5, %22, %26, %5;\n\t"
+        "madc.lo.cc.u32 %6, %24, %26, %6;\n\t"
+        "madc.hi.cc.u32 %7, %24, %26, %7;\n\t"
+        "addc.u32 %8, %27, 0;\n\t"
+        "mad.lo.cc.u32 %9, %19, %26, %9;\n\t"
+        "madc.hi.cc.u32 %10, %19, %26, %10;\n\t"
+        "madc.lo.cc.u32 %11, %21, %26, %11;\n\t"
+        "madc.hi.cc.u32 %12, %21, %26, %12;\n\t"
+        "madc.lo.cc.u32 %13, %23, %26, %13;\n\t"
+        "madc.hi.cc.u32 %14, %23, %26, %14;\n\t"
+        "madc.lo.cc.u32 %15, %25, %26, %15;\n\t"
+        "madc.hi.cc.u32 %16, %25, %26, %16;\n\t"
+        "addc.u32 %17, %27, 0;"
+        : "+r"(e[i]), "+r"(e[i + 1]), "+r"(e[i + 2]), "+r"(e[i + 3]),
+          "+r"(e[i + 4]), "+r"(e[i + 5]), "+r"(e[i + 6]), "+r"(e[i + 7]),
+          "+r"(e[i + 8]), "+r"(o[i]), "+r"(o[i + 1]), "+r"(o[i + 2]),
+          "+r"(o[i + 3]), "+r"(o[i + 4]), "+r"(o[i + 5]), "+r"(o[i + 6]),
+          "+r"(o[i + 7]), "+r"(o[i + 8])
+        : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]),
+          "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]),
+          "r"(b.v[i]), "r"(0u));
+  }
+  t[0] = e[0];
+  asm("add.cc.u32 %0, %9, %17;\n\t"
+      "addc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\t"
+      "addc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\t"
+      "addc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\t"
+      "addc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32 %8, %25, 0;"
+      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]),
+        "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(c)
+      : "r"(e[1]), "r"(e[2]), "r"(e[3]), "r"(e[4]), "r"(e[5]), "r"(e[6]),
+        "r"(e[7]), "r"(e[8]), "r"(o[0]), "r"(o[1]), "r"(o[2]), "r"(o[3]),
+        "r"(o[4]), "r"(o[5]), "r"(o[6]), "r"(o[7]), "r"(0u));
+  asm("add.cc.u32 %0, %7, %14;\n\t"
+      "addc.cc.u32 %1, %8, %15;\n\t"
+      "addc.cc.u32 %2, %9, %16;\n\t"
+      "addc.cc.u32 %3, %10, %17;\n\t"
+      "addc.cc.u32 %4, %11, %18;\n\t"
+      "addc.cc.u32 %5, %12, %19;\n\t"
+      "addc.u32 %6, %13, %20;\n\t"
+      "add.cc.u32 %0, %0, %21;\n\t"
+      "addc.cc.u32 %1, %1, 0;\n\t"
+      "addc.cc.u32 %2, %2, 0;\n\t"
+      "addc.cc.u32 %3, %3, 0;\n\t"
+      "addc.cc.u32 %4, %4, 0;\n\t"
+      "addc.cc.u32 %5, %5, 0;\n\t"
+      "addc.u32 %6, %6, 0;"
+      : "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13]),
+        "+r"(t[14]), "+r"(t[15])
+      : "r"(e[9]), "r"(e[10]), "r"(e[11]), "r"(e[12]), "r"(e[13]),
+        "r"(e[14]), "r"(e[15]), "r"(o[8]), "r"(o[9]), "r"(o[10]),
+        "r"(o[11]), "r"(o[12]), "r"(o[13]), "r"(o[14]), "r"(c));
+  t[16] = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t m = t[i] * P::np0;
+    asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+        "madc.hi.cc.u32 %1, %10, %18, %1;\n\t"
+        "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+        "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+        "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+        "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+        "addc.cc.u32 %8, %8, 0;\n\t"
+        "addc.u32 %9, %19, 0;\n\t"
+        "mad.lo.cc.u32 %1, %11, %18, %1;\n\t"
+        "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+        "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+        "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+        "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+        "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+        "addc.u32 %9, %9, 0;"
+        : "+r"(t[i]), "+r"(t[i + 1]), "+r"(t[i + 2]), "+r"(t[i + 3]),
+          "+r"(t[i + 4]), "+r"(t[i + 5]), "+r"(t[i + 6]), "+r"(t[i + 7]),
+          "+r"(t[i + 8]), "+r"(cw[i])
+        : "r"(P::p(0)), "r"(P::p(1)), "r"(P::p(2)), "r"(P::p(3)),
+          "r"(P::p(4)), "r"(P::p(5)), "r"(P::p(6)), "r"(P::p(7)), "r"(m),
+          "r"(0u));
+  }
+  asm("add.cc.u32 %0, %8, %15;\n\t"
+      "addc.cc.u32 %1, %9, %16;\n\t"
+      "addc.cc.u32 %2, %10, %17;\n\t"
+      "addc.cc.u32 %3, %11, %18;\n\t"
+      "addc.cc.u32 %4, %12, %19;\n\t"
+      "addc.cc.u32 %5, %13, %20;\n\t"
+      "addc.u32 %6, %14, %21;\n\t"
+      "mov.u32 %7, 0;"
+      : "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]),
+        "+r"(r[6]), "+r"(r[7]), "+r"(r[0])
+      : "r"(t[9]), "r"(t[10]), "r"(t[11]), "r"(t[12]), "r"(t[13]),
+        "r"(t[14]), "r"(t[15]), "r"(cw[0]), "r"(cw[1]), "r"(cw[2]),
+        "r"(cw[3]), "r"(cw[4]), "r"(cw[5]), "r"(cw[6]));
+  r[0] = t[8];
+  return reduce_once<P>(r);
+}
+"""
+
+MICRO = r"""
+#include "field.cuh"
+
+namespace za {
+%(extra)s
+%(sos)s
+struct VMul {
+  __device__ static __forceinline__ Fr f(const Fr& a, const Fr& b) {
+    return mul(a, b);
+  }
+};
+struct VEo {
+  __device__ static __forceinline__ Fr f(const Fr& a, const Fr& b) {
+    return mul_eo(a, b);
+  }
+};
+struct VSos {
+  __device__ static __forceinline__ Fr f(const Fr& a, const Fr& b) {
+    return mul_sos(a, b);
+  }
+};
+struct VNone {   // the probe without a product
+  __device__ static __forceinline__ Fr f(const Fr& a, const Fr& b) {
+    Fr r;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r.v[i] = a.v[i] ^ b.v[i];
+    return r;
+  }
+};
+
+// n threads, K values each at t + k n of (8, K n) planes; iters products
+// on each, the loop not unrolled
+template <class V, int K>
+__global__ void rate_kernel(uint32_t* x, const uint32_t* y, long n,
+                            int iters) {
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const size_t plane = (size_t)K * n;
+  Fr a[K], b[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    load(a[k], x, plane, t + k * n);
+    load(b[k], y, plane, t + k * n);
+  }
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] = V::f(a[k], b[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) store(x, plane, t + k * n, a[k]);
+}
+
+template <class V>
+__global__ void probe_kernel(const uint32_t* x, const uint32_t* y,
+                             uint32_t* out) {
+  Fr a, b;
+  load(a, x, 1, 0);
+  load(b, y, 1, 0);
+  store(out, 1, 0, V::f(a, b));
+}
+
+template <class V, int K>
+int launch_rate(void* x, const void* y, long n, int iters, int tb,
+                cudaStream_t s) {
+  rate_kernel<V, K><<<(unsigned)((n + tb - 1) / tb), tb, 0, s>>>(
+      (uint32_t*)x, (const uint32_t*)y, n, iters);
+  return (int)cudaGetLastError();
+}
+
+template <class V, int K>
+int resident(int tb) {
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks,
+                                                rate_kernel<V, K>, tb, 0);
+  return blocks;
+}
+
+}  // namespace za
+
+#define ZA_V(name, V)                                                     \
+  extern "C" int rate_##name(int k, void* x, const void* y, long n,        \
+                             int iters, int tb, void* s) {                 \
+    cudaStream_t st = (cudaStream_t)s;                                     \
+    if (k == 1) return za::launch_rate<za::V, 1>(x, y, n, iters, tb, st);  \
+    if (k == 2) return za::launch_rate<za::V, 2>(x, y, n, iters, tb, st);  \
+    if (k == 4) return za::launch_rate<za::V, 4>(x, y, n, iters, tb, st);  \
+    return (int)cudaErrorInvalidValue;                                     \
+  }                                                                        \
+  extern "C" int resident_##name(int k, int tb) {                          \
+    if (k == 1) return za::resident<za::V, 1>(tb);                         \
+    if (k == 2) return za::resident<za::V, 2>(tb);                         \
+    return za::resident<za::V, 4>(tb);                                     \
+  }                                                                        \
+  extern "C" int probe_##name(const void* x, const void* y, void* out,     \
+                              void* s) {                                   \
+    za::probe_kernel<za::V><<<1, 1, 0, (cudaStream_t)s>>>(                 \
+        (const uint32_t*)x, (const uint32_t*)y, (uint32_t*)out);           \
+    return (int)cudaGetLastError();                                        \
+  }
+
+ZA_V(mul, VMul)
+ZA_V(mul_eo, VEo)
+ZA_V(sos, VSos)
+ZA_V(none, VNone)
+"""
+
+PRODUCTS = ("mul", "mul_eo", "sos")
+
+# variant builds: name -> (-D flags, a text patch or None, exact); the
+# checkout's defaults are the names without flags.  "aff_wave_noinv"
+# skips the block's inversion: a timing probe, not exact.
+NO_INV = ("namespace za {\n", "namespace za {\nstruct NoInv {\n"
+          "  template <class F>\n  __device__ static __forceinline__ F "
+          "inv(const F& a) { return a; }\n};\n")
+VARIANTS = {
+    "ntt": {
+        "tw_cols2_rows16_eo": ([], None, True),
+        "tw_cols4_rows16_eo": (["-DZA_TW_COLS=4"], None, True),
+        "tw_cols2_rows32_eo": (["-DZA_TW_ROWS=32"], None, True),
+        "tw_cols2_rows16_mul": (["-DZA_TW_MUL=mul"], None, True),
+    },
+    "ec": {
+        "aff_wave_eo": ([], None, True),
+        "aff_wave_fermat": (["-DZA_AFF_INV1=Fermat"], None, True),
+        "aff_wave_mul": (["-DZA_AFF_MUL=mul"], None, True),
+        "aff_wave_noinv": (["-DZA_AFF_INV1=NoInv"], NO_INV, False),
+    },
+}
+# the __global__ function of each variant's timed kernel, as ptxas names it
+ENTRY = {"ntt": "_ZN2za18ntt_twiddle_kernelILb1E",
+         "ec": "_ZN2za21to_affine_wave_kernel"}
+# an older checkout's to_affine_g1 kernel (before the one-wave kernel)
+OLD_AFFINE_G1 = "_ZN2za16to_affine_kernelINS_2FpINS_7QParamsEEELi8E"
+
+
+def emit(obj, out) -> None:
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if out is not None:
+        with open(out, "a") as f:
+            f.write(line + "\n")
+
+
+def load_smoke():
+    """This repository's chip_smoke.py (chain_r1cs, rand_fq, ...)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_h",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cuobjdump() -> str:
+    from za_tpu_torch.engine import _build
+
+    return str(Path(_build._nvcc()).parent / "cuobjdump")
+
+
+def sass_opcodes(lib: Path) -> dict:
+    """{function: Counter of SASS opcodes} of a shared library."""
+    text = subprocess.run([cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)", line)
+        if m and fn is not None and m.group(1) != "NOP":
+            out[fn][m.group(1)] += 1
+    return out
+
+
+def groups(c: collections.Counter) -> dict:
+    """Opcode counts by the classes of one product's instruction mix."""
+    g = collections.Counter()
+    for op, n in c.items():
+        if op.startswith("IMAD.WIDE"):
+            k = "IMAD.WIDE" + (".X" if ".X" in op else "")
+        elif op.startswith("IMAD.HI"):
+            k = "IMAD.HI" + (".X" if ".X" in op else "")
+        elif op.startswith("IMAD"):
+            k = "IMAD.MOV" if ".MOV" in op else "IMAD" + (
+                ".X" if ".X" in op else "")
+        elif op.startswith("IADD3"):
+            k = "IADD3.X" if ".X" in op else "IADD3"
+        elif op.startswith(("MOV", "SEL", "ISETP", "LOP3", "SHF")):
+            k = op.split(".")[0]
+        else:
+            k = "other:" + op
+        g[k] += n
+    return dict(sorted(g.items()))
+
+
+def rung_inputs(torch, smoke, log2n: int) -> dict:
+    """The chain at 2^log2n: r1cs, witness on the card, domain, an
+    engine, the CSR and the matvec's witness in the checkout's layout,
+    a twiddle input."""
+    from za_tpu_torch.engine import field as F, r1cs as RC
+    from za_tpu_torch.engine.engine import GpuEngine
+    from za_tpu_torch.groth16.domain import Domain
+
+    r1cs, z = smoke.chain_r1cs(1 << log2n)
+    eng = GpuEngine()
+    z_l = eng.witness_limbs_dev(z)
+    domain = Domain.for_constraints(r1cs.num_constraints + r1cs.num_inputs)
+    m = domain.size
+    csr = RC.r1cs_csr(r1cs, m, "cuda")
+    try:                      # the uploaded (16, nv) limbs
+        RC.matvec(csr, z_l)
+        zin = z_l
+    except ValueError:        # an older checkout: l32 (8, nv)
+        zin = F.pack(z_l.to(F.I64))
+    fs = eng._domain(m).fourstep
+    gen = torch.Generator(device="cuda").manual_seed(11 + log2n)
+    xt = smoke.rand_fq(torch, (3, fs.n2, fs.n1), gen)
+    return {"r1cs": r1cs, "z_l": z_l, "domain": domain, "eng": eng,
+            "csr": csr, "zin": zin, "fs": fs, "xt": xt, "m": m}
+
+
+def kernel_rows(torch, smoke, rungs, out) -> None:
+    from za_tpu_torch.engine import _build, ntt as NTT, r1cs as RC
+
+    bd = _build.build_dir()
+    # the __global__ function the proof's shapes run, by the checkout's
+    # name for it: this tree's vector twiddle, or an older untemplated one
+    for name, source, prefixes in (
+            ("ntt_twiddle_fr", "ntt", (ENTRY["ntt"],
+                                       "_ZN2za18ntt_twiddle_kernelE")),
+            ("r1cs_matvec_fr", "r1cs", ("_ZN2za18r1cs_matvec_kernelE",))):
+        sass = sass_opcodes(bd / f"lib{source}.so")
+        fn = next(f for p in prefixes for f in sass if f.startswith(p))
+        emit({"section": "kernel_build", "name": name, "entry": fn,
+              **smoke.ptxas_usage((bd / f"{source}.log").read_text(), fn),
+              "sass": groups(sass[fn])}, out)
+    for log2n, ctx in rungs.items():
+        csr, zin, fs, xt = ctx["csr"], ctx["zin"], ctx["fs"], ctx["xt"]
+        got = RC.matvec(csr, zin)
+        assert torch.equal(got, RC.matvec_plain(csr, zin)), "matvec"
+        tw = NTT.ntt_twiddle(xt, fs.inter_fwd)
+        assert torch.equal(tw, NTT.ntt_twiddle_plain(xt, fs.inter_fwd))
+        row = {"section": "kernels", "rung": f"2^{log2n}",
+               "nnz": csr.cols.numel(), "m": ctx["m"],
+               "witness_rows": ctx["zin"].shape[0],
+               "twiddle_shape": list(xt.shape[1:]),
+               "r1cs_matvec_fr": {
+                   "device_ms": smoke.device_ms(
+                       torch, lambda: RC.matvec(csr, zin)),
+                   "issue_ms": smoke.issue_ms(
+                       torch, lambda: RC.matvec(csr, zin))},
+               "ntt_twiddle_fr": {
+                   "device_ms": smoke.device_ms(
+                       torch, lambda: NTT.ntt_twiddle(xt, fs.inter_fwd)),
+                   "issue_ms": smoke.issue_ms(
+                       torch, lambda: NTT.ntt_twiddle(xt, fs.inter_fwd))},
+               "h_ms": smoke.h_inline(torch, ctx["eng"], ctx["r1cs"],
+                                      ctx["z_l"], ctx["domain"])}
+        emit(row, out)
+
+
+def affine_inputs(torch, smoke, is_g2: bool):
+    """chip_smoke.py's to_affine shape: 8 staging blocks of points."""
+    gen = torch.Generator(device="cuda").manual_seed(4 + is_g2)
+    npts = 8 * (3 * (1 << 16) if not is_g2 else 1 << 15)
+    E = (2,) if is_g2 else ()
+    return [smoke.rand_fq(torch, E + (npts,), gen) for _ in range(3)]
+
+
+def staging_rows(torch, smoke, out) -> None:
+    from za_tpu_torch.engine import _build, ec
+
+    ec_log = (_build.build_dir() / "ec.log").read_text()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for is_g2 in (False, True):
+        g = "g2" if is_g2 else "g1"
+        npts = 3 * (1 << 16) if not is_g2 else 1 << 15
+        E = (2,) if is_g2 else ()
+        pts = [smoke.rand_fq(torch, E + (npts,), gen) for _ in range(6)]
+        coords = affine_inputs(torch, smoke, is_g2)
+        add = lambda: ec.ec_add(pts[:3], pts[3:6], is_g2)  # noqa: E731
+        aff = lambda: ec.to_affine(*coords, is_g2)         # noqa: E731
+        want = ec.to_affine_plain(*coords, is_g2)
+        assert all(torch.equal(a, b) for a, b in zip(aff(), want))
+        emit({"section": "staging", f"ec_add_{g}": {
+                  "points": npts, "device_ms": smoke.device_ms(torch, add),
+                  "issue_ms": smoke.issue_ms(torch, add)},
+              f"to_affine_{g}": {
+                  "points": coords[0].shape[-1],
+                  "device_ms": smoke.device_ms(torch, aff),
+                  "issue_ms": smoke.issue_ms(torch, aff, reps=2),
+                  **smoke.ptxas_usage(ec_log, next(
+                      p for p in (smoke.KERNEL_FN[f"to_affine_{g}"],
+                                  OLD_AFFINE_G1) if p in ec_log))}}, out)
+
+
+def nvcc_build(src: Path, lib: Path, flags, include: Path):
+    from za_tpu_torch.engine import _build
+
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{include}", *flags,
+           "-o", str(lib), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def products(torch, smoke, tmp: Path, out) -> None:
+    from za_tpu_torch.engine import _build, field as F
+
+    field = (_build.CSRC / "field.cuh").read_text()
+    extra = ""
+    if "mul_eo(" not in field:      # an older checkout: this repo's product
+        mine = (HERE / "za_tpu_torch" / "csrc" / "field.cuh").read_text()
+        a = mine.index("// -- Montgomery multiplication, even and odd")
+        extra = mine[a:mine.index("template <class P>\n__device__ "
+                                  "__forceinline__ bool is_zero(", a)]
+    src = tmp / "micro.cu"
+    src.write_text(MICRO % {"extra": extra, "sos": SOS})
+    proc = nvcc_build(src, tmp / "libmicro.so", [], _build.CSRC)
+    text = proc.communicate()[0]
+    assert proc.returncode == 0, text[-4000:]
+    lib = ctypes.CDLL(str(tmp / "libmicro.so"))
+    sass = sass_opcodes(tmp / "libmicro.so")
+    probe_none = next(c for f, c in sass.items()
+                      if "probe_kernel" in f and "VNone" in f)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    for name in PRODUCTS:
+        rate = getattr(lib, f"rate_{name}")
+        rate.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p]
+        res = getattr(lib, f"resident_{name}")
+        res.argtypes = [ctypes.c_int, ctypes.c_int]
+        vname = {"mul": "VMul", "mul_eo": "VEo", "sos": "VSos"}[name]
+        probe = next(c for f, c in sass.items()
+                     if "probe_kernel" in f and vname in f)
+        diff = collections.Counter(probe)
+        diff.subtract(probe_none)
+        for op, n in probe_none.items():   # the stand-in's XORs
+            if op.startswith("LOP3"):
+                diff[op] += n
+        diff = collections.Counter({k: v for k, v in diff.items() if v})
+        row = {"section": "products", "product": name,
+               "sass_one_product": dict(sorted(diff.items())),
+               "sass_groups": groups(diff),
+               "sass_total": sum(diff.values()), "rates": []}
+        for k in (1, 2, 4):
+            entry = f"_ZN2za11rate_kernelINS_{len(vname)}{vname}ELi{k}E"
+            for tb in (128, 256):
+                blocks = res(k, tb)
+                n = blocks * sms * tb * 4         # four waves
+                x = smoke.rand_fq(torch, (k * n,), gen)
+                y = smoke.rand_fq(torch, (k * n,), gen)
+                x1 = x.clone()
+                assert rate(k, x1.data_ptr(), y.data_ptr(), n, 1, tb,
+                            stream) == 0
+                want = F.pack(F.FR.mul(F.unpack(x), F.unpack(y)))
+                assert torch.equal(x1, want), f"{name} K={k}: not exact"
+                iters = 64
+
+                def go():
+                    assert rate(k, x1.data_ptr(), y.data_ptr(), n, iters,
+                                tb, stream) == 0
+
+                ms = smoke.device_ms(torch, go)
+                row["rates"].append({
+                    "K": k, "threads_a_block": tb, "blocks_an_sm": blocks,
+                    "warps_an_sm": blocks * tb // 32,
+                    "M_products_per_ms": n * k * iters / ms / 1e6,
+                    "ms": ms, **smoke.ptxas_usage(text, entry)})
+        row["best_M_products_per_ms"] = max(
+            r["M_products_per_ms"] for r in row["rates"])
+        emit(row, out)
+
+
+def variants(torch, smoke, rungs, tmp: Path, out) -> None:
+    from za_tpu_torch.engine import _build, ec, ntt as NTT
+
+    text = {s: (_build.CSRC / f"{s}.cu").read_text() for s in VARIANTS}
+    if "ZA_TW_COLS" not in text["ntt"] or "ZA_AFF_INV1" not in text["ec"]:
+        smoke.log("variants: the checkout's sources take no variant macros")
+        return
+    procs = {}
+    for source, vs in VARIANTS.items():
+        for name, (flags, patch, _) in vs.items():
+            src = _build.CSRC / f"{source}.cu"
+            if patch is not None:
+                assert text[source].count(patch[0]) >= 1, (name, patch[0])
+                src = tmp / f"{name}.cu"
+                src.write_text(text[source].replace(patch[0], patch[1], 1))
+            procs[name] = (source, nvcc_build(
+                src, tmp / f"lib{name}.so", flags, _build.CSRC))
+    usage = {}
+    for name, (source, proc) in procs.items():
+        log_text = proc.communicate()[0]
+        assert proc.returncode == 0, log_text[-4000:]
+        usage[name] = smoke.ptxas_usage(log_text, ENTRY[source])
+    coords = affine_inputs(torch, smoke, False)
+    aff_want = ec.to_affine_plain(*coords, False)
+    wrappers = {"ntt": NTT.NTT_TWIDDLE, "ec": ec.TO_AFFINE[False]}
+    for source, vs in VARIANTS.items():
+        kern = wrappers[source]
+        default = kern._resolve()
+        for name, (_, _, exact) in vs.items():
+            fn = getattr(ctypes.CDLL(str(tmp / f"lib{name}.so")), kern.name)
+            fn.restype = default.restype
+            fn.argtypes = default.argtypes
+            kern._fn = fn
+            try:
+                row = {"section": "variants", "variant": name,
+                       "exact": exact, **usage[name]}
+                if source == "ec":
+                    f = lambda: ec.to_affine(*coords, False)  # noqa: E731
+                    assert not exact or all(torch.equal(a, b) for a, b in zip(
+                        f(), aff_want)), f"{name}: not exact"
+                    row["device_ms"] = smoke.device_ms(torch, f)
+                    emit(row, out)
+                    continue
+                row["rungs"] = {}
+                for log2n, ctx in rungs.items():
+                    fs, xt = ctx["fs"], ctx["xt"]
+                    f = lambda: NTT.ntt_twiddle(  # noqa: E731
+                        xt, fs.inter_fwd)
+                    assert torch.equal(f(), NTT.ntt_twiddle_plain(
+                        xt, fs.inter_fwd)), f"{name} at 2^{log2n}"
+                    h = smoke.h_inline(torch, ctx["eng"], ctx["r1cs"],
+                                       ctx["z_l"], ctx["domain"])
+                    row["rungs"][f"2^{log2n}"] = {
+                        "device_ms": smoke.device_ms(torch, f),
+                        "h_ms": h[kern.name], "h_span_ms": h["h"]}
+                emit(row, out)
+            finally:
+                kern._fn = default
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--products", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--staging", action="store_true")
+    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args(argv)
+    if not (args.products or args.kernels or args.staging or args.variants):
+        args.products = args.kernels = args.staging = args.variants = True
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_hpipe_sweep: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.root.resolve()))
+    from za_tpu_torch.engine import _build
+
+    assert Path(_build.__file__).resolve().is_relative_to(
+        args.root.resolve()), "the checkout's package was not imported"
+    sys.setrecursionlimit(100_000)
+    built = _build.build_all()
+    smoke = load_smoke()
+    smoke.log(f"{args.root}: built {built}")
+    tmp = Path(tempfile.mkdtemp(prefix="hpipe_sweep_"))
+    name = smoke.card_line()
+    emit({"section": "card", "card": name, "root": str(args.root),
+          "torch": torch.__version__, "cuda": torch.version.cuda}, args.out)
+    if args.products:
+        products(torch, smoke, tmp, args.out)
+    rungs = {}
+    if args.kernels or args.variants:
+        rungs = {k: rung_inputs(torch, smoke, k) for k in (17, 13)}
+    if args.kernels:
+        kernel_rows(torch, smoke, rungs, args.out)
+    if args.staging:
+        staging_rows(torch, smoke, args.out)
+    if args.variants:
+        variants(torch, smoke, rungs, tmp, args.out)
+    print(name)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -24,7 +24,12 @@
 // to_affine: projective -> affine (Z = 0 maps to 0), the reference's
 // msm_tree._normalize_affine: a block batch-inverts the Z of its TB * K
 // points (prefix products per thread, block_inverse, walk back), so a
-// point costs ~5 multiplications and the block one Fermat (~380).
+// point costs ~5 multiplications and the block one inversion.  With
+// Fermat (~380 dependent products, ~0.2 ms) that inversion held every
+// wave of blocks: 0.95 ms for 1.57M G1 points against a 0.12 ms bound.
+// to_affine_g1 inverts with inv_gcd (block_inverse with Gcd, as the tree
+// kernels do), runs in one wave of blocks (to_affine_wave_kernel) and its
+// per-point products on mul_eo; to_affine_g2 keeps Fermat and mul.
 //
 // Bound: integer multiplies.  An add is 12 field multiplications plus
 // two by 3b (G1: ~3.6k 32-bit multiply-adds; G2 x3 with Karatsuba), a
@@ -616,10 +621,24 @@ ec_sum_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
 
 constexpr int AFF_TB = 128;  // threads per to_affine block
 
-// Thread t of a block walks points t, t + AFF_TB, ... of the block's
-// AFF_TB * K (coalesced across the warp), keeping the exclusive prefix
-// products of its nonzero Z; after block_inverse it walks back, emitting
-// 1/Z = inv_acc * prefix and stepping inv_acc past Z.
+// to_affine_g2: thread t of a block walks points t, t + AFF_TB, ... of
+// the block's AFF_TB * K (coalesced across the warp), keeping the
+// exclusive prefix products of its nonzero Z; after block_inverse (one
+// Fermat) it walks back, emitting 1/Z = inv_acc * prefix and stepping
+// inv_acc past Z.
+//
+// to_affine_g1's per-point products run on ZA_AFF_MUL, its root
+// inversion on ZA_AFF_INV1 (variants for tools/torch_hpipe_sweep.py).
+#ifndef ZA_AFF_MUL
+#define ZA_AFF_MUL mul_eo
+#endif
+#ifndef ZA_AFF_INV1
+#define ZA_AFF_INV1 Gcd
+#endif
+__device__ __forceinline__ Fq aff_mul(const Fq& a, const Fq& b) {
+  return ZA_AFF_MUL(a, b);
+}
+
 template <class F, int K>
 __global__ void __launch_bounds__(AFF_TB)
 to_affine_kernel(const uint32_t* __restrict__ X,
@@ -657,6 +676,94 @@ to_affine_kernel(const uint32_t* __restrict__ X,
     store(x, n, i, mul(a, zi));
     store(y, n, i, mul(b, zi));
   }
+}
+
+// to_affine_g1 in one wave: the grid is as many blocks as the card holds
+// at once, each block takes J AFF_TB consecutive points (thread t the
+// points t + j AFF_TB, coalesced) and parks each exclusive prefix
+// product in x, where the walk back reads it before writing the point.
+// So every block inverts once, all at the same time: one inversion's
+// latency for the launch, not one for each wave of blocks, for 64 B
+// more traffic a point.  Each walk loads its next point while it
+// multiplies the current one.  On 1.57M points (NVIDIA H100 80GB HBM3,
+// 700 W; tools/torch_hpipe_sweep.py): 0.226 ms against 0.372 for the
+// multi-wave to_affine_kernel with inv_gcd and 0.946 with Fermat; 0.242
+// without the loads in flight, 0.455 with Fermat at the root, 0.262 on
+// mul; 0.185 with no inversion at all (a timing probe).
+template <class Inv>
+__global__ void __launch_bounds__(AFF_TB)
+to_affine_wave_kernel(const uint32_t* __restrict__ X,
+                      const uint32_t* __restrict__ Y,
+                      const uint32_t* __restrict__ Z, uint32_t* x,
+                      uint32_t* __restrict__ y, int n, int J) {
+  __shared__ Fq tree[2 * AFF_TB];
+  const size_t i0 = (size_t)blockIdx.x * J * AFF_TB + threadIdx.x;
+  // the thread's points are i0 + j AFF_TB for j < m
+  const long left = ((long)n - (long)i0 + AFF_TB - 1) / AFF_TB;
+  const int m = left < 0 ? 0 : left < J ? (int)left : J;
+  Fq acc = one<Fq>(), z;
+  if (m > 0) load(z, Z, n, i0);
+  for (int j = 0; j < m; ++j) {     // the next Z in flight
+    const size_t i = i0 + (size_t)j * AFF_TB;
+    Fq zn;
+    if (j + 1 < m) load(zn, Z, n, i + AFF_TB);
+    store(x, n, i, acc);
+    if (!is_zero(z)) acc = aff_mul(acc, z);
+    z = zn;
+  }
+  Fq inv_acc = block_inverse<Fq, AFF_TB, Inv>(acc, tree);
+  Fq pre, a, b;
+  if (m > 0) {
+    const size_t i = i0 + (size_t)(m - 1) * AFF_TB;
+    load(z, Z, n, i);
+    load(pre, x, n, i);
+    load(a, X, n, i);
+    load(b, Y, n, i);
+  }
+  for (int j = m - 1; j >= 0; --j) {  // the previous point's loads in flight
+    const size_t i = i0 + (size_t)j * AFF_TB;
+    Fq zp, pp, ap, bp;
+    if (j > 0) {
+      load(zp, Z, n, i - AFF_TB);
+      load(pp, x, n, i - AFF_TB);
+      load(ap, X, n, i - AFF_TB);
+      load(bp, Y, n, i - AFF_TB);
+    }
+    Fq zi = zero<Fq>();
+    if (!is_zero(z)) {
+      zi = aff_mul(inv_acc, pre);
+      inv_acc = aff_mul(inv_acc, z);
+    }
+    store(x, n, i, aff_mul(a, zi));
+    store(y, n, i, aff_mul(b, zi));
+    z = zp;
+    pre = pp;
+    a = ap;
+    b = bp;
+  }
+}
+
+template <class Inv>
+int launch_affine_wave(const void* X, const void* Y, const void* Z, void* x,
+                       void* y, int n, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0, per = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, to_affine_wave_kernel<Inv>, AFF_TB, 0);
+  if (rc != cudaSuccess) return (int)rc;
+  const long threads = ((long)n + AFF_TB - 1) / AFF_TB;
+  const long slots = (long)sms * (per > 0 ? per : 1);
+  const int J = (int)((threads + slots - 1) / slots);
+  const long blocks = (threads + J - 1) / J;
+  to_affine_wave_kernel<Inv><<<(unsigned)blocks, AFF_TB, 0,
+                               (cudaStream_t)stream>>>(
+      (const uint32_t*)X, (const uint32_t*)Y, (const uint32_t*)Z,
+      (uint32_t*)x, (uint32_t*)y, n, J);
+  return (int)cudaGetLastError();
 }
 
 template <class F>
@@ -853,7 +960,7 @@ int horner_g2(const void* WX, const void* WY, const void* WZ, void* X,
 
 int to_affine_g1(const void* X, const void* Y, const void* Z, void* x,
                  void* y, int n, void* stream) {
-  return za::launch_affine<za::Fq, 8>(X, Y, Z, x, y, n, stream);
+  return za::launch_affine_wave<za::ZA_AFF_INV1>(X, Y, Z, x, y, n, stream);
 }
 
 int to_affine_g2(const void* X, const void* Y, const void* Z, void* x,

@@ -41,11 +41,24 @@
 //
 // ntt_twiddle_fr replaces XLA code of the reference's four-step
 // (ntt_rns.py _fourstep_core: mont_mul_rns by the inter-factor twiddles,
-// then swapaxes): out[b, c, r] = a[b, r, c] * inter[r, c], through a
-// 32 x 32 shared-memory tile (one padding word per row, so the
-// transposed reads hit 32 banks) so that the reads and the writes of
-// every limb plane are coalesced.  Bound: bytes, one multiplication per
-// 96 B moved.
+// then swapaxes): out[b, c, r] = a[b, r, c] * inter[r, c].  Bound: bytes,
+// 96 B a product (a and inter read, out written); at 2^17 (3 x 512 x
+// 512) 58.7 MB, 17.5 us, and 786,432 products, which at the rate the
+// Montgomery product reaches on this card (tools/torch_hpipe_sweep.py)
+// take about as long, so the kernel has to keep the loads and the
+// products busy at once.  A block of 256 threads takes a 16 x 32 tile
+// of (r, c).  Each thread first issues every load it needs: TW_V = 2
+// consecutive columns of one row, as one 8-byte load a limb plane of a
+// and of inter; then runs its two products (mul_eo, whose two chains a
+// row run side by side) into a shared-memory tile held column-major
+// (one padding word a column: a warp's row writes hit 32 banks, its
+// column reads two ways); then writes two consecutive rows of one column
+// as one 8-byte store a limb plane.  60 registers, no spill, 4 blocks
+// (32 warps) an SM; 1,536 blocks at 2^17.  It beat four columns a thread
+// (16-byte accesses, 94 registers, 20 warps an SM), 32 x 32 tiles and
+// mul at both rungs, alone and inside h (tools/torch_hpipe_sweep.py).
+// Shapes whose R or C is no multiple of TW_V, or unaligned tensors, take
+// the same schedule with 4-byte accesses and bounds checks.
 //
 // ntt_stage_fr replaces one stage of the reference's XLA stage loop
 // (ntt_rns.py _ntt_core, _sub_ntt_axis1): one thread per butterfly, in
@@ -70,8 +83,23 @@ constexpr int PREFIX_TB = PREFIX_ROWS * PREFIX_BLOCK_LANES / PREFIX_EL;
 constexpr int PREFIX_SCALE_IN = 1;
 constexpr int PREFIX_COMBINE = 2;
 constexpr int PREFIX_SCALE_OUT = 4;
-constexpr int TT = 32;           // edge of a twiddle-transpose tile
-constexpr int TT_ROWS = 8;       // thread rows of a transpose block
+// the twiddle transpose's tile: TW_R rows x TW_C columns of (r, c); a
+// thread loads TW_V consecutive columns of a row and stores TW_V
+// consecutive rows of a column.  ZA_TW_* select variants for
+// tools/torch_hpipe_sweep.py.
+#ifndef ZA_TW_COLS
+#define ZA_TW_COLS 2
+#endif
+#ifndef ZA_TW_ROWS
+#define ZA_TW_ROWS 16
+#endif
+#ifndef ZA_TW_MUL
+#define ZA_TW_MUL mul_eo
+#endif
+constexpr int TW_V = ZA_TW_COLS;
+constexpr int TW_R = ZA_TW_ROWS;
+constexpr int TW_C = 32;
+constexpr int TW_TB = TW_R * TW_C / TW_V;   // threads of a block
 
 __device__ __forceinline__ unsigned bitrev(unsigned i, int bits) {
   return bits ? __brev(i) >> (32 - bits) : 0u;
@@ -255,35 +283,96 @@ ntt_prefix_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
   }
 }
 
-__global__ void __launch_bounds__(TT * TT_ROWS)
+// n (<= TW_V) consecutive words from p: one vector access where vec,
+// else word by word
+template <bool vec>
+__device__ __forceinline__ void load_run(uint32_t (&w)[TW_V],
+                                         const uint32_t* p, int n) {
+  if (vec) {
+    if (TW_V == 4) {
+      const uint4 x = *reinterpret_cast<const uint4*>(p);
+      w[0] = x.x; w[1] = x.y; w[2 % TW_V] = x.z; w[3 % TW_V] = x.w;
+    } else {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      w[0] = x.x; w[1] = x.y;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < TW_V; ++k) w[k] = k < n ? p[k] : 0u;
+}
+
+template <bool vec>
+__device__ __forceinline__ void store_run(uint32_t* p,
+                                          const uint32_t (&w)[TW_V], int n) {
+  if (vec) {
+    if (TW_V == 4)
+      *reinterpret_cast<uint4*>(p) =
+          make_uint4(w[0], w[1], w[2 % TW_V], w[3 % TW_V]);
+    else
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < TW_V; ++k)
+    if (k < n) p[k] = w[k];
+}
+
+// vec: R and C multiples of TW_V and the tensors aligned to TW_V words
+template <bool vec>
+__global__ void __launch_bounds__(TW_TB)
 ntt_twiddle_kernel(const uint32_t* __restrict__ a,
                    const uint32_t* __restrict__ inter,
                    uint32_t* __restrict__ out, int B, int R, int C) {
-  __shared__ uint32_t tile[8][TT][TT + 1];
-  const int c0 = blockIdx.x * TT, r0 = blockIdx.y * TT;
+  __shared__ uint32_t tile[8][TW_C][TW_R + 1];   // [limb][column][row]
+  const int c0 = blockIdx.x * TW_C, r0 = blockIdx.y * TW_R;
   const size_t rc = (size_t)R * C;
   const size_t plane = (size_t)B * rc;
   const size_t base = (size_t)blockIdx.z * rc;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int i = ty; i < TT; i += TT_ROWS) {
-    const int r = r0 + i, c = c0 + tx;
-    if (r < R && c < C) {
+  {  // loads, then products: row r, columns c .. c + TW_V - 1
+    const int ri = threadIdx.x / (TW_C / TW_V);
+    const int cl = threadIdx.x % (TW_C / TW_V) * TW_V;
+    const int r = r0 + ri, c = c0 + cl;
+    const int n = r < R && c < C ? min(TW_V, C - c) : 0;
+    uint32_t va[8][TW_V], vw[8][TW_V];
+    if (n > 0) {
       const size_t idx = (size_t)r * C + c;
-      Fr v, w;
-      load(v, a, plane, base + idx);
-      load(w, inter, rc, idx);
-      v = mul(v, w);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) tile[q][i][tx] = v.v[q];
+      for (int q = 0; q < 8; ++q) {
+        load_run<vec>(va[q], a + q * plane + base + idx, n);
+        load_run<vec>(vw[q], inter + q * rc + idx, n);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < TW_V; ++k) {
+      if (k < n) {
+        Fr x, w;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          x.v[q] = va[q][k];
+          w.v[q] = vw[q][k];
+        }
+        const Fr p = ZA_TW_MUL(x, w);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) tile[q][cl + k][ri] = p.v[q];
+      }
     }
   }
   __syncthreads();
-  for (int i = ty; i < TT; i += TT_ROWS) {
-    const int c = c0 + i, r = r0 + tx;
-    if (r < R && c < C) {
+  {  // column c, rows r .. r + TW_V - 1
+    const int ci = threadIdx.x / (TW_R / TW_V);
+    const int rl = threadIdx.x % (TW_R / TW_V) * TW_V;
+    const int c = c0 + ci, r = r0 + rl;
+    const int n = c < C && r < R ? min(TW_V, R - r) : 0;
+    if (n > 0) {
       const size_t dst = base + (size_t)c * R + r;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) out[q * plane + dst] = tile[q][tx][i];
+      for (int q = 0; q < 8; ++q) {
+        uint32_t w[TW_V];
+#pragma unroll
+        for (int k = 0; k < TW_V; ++k) w[k] = tile[q][ci][rl + k];
+        store_run<vec>(out + q * plane + dst, w, n);
+      }
     }
   }
 }
@@ -353,11 +442,21 @@ int ntt_twiddle_fr(const void* a, const void* inter, void* out, int B,
                    int R, int C, void* stream) {
   if (B < 0 || R < 0 || C < 0) return (int)cudaErrorInvalidValue;
   if ((long)B * R * C > 0) {
-    const dim3 grid((unsigned)((C + za::TT - 1) / za::TT),
-                    (unsigned)((R + za::TT - 1) / za::TT), (unsigned)B);
-    za::ntt_twiddle_kernel<<<grid, dim3(za::TT, za::TT_ROWS), 0,
-                             (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (const uint32_t*)inter, (uint32_t*)out, B, R, C);
+    const dim3 grid((unsigned)((C + za::TW_C - 1) / za::TW_C),
+                    (unsigned)((R + za::TW_R - 1) / za::TW_R), (unsigned)B);
+    const uintptr_t align = 4 * za::TW_V - 1;
+    const bool vec = R % za::TW_V == 0 && C % za::TW_V == 0
+        && (((uintptr_t)a | (uintptr_t)inter | (uintptr_t)out) & align) == 0;
+    if (vec)
+      za::ntt_twiddle_kernel<true><<<grid, za::TW_TB, 0,
+                                     (cudaStream_t)stream>>>(
+          (const uint32_t*)a, (const uint32_t*)inter, (uint32_t*)out, B, R,
+          C);
+    else
+      za::ntt_twiddle_kernel<false><<<grid, za::TW_TB, 0,
+                                      (cudaStream_t)stream>>>(
+          (const uint32_t*)a, (const uint32_t*)inter, (uint32_t*)out, B, R,
+          C);
   }
   return (int)cudaGetLastError();
 }

@@ -9,15 +9,20 @@
 // coefficients are c R^2 mod r, so one Montgomery product with the plain
 // witness word z gives c z in Montgomery form, and the output is the
 // l32 (8, 3, m) leg buffer that the NTTs take, canonical.  Rows sum by
-// modular adds, so any order gives the same value.
+// modular adds, so any order gives the same value.  The witness comes as
+// uploaded, (16, nv) 16-bit plain limbs in int32: the kernel packs each
+// pair of limbs into a word as it loads them, so nothing runs before it.
 //
 // Work split: one thread per row for rows of at most MV_WARP_ROW entries
 // (the multiplier chain has one or two); the longer rows of a warp's 32
 // rows are then taken by the whole warp one after another, each lane
 // summing every 32nd entry, the lanes joined by a shuffle tree.
 // Bound: bytes, 36 B per entry (coefficient and column) plus the row
-// offsets, the witness read once and the legs written once, against one
-// product per entry.
+// offsets, the witness read once (64 B a variable) and the legs written
+// once, against one product per entry.  At the 2^17 chain it runs within
+// twice its bound (NVIDIA H100 80GB HBM3, 700 W; device time from
+// tools/torch_hpipe_sweep.py), so its design stays; what holds it is the
+// three memory round trips of an entry (offsets, column, witness).
 
 #include "field.cuh"
 
@@ -32,7 +37,10 @@ __device__ __forceinline__ Fr mv_term(const uint32_t* __restrict__ coeffs,
                                       size_t nv, int k) {
   Fr c, x;
   load(c, coeffs, nnz, (size_t)k);
-  load(x, z, nv, (size_t)cols[k]);
+  const size_t j = (size_t)cols[k];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)   // two 16-bit witness limbs a word
+    x.v[q] = (z[(2 * q) * nv + j] & 0xffffu) | (z[(2 * q + 1) * nv + j] << 16);
   return mul(c, x);
 }
 
@@ -83,8 +91,8 @@ r1cs_matvec_kernel(const int* __restrict__ row_ptr,
 extern "C" {
 
 // row_ptr: (rows + 1,) int32; cols: (nnz,) int32; coeffs: (8, nnz) int32
-// holding c R^2 mod r; z: (8, nv) int32 plain witness -> out: (8, rows)
-// int32 Montgomery row sums, every row written.
+// holding c R^2 mod r; z: (16, nv) int32 16-bit plain limbs of the
+// witness -> out: (8, rows) int32 Montgomery row sums, every row written.
 int r1cs_matvec_fr(const void* row_ptr, const void* cols, const void* coeffs,
                    int nnz, const void* z, int nv, void* out, int rows,
                    void* stream) {

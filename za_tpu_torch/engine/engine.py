@@ -257,9 +257,10 @@ class GpuEngine:
 
     def _legs(self, r1cs: R1CS, z, m: int) -> torch.Tensor:
         """The Az, Bz, Cz legs at domain size m, l32 (8, 3, m)
-        Montgomery, Az with the input-preservation rows."""
-        z32 = F.pack(self.witness_limbs_dev(z).to(F.I64))
-        return RC.matvec(RC.r1cs_csr(r1cs, m, self.device), z32)
+        Montgomery, Az with the input-preservation rows: the matvec on
+        the uploaded (16, nv) witness limbs, nothing run before it."""
+        return RC.matvec(RC.r1cs_csr(r1cs, m, self.device),
+                         self.witness_limbs_dev(z))
 
     def r1cs_satisfied(self, r1cs: R1CS, z) -> bool:
         """Az o Bz == Cz on the device.  The Az/Bz/Cz legs are kept for

@@ -7,9 +7,12 @@ object; the reference's engine._r1cs_entries_rns).  A carries the
 input-preservation rows az[n + i] = z_i (bellman layout) as entries of
 coefficient 1, so the kernel has no special case.  Coefficients are
 c R^2 mod r as l32 limbs: one Montgomery product with the plain witness
-gives c z in Montgomery form.  ``matvec`` launches ``r1cs_matvec_fr``
-(csrc/r1cs.cu) and returns the l32 (8, 3, m) legs that h(x) transforms;
-rows past the constraints stay zero (the reference's _matvec_rns_jit).
+gives c z in Montgomery form.  ``matvec`` takes the witness as
+``GpuEngine.witness_limbs_dev`` uploads it, (16, nv) 16-bit plain limbs
+in int32, launches ``r1cs_matvec_fr`` (csrc/r1cs.cu, which packs the
+limbs in registers) and returns the l32 (8, 3, m) legs that h(x)
+transforms; rows past the constraints stay zero (the reference's
+_matvec_rns_jit).
 """
 
 from __future__ import annotations
@@ -82,31 +85,33 @@ def _rows(csr: Csr) -> torch.Tensor:
         torch.arange(counts.numel(), device=counts.device), counts)
 
 
-def matvec_plain(csr: Csr, z32: torch.Tensor) -> torch.Tensor:
-    """Plain witness z32 (8, nv) l32 -> Montgomery legs (8, 3, m) l32:
-    one product per entry, per-row limb sums (index_add), one Montgomery
-    reduction of the sums and a product by R^2."""
+def matvec_plain(csr: Csr, z: torch.Tensor) -> torch.Tensor:
+    """Plain witness z (16, nv) int32 16-bit limbs -> Montgomery legs
+    (8, 3, m) l32: one product per entry, per-row limb sums
+    (index_add), one Montgomery reduction of the sums and a product by
+    R^2."""
     rows = 3 * csr.m
     prod = FR.mul(F.unpack(csr.coeffs),
-                  F.unpack(z32).index_select(1, csr.cols.to(F.I64)))
-    t = torch.zeros((2 * F.NLIMBS + 1, rows), dtype=F.I64, device=z32.device)
+                  z.to(F.I64).index_select(1, csr.cols.to(F.I64)))
+    t = torch.zeros((2 * F.NLIMBS + 1, rows), dtype=F.I64, device=z.device)
     t[:F.NLIMBS].index_add_(1, _rows(csr), prod)
     # t holds V < 2^16 r: redc gives V / 2^256, the R^2 product restores V
     legs = FR.mul(FR.redc(t), FR.const(FR.r2, t))
     return F.pack(legs).reshape(F.NL32, 3, csr.m)
 
 
-def matvec(csr: Csr, z32: torch.Tensor) -> torch.Tensor:
-    """The matvec kernel: one launch for the three legs."""
-    if z32.device.type == "cpu":
-        return matvec_plain(csr, z32)
-    if z32.dtype != torch.int32 or z32.dim() != 2 or z32.shape[0] != 8:
-        raise ValueError("matvec: int32 (8, nv) plain witness")
-    z32 = z32.contiguous()
+def matvec(csr: Csr, z: torch.Tensor) -> torch.Tensor:
+    """The matvec kernel: one launch for the three legs, on the
+    witness as uploaded, (16, nv) int32 16-bit plain limbs."""
+    if z.device.type == "cpu":
+        return matvec_plain(csr, z)
+    if z.dtype != torch.int32 or z.dim() != 2 or z.shape[0] != F.NLIMBS:
+        raise ValueError("matvec: int32 (16, nv) plain witness limbs")
+    z = z.contiguous()
     out = torch.empty((F.NL32, 3, csr.m), dtype=torch.int32,
-                      device=z32.device)
-    R1CS_MATVEC(csr.row_ptr, csr.cols, csr.coeffs, csr.cols.numel(), z32,
-                z32.shape[1], out, 3 * csr.m)
+                      device=z.device)
+    R1CS_MATVEC(csr.row_ptr, csr.cols, csr.coeffs, csr.cols.numel(), z,
+                z.shape[1], out, 3 * csr.m)
     return out
 
 
