@@ -97,18 +97,29 @@ MADS_PER_MUL = 4 * 8 * 8
 # kernel on point_add); in G2 it is a full Fq2 constant.  An Fq2
 # multiplication is 3 Fq ones.
 ADD_MULS = {False: 12, True: 3 * 14}
+# to_affine (csrc/ec.cu to_affine_wave_kernel): Fq multiplications per
+# point with a nonzero Z, G1 5 (the prefix, two in the walk back, X/Z
+# and Y/Z), G2 13 (the norm's two squarings, the prefix, two in the walk
+# back, two for conj(Z) N^-1, 3 + 3 for X/Z and Y/Z); and one inv_gcd a
+# block, the inversion the batch needs: 20 batches of ~92 32x32-bit
+# wide products (a Montgomery product's 256 multiply-adds count 128 of
+# them) and one Montgomery product, ~16 products' worth.  The blocks'
+# product trees are the design's cost of its split, not counted.
+AFFINE_MULS = {False: 5, True: 13}
+INV_GCD_MULS = 16
 
 # the __global__ function behind each tree, curve, dense, prefix and
 # matvec entry point of csrc/tree.cu, csrc/ec.cu, csrc/dense.cu,
 # csrc/ntt.cu and csrc/r1cs.cu, as ptxas names it, up to its last
 # template argument: tree_level_rolled_kernel<Fq, true, 8, ...>, <Fq,
 # false, 8, ...>, <Fq2, true, 4, ...> and <Fq2, false, 4, ...>;
-# horner_warp_g1_kernel, horner_warp_g2_kernel; ec_add_kernel <Fq> and
-# <Fq2>; ec_sum_kernel <F, staged add's lanes, thread adds compiled in,
-# fold> (the fold <Fq, 6, true, true>, or <Fq, 6, false, true> where no
-# level runs thread adds, and <Fq2, 16, false, true>; the carry <Fq, 6,
-# true, false> and <Fq2, 8, false, false>); to_affine_wave_kernel
-# <Gcd> and to_affine_kernel <Fq2, 4>; dense_sums_kernel <Fq, true, ...>,
+# horner_warp_g1_kernel, horner_warp_g2_kernel; ec_add_kernel <Fq, Ops,
+# ...> and <Fq2, OpsEo, ...>; ec_sum_kernel <F, staged add's
+# lanes, thread adds compiled in, fold> (the fold <Fq, 6, true, true>,
+# or <Fq, 6, false, true> where no level runs thread adds, and <Fq2,
+# 16, false, true>; the carry <Fq, 6, true, false> and <Fq2, 8, false,
+# false>); to_affine_wave_kernel
+# <Fq, Gcd> and <Fq2, Gcd>; dense_sums_kernel <Fq, true, ...>,
 # <Fq2, true, ...> (signed radix 16), <Fq, false, ...>, <Fq2, false,
 # ...> (radix 4); ntt_prefix_kernel, ntt_twiddle_kernel<true> (vector
 # accesses: the proof's shapes), ntt_stage_kernel; r1cs_matvec_kernel
@@ -127,8 +138,9 @@ KERNEL_FN = {
     "tree_level_g2": "_ZN2za24tree_level_rolled_kernelINS_3Fq2ELb0ELi4E",
     "horner_g1": "_ZN2za21horner_warp_g1_kernelE",
     "horner_g2": "_ZN2za21horner_warp_g2_kernelE",
-    "ec_add_g1": "_ZN2za13ec_add_kernelINS_2FpINS_7QParamsEEEEE",
-    "ec_add_g2": "_ZN2za13ec_add_kernelINS_3Fq2EEE",
+    "ec_add_g1": "_ZN2za13ec_add_kernelINS_2FpINS_7QParamsEEENS_3OpsE",
+    "ec_add_g2":
+        "_ZN2za13ec_add_kernelINS_3Fq2ENS_12OpsKaratsubaINS_5MulEoEEE",
     "ec_fold_g1":
         "_ZN2za13ec_sum_kernelINS_2FpINS_7QParamsEEELi6ELb1ELb1E",
     "ec_fold_g1.staged":
@@ -137,8 +149,9 @@ KERNEL_FN = {
     "ec_carry_g1":
         "_ZN2za13ec_sum_kernelINS_2FpINS_7QParamsEEELi6ELb1ELb0E",
     "ec_carry_g2": "_ZN2za13ec_sum_kernelINS_3Fq2ELi8ELb0ELb0E",
-    "to_affine_g1": "_ZN2za21to_affine_wave_kernelINS_3GcdE",
-    "to_affine_g2": "_ZN2za16to_affine_kernelINS_3Fq2ELi4E",
+    "to_affine_g1":
+        "_ZN2za21to_affine_wave_kernelINS_2FpINS_7QParamsEEENS_3GcdE",
+    "to_affine_g2": "_ZN2za21to_affine_wave_kernelINS_3Fq2ENS_3GcdE",
     "ntt_prefix_fr": "_ZN2za17ntt_prefix_kernelE",
     "ntt_twiddle_fr": "_ZN2za18ntt_twiddle_kernelILb1E",
     "ntt_stage_fr": "_ZN2za16ntt_stage_kernelE",
@@ -1077,6 +1090,56 @@ class Times(float):
         return t
 
 
+def affine_blocks(n: int, is_g2: bool) -> int:
+    """The blocks to_affine_g1/_g2 launch for n points (its one-wave
+    split, csrc/ec.cu to_affine_blocks), each inverting once."""
+    import ctypes
+    from za_tpu_torch.engine import _build
+
+    fn = _build.library("ec").to_affine_blocks
+    fn.restype = ctypes.c_long
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    blocks = fn(n, int(is_g2))
+    assert blocks > 0, f"to_affine_blocks: CUDA error {-blocks}"
+    return blocks
+
+
+def staging_edge_checks(torch, gen) -> None:
+    """ec_add and to_affine of both groups, exact against their plain
+    versions, at ragged n (a multiple of neither 128 nor a block's J
+    128 points) with every seventh Z zero, in G2 Z with one component
+    zero, and doublings among the adds: the blocks' partial ends, the
+    zero keys and the norm's cases."""
+    from za_tpu_torch.engine import ec
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    cases = {False: ((1000, 196608 - 77), (1000, 1572864 - 77)),
+             True: ((1, 1000, (1 << 14) - 77, (1 << 15) - 77),
+                    (1, 1000, (1 << 18) - 77))}
+    for is_g2, (add_ns, aff_ns) in cases.items():
+        E = (2,) if is_g2 else ()
+        for n in sorted(set(add_ns + aff_ns)):
+            p = [rand_fq(torch, E + (n,), gen) for _ in range(6)]
+            for z, off in ((p[2], 0), (p[5], 3)):
+                z[..., off::7] = 0
+                if is_g2:
+                    z[:, 0, off + 1::7] = 0
+                    z[:, 1, off + 2::7] = 0
+            for a, b in zip(p[:3], p[3:]):           # doublings
+                b[..., 5::11] = a[..., 5::11]
+            if n in add_ns:
+                assert same(ec.ec_add(p[:3], p[3:], is_g2),
+                            ec.ec_add_plain(p[:3], p[3:], is_g2)), (
+                    f"ec_add g2={is_g2} n={n}")
+            if n in aff_ns:
+                assert same(ec.to_affine(*p[:3], is_g2),
+                            ec.to_affine_plain(*p[:3], is_g2)), (
+                    f"to_affine g2={is_g2} n={n}")
+    log("staging kernels exact at ragged n with zero Z")
+
+
 def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
     """tctx: the tree path's engine and staged tables (2^17); dctx: the
     dense path's, default and fused style (2^13); small_domain: the
@@ -1297,32 +1360,34 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
 
     for is_g2 in (False, True):
         g = "g2" if is_g2 else "g1"
-        fmul = 3 if is_g2 else 1
-        # the table build's widest launch: one staging block of points
+        # the table build's widest launch: one staging block of points;
+        # in G2 also the 2^13 rung's dense b_g2 tables
         npts = 3 * (1 << 16) if not is_g2 else 1 << 15
+        widths = [npts] + ([dctx["staged"]["b_g2x"].n] if is_g2 else [])
         E = (8, 2) if is_g2 else (8,)
-        pts = [rand_fq(torch, E[1:] + (npts,), gen) for _ in range(6)]
-        outs, ms, pms, err = compare(
-            torch, f"ec_add_{g}",
-            lambda *a: ec.ec_add(a[:3], a[3:6], is_g2),
-            lambda *a: ec.ec_add_plain(a[:3], a[3:6], is_g2), pts, reps=5)
-        row(f"ec_add_{g}", ec_src, "za_tpu/engine/ec.py:453",
-            f"{npts} points", ms, pms, err, nbytes(*pts, *outs),
-            ADD_MULS[is_g2] * npts)
-        rows[-1].update(ptxas_usage(ec_log, KERNEL_FN[f"ec_add_{g}"]))
+        for n in widths:
+            pts = [rand_fq(torch, E[1:] + (n,), gen) for _ in range(6)]
+            outs, ms, pms, err = compare(
+                torch, f"ec_add_{g}",
+                lambda *a: ec.ec_add(a[:3], a[3:6], is_g2),
+                lambda *a: ec.ec_add_plain(a[:3], a[3:6], is_g2), pts, reps=5)
+            row(f"ec_add_{g}", ec_src, "za_tpu/engine/ec.py:453",
+                f"{n} points", ms, pms, err, nbytes(*pts, *outs),
+                ADD_MULS[is_g2] * n)
+            rows[-1].update(ptxas_usage(ec_log, KERNEL_FN[f"ec_add_{g}"]))
         coords = [rand_fq(torch, E[1:] + (8 * npts,), gen) for _ in range(3)]
         outs, ms, pms, err = compare(
             torch, f"to_affine_{g}",
             lambda *a: ec.to_affine(*a, is_g2),
             lambda *a: ec.to_affine_plain(*a, is_g2), coords, reps=2)
-        # a batch inversion of the nonzero Z (3 field multiplications
-        # each, one Fermat in all) and X/Z, Y/Z: 5 per point
         nz = int((coords[2] != 0).reshape(-1, 8 * npts).any(0).sum())
-        fermat = 254 + bin(ec.F.FQ.modulus - 2).count("1")
+        blocks = affine_blocks(8 * npts, is_g2)
         row(f"to_affine_{g}", ec_src, "za_tpu/engine/msm_tree.py:422",
             f"{8 * npts} points", ms, pms, err, nbytes(*coords, *outs),
-            5 * fmul * nz + fermat)
+            AFFINE_MULS[is_g2] * nz + blocks * INV_GCD_MULS)
         rows[-1].update(ptxas_usage(ec_log, KERNEL_FN[f"to_affine_{g}"]))
+        rows[-1]["blocks"] = blocks
+    staging_edge_checks(torch, gen)
     # launches of one prove at each rung, staging excluded
     for r in rows:
         key = r["name"]

@@ -49,15 +49,39 @@ def test_ec_kernels_match_plain(gen, is_g2):
                      MSM.horner_windows_plain(w, is_g2, bits))
 
 
-@pytest.mark.parametrize("n", [1, 1023, 5000, 3 * 1024])
-def test_to_affine_g1_zero_z_and_ragged_blocks(gen, n):
-    """to_affine_g1 (inv_gcd at each block's root): every seventh Z zero,
-    a whole block's Z zero (n = 3 * 1024), a partial last block."""
-    p = [_rand_fq((n,), gen) for _ in range(3)]
-    p[2][:, ::7] = 0
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+@pytest.mark.parametrize("n", [1, 1023, 5000, 3 * 1024, (1 << 18) - 77])
+def test_to_affine_g1_zero_z_and_ragged_blocks(gen, n, is_g2):
+    """to_affine_g1 and _g2 (one wave, inv_gcd at each block's root; G2
+    through the norm): every seventh Z zero, a whole block's Z zero (n
+    = 3 * 1024), a partial last block and thread column; in G2 Z with
+    one zero component."""
+    E = (2,) if is_g2 else ()
+    p = [_rand_fq(E + (n,), gen) for _ in range(3)]
+    p[2][..., ::7] = 0
+    if is_g2:
+        p[2][:, 0, 1::7] = 0
+        p[2][:, 1, 2::7] = 0
     if n == 3 * 1024:
-        p[2][:, 1024:2048] = 0
-    assert _same(ec.to_affine(*p, False), ec.to_affine_plain(*p, False))
+        p[2][..., 1024:2048] = 0
+    assert _same(ec.to_affine(*p, is_g2), ec.to_affine_plain(*p, is_g2))
+
+
+@pytest.mark.parametrize("n", [1, 1000, (1 << 14) - 77, 1 << 14,
+                               (1 << 15) - 77])
+def test_ec_add_g2_ragged_and_dense_width(gen, n):
+    """ec_add_g2 at ragged n, at the 2^13 rung's dense width (2^14
+    points) and near a staging block's, with identities (Z = 0), Z
+    with one zero component and doublings (P = Q) among the pairs."""
+    p = [_rand_fq((2, n), gen) for _ in range(6)]
+    p[2][..., ::7] = 0
+    p[5][..., 3::7] = 0
+    p[2][:, 0, 1::7] = 0
+    p[5][:, 1, 2::7] = 0
+    for a, b in zip(p[:3], p[3:]):
+        b[..., 5::11] = a[..., 5::11]
+    assert _same(ec.ec_add(p[:3], p[3:], True),
+                 ec.ec_add_plain(p[:3], p[3:], True))
 
 
 def test_ntt_stage_kernel_matches_plain(gen):

@@ -305,43 +305,61 @@ def test_twiddle_tile_accesses():
 
 
 def test_mul_eo_users_and_to_affine_inversions():
-    """mul_eo is the product of ntt_twiddle_fr and of to_affine_g1's
-    per-point products only; every other kernel keeps mul.  to_affine_g1
-    inverts each block's product with inv_gcd (Gcd), to_affine_g2 keeps
-    Fermat; the matvec keeps mul."""
+    """mul_eo is the product of ntt_twiddle_fr, of to_affine_g1/_g2's
+    per-point products (Karatsuba over it in G2) and of ec_add_g2's
+    thread add (OpsEo: Karatsuba over mul_eo); every other kernel keeps
+    mul.  Both to_affine kernels are the one-wave
+    to_affine_wave_kernel and invert each block's product with inv_gcd
+    (Gcd), G2 through the norm: no Fermat and no multi-wave kernel is
+    left in ec.cu; the matvec keeps mul."""
     users = {f.name: re.sub(r"//.*", "", f.read_text()).count("mul_eo")
              for f in sorted(CSRC.glob("*.cu"))}
     assert users == {"dense.cu": 0, "ec.cu": 1, "ntt.cu": 1, "r1cs.cu": 0,
                      "tree.cu": 0}, users
     ntt, ec = NTT, (CSRC / "ec.cu").read_text()
+    code = re.sub(r"//.*", "", ec)
     assert "#define ZA_TW_MUL mul_eo" in ntt
     assert "const Fr p = ZA_TW_MUL(x, w);" in ntt
     assert "#define ZA_AFF_MUL mul_eo" in ec
-    assert "#define ZA_AFF_INV1 Gcd" in ec
-    assert "launch_affine_wave<za::ZA_AFF_INV1>" in ec
-    assert "launch_affine<za::Fq2, 4>" in ec       # block_inverse's Fermat
+    assert "#define ZA_AFF_INV Gcd" in ec
+    assert "launch_affine_wave<za::Fq, za::ZA_AFF_INV>" in ec
+    assert "launch_affine_wave<za::Fq2, za::ZA_AFF_INV>" in ec
     assert "Fq inv_acc = block_inverse<Fq, AFF_TB, Inv>(acc, tree);" in ec
+    assert "Fermat" not in code and "to_affine_kernel" not in code
+    assert "za::launch_add<za::Fq, za::Ops>(" in ec
+    assert "za::launch_add<za::Fq2, za::OpsEo>(" in ec
+    curve = (CSRC / "curve.cuh").read_text()
+    assert "using OpsEo = OpsKaratsuba<MulEo>;" in curve
+    assert re.search(r"struct MulEo \{\s+__device__ static __forceinline__ "
+                     r"Fq f\(const Fq& a, const Fq& b\) \{\s+"
+                     r"return mul_eo\(a, b\);", curve)
     r1cs = (CSRC / "r1cs.cu").read_text()
     assert "return mul(c, x);" in r1cs
 
 
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
 @pytest.mark.parametrize("slots", [528, 792])
 @pytest.mark.parametrize("n", [1, 127, 128, 1000, 3 * 1024 + 5,
                                8 * 3 * (1 << 16)])
-def test_to_affine_wave_covers_every_point_once(n, slots):
-    """launch_affine_wave's split, as csrc/ec.cu computes it: at most as
-    many blocks as the card holds at once, J points a thread, block b
-    the points [b J TB, (b + 1) J TB) of n, thread t those at t + j TB:
-    every point once."""
+def test_to_affine_wave_covers_every_point_once(n, slots, g2):
+    """launch_affine_wave's split (affine_split), as csrc/ec.cu computes
+    it for both groups' launches: at most as many blocks as the card
+    holds at once, J points a thread, block b the points [b J TB, (b +
+    1) J TB) of n, thread t those at t + j TB: every point once (in G2
+    n up to a tree block's 8 2^15 points)."""
     import numpy as np
 
     ec = (CSRC / "ec.cu").read_text()
-    for text in ("const int J = (int)((threads + slots - 1) / slots);",
-                 "const long blocks = (threads + J - 1) / J;",
+    for text in ("J = (int)((threads + slots - 1) / slots);",
+                 "return (threads + J - 1) / J;",
+                 "const long blocks = affine_split<F, Inv>(n, J);",
                  "const size_t i0 = (size_t)blockIdx.x * J * AFF_TB "
                  "+ threadIdx.x;",
-                 "const size_t i = i0 + (size_t)j * AFF_TB;"):
+                 "const size_t i = i0 + (size_t)j * AFF_TB;",
+                 f"launch_affine_wave<za::{'Fq2' if g2 else 'Fq'}, "):
         assert text in ec, text
+    if g2:
+        n = min(n, 8 * (1 << 15))
     tb = int(re.search(r"constexpr int AFF_TB = (\d+);", ec).group(1))
     threads = -(-n // tb)
     J = -(-threads // slots)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""The h(x) kernels of the port on one CUDA card: the Montgomery product
-alone, ntt_twiddle_fr and r1cs_matvec_fr alone and inside h(x), and
-their variants, each held exactly against its plain version.
+"""The h(x) and staging kernels of the port on one CUDA card: the
+Montgomery product alone, ntt_twiddle_fr and r1cs_matvec_fr alone and
+inside h(x), to_affine and ec_add alone and inside the table builds,
+and their variants, each held exactly against its plain version.
 
     python3 tools/torch_hpipe_sweep.py [--root DIR] [--products]
-        [--kernels] [--staging] [--variants] [--out FILE]
+        [--kernels] [--staging] [--variants [ntt,ec]] [--out FILE]
 
 --root DIR runs the za_tpu_torch package of another checkout (an older
 commit unpacked with git archive): its kernels are built from its own
@@ -19,24 +20,36 @@ JSON line:
       registers, and the SASS opcodes of one product (cuobjdump: the
       opcodes of a kernel that loads, multiplies once and stores, less
       those of the same kernel without the product);
-  kernels: ntt_twiddle_fr and r1cs_matvec_fr at the 2^17 and 2^13
-      rungs' shapes (chip_smoke.py's: the chain's three legs, the first
-      sub-NTT's 3 x n2 x n1): "device_ms" (one call queued behind a
-      sleep kernel, median of 5), "issue_ms" (5 calls back to back, the
-      mean: what chip_smoke.py's ms recorded before device_ms), ptxas
-      registers and spill, the SASS opcodes of each kernel, and "h_ms"
+  kernels: ntt_twiddle_fr, r1cs_matvec_fr and ntt_prefix_fr (no mode,
+      scale_in, combine, scale_out) at the 2^17 and 2^13 rungs' shapes
+      (chip_smoke.py's: the chain's three legs, the first sub-NTT's 3 x
+      n2 x n1): "device_ms" (one call queued behind a sleep kernel,
+      median of 5), "issue_ms" (5 calls back to back, the mean: what
+      chip_smoke.py's ms recorded before device_ms; not for the
+      prefix), ptxas registers and spill, the SASS opcodes of each
+      kernel and a digest of its SASS text, and "h_ms"
       (one h(x) with every kernel launch between CUDA events, queued
       behind a sleep kernel, median of 5: each kernel's device time in
       its place, and the span of h);
-  staging: to_affine_g1/_g2 and ec_add_g1/_g2 at chip_smoke.py's shapes,
-      device_ms and issue_ms, ptxas registers and spill of to_affine;
-  variants: ntt_twiddle_fr and to_affine_g1 built with the variant
-      macros of csrc/ntt.cu (ZA_TW_COLS, ZA_TW_ROWS, ZA_TW_MUL) and
-      csrc/ec.cu (ZA_AFF_INV1, ZA_AFF_MUL, and a build without the
-      block inversion, timed, not exact), swapped into the engine's
+  staging: to_affine_g1/_g2 at chip_smoke.py's shapes and ec_add_g1/_g2
+      at the paths' widths (a tree staging block; in G2 also the 2^13
+      rung's dense b_g2, 2^14 points), each exact: device_ms, issue_ms,
+      ptxas registers and spill, SASS instructions and the digest of
+      their text; then whole table builds with their launches: a tree
+      staging block (build_tables_block: 7 ec_add and one to_affine) of
+      each group and the 2^13 rung's dense G2 multiples (7 ec_add);
+  variants (of the sources named, default both): builds of csrc/ntt.cu
+      with its variant macros (ZA_TW_COLS, ZA_TW_ROWS, ZA_TW_MUL) and of
+      csrc/ec.cu with its own (ZA_AFF_INV: Fermat or inv_gcd at the
+      blocks' roots, ZA_AFF_MUL: mul or mul_eo, and a build without the
+      blocks' inversions, timed, not exact; text patches for ec_add_g2:
+      one add a thread inlined on mul, or the staged add on 8 or 16
+      lanes a pair, on mul or mul_eo), swapped into the engine's
       wrappers: each exact against the plain version, then the twiddle
-      alone and inside h(x) at both rungs, to_affine_g1 alone at
-      chip_smoke.py's shape.
+      alone and inside h(x) at both rungs, to_affine_g1/_g2 alone at
+      chip_smoke.py's shapes, ec_add_g2 alone at the paths' widths and
+      inside the G2 table builds; with registers, spill and SASS
+      instructions.
 Then the card's name and power limit.
 """
 
@@ -45,6 +58,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import hashlib
 import importlib.util
 import json
 import re
@@ -294,31 +308,123 @@ ZA_V(none, VNone)
 
 PRODUCTS = ("mul", "mul_eo", "sos")
 
-# variant builds: name -> (-D flags, a text patch or None, exact); the
-# checkout's defaults are the names without flags.  "aff_wave_noinv"
-# skips the block's inversion: a timing probe, not exact.
+# variant builds: name -> (-D flags, text patches (old, new), each
+# replacing old once, exact, the entry points timed); the checkout's
+# defaults are the names without flags.  "aff_noinv" skips the blocks'
+# inversions: a timing probe, not exact.
 NO_INV = ("namespace za {\n", "namespace za {\nstruct NoInv {\n"
           "  template <class F>\n  __device__ static __forceinline__ F "
           "inv(const F& a) { return a; }\n};\n")
+AFF = ("to_affine_g1", "to_affine_g2")
+# ec_add_g2 swapped for another design at its entry point
+ADD2 = "za::launch_add<za::Fq2, za::OpsEo>("
+# design (b): a unit of W lanes adds one pair on the staged add
+# (Staged<Fq2, W>, hw2::point_add) in its scratch, P + Q into P, ADD_TB
+# / W pairs a block; the block loads the pairs into the units' P and Q
+# slots and stores the sums, coalesced over its pairs.  Word w < 48 of a
+# point: coordinate w / 16, plane w % 16 (2 limb + component), slot 2
+# coordinate + component.  A unit past n adds zeros and stores nothing.
+STAGED = r"""
+template <int W>
+__global__ void __launch_bounds__(ADD_TB)
+ec_add_staged_kernel(const uint32_t* __restrict__ X1,
+                     const uint32_t* __restrict__ Y1,
+                     const uint32_t* __restrict__ Z1,
+                     const uint32_t* __restrict__ X2,
+                     const uint32_t* __restrict__ Y2,
+                     const uint32_t* __restrict__ Z2,
+                     uint32_t* __restrict__ X3, uint32_t* __restrict__ Y3,
+                     uint32_t* __restrict__ Z3, int n) {
+  using S = Staged<Fq2, W>;
+  constexpr int PTS = ADD_TB / W;
+  __shared__ Fq smem[PTS * S::SLOTS];
+  const int tid = threadIdx.x, sub = tid % W;
+  const size_t i0 = (size_t)blockIdx.x * PTS;
+  Fq* s = smem + tid / W * S::SLOTS;
+  for (int e = tid; e < 96 * PTS; e += ADD_TB) {
+    const int pt = e % PTS, w = e / PTS % 48, q = e / PTS / 48;
+    const int c = w / 16, pl = w % 16;
+    const uint32_t* src = q ? (c == 0 ? X2 : c == 1 ? Y2 : Z2)
+                            : (c == 0 ? X1 : c == 1 ? Y1 : Z1);
+    const size_t i = i0 + pt;
+    smem[pt * S::SLOTS + (q ? S::Q : S::P) + 2 * c + (pl & 1)].v[pl >> 1] =
+        i < (size_t)n ? src[pl * (size_t)n + i] : 0u;
+  }
+  S::init(s, sub);
+  __syncthreads();
+  S::add(s, s + S::P, s + S::Q, sub);
+  __syncthreads();
+  for (int e = tid; e < 48 * PTS; e += ADD_TB) {
+    const int pt = e % PTS, w = e / PTS, c = w / 16, pl = w % 16;
+    const size_t i = i0 + pt;
+    if (i < (size_t)n)
+      (c == 0 ? X3 : c == 1 ? Y3 : Z3)[pl * (size_t)n + i] =
+          smem[pt * S::SLOTS + S::P + 2 * c + (pl & 1)].v[pl >> 1];
+  }
+}
+
+template <int W>
+int launch_staged(const void* X1, const void* Y1, const void* Z1,
+                  const void* X2, const void* Y2, const void* Z2, void* X3,
+                  void* Y3, void* Z3, int n, void* stream) {
+  constexpr int per = ADD_TB / W;
+  if (n > 0)
+    ec_add_staged_kernel<W><<<(n + per - 1) / per, ADD_TB, 0,
+                              (cudaStream_t)stream>>>(
+        (const uint32_t*)X1, (const uint32_t*)Y1, (const uint32_t*)Z1,
+        (const uint32_t*)X2, (const uint32_t*)Y2, (const uint32_t*)Z2,
+        (uint32_t*)X3, (uint32_t*)Y3, (uint32_t*)Z3, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace za
+"""
+# the staged add's products on mul_eo
+HW2_EO = ("const Fq r = mul(add(a1[ca], a2[ca]), add(b1[cb], b2[cb]));",
+          "const Fq r = mul_eo(add(a1[ca], a2[ca]), add(b1[cb], b2[cb]));")
+
+
+def staged(w: int, eo: bool) -> tuple:
+    return ((("}  // namespace za\n\nextern \"C\" {",
+              STAGED + "\nextern \"C\" {"),
+             (ADD2, f"za::launch_staged<{w}>("))
+            + ((HW2_EO,) if eo else ()))
+
+
 VARIANTS = {
     "ntt": {
-        "tw_cols2_rows16_eo": ([], None, True),
-        "tw_cols4_rows16_eo": (["-DZA_TW_COLS=4"], None, True),
-        "tw_cols2_rows32_eo": (["-DZA_TW_ROWS=32"], None, True),
-        "tw_cols2_rows16_mul": (["-DZA_TW_MUL=mul"], None, True),
+        "tw_cols2_rows16_eo": ([], (), True, ("ntt_twiddle_fr",)),
+        "tw_cols4_rows16_eo": (["-DZA_TW_COLS=4"], (), True,
+                               ("ntt_twiddle_fr",)),
+        "tw_cols2_rows32_eo": (["-DZA_TW_ROWS=32"], (), True,
+                               ("ntt_twiddle_fr",)),
+        "tw_cols2_rows16_mul": (["-DZA_TW_MUL=mul"], (), True,
+                                ("ntt_twiddle_fr",)),
     },
     "ec": {
-        "aff_wave_eo": ([], None, True),
-        "aff_wave_fermat": (["-DZA_AFF_INV1=Fermat"], None, True),
-        "aff_wave_mul": (["-DZA_AFF_MUL=mul"], None, True),
-        "aff_wave_noinv": (["-DZA_AFF_INV1=NoInv"], NO_INV, False),
+        "default": ([], (), True, AFF + ("ec_add_g2",)),
+        "aff_fermat": (["-DZA_AFF_INV=Fermat"],
+                       (), True, AFF),
+        "aff_mul": (["-DZA_AFF_MUL=mul"], (), True, AFF),
+        "aff_noinv": (["-DZA_AFF_INV=NoInv"],
+                      (NO_INV,), False, AFF),
+        # ec_add_g2: design (a) inlined on mul (the parent's products);
+        # design (b) on 8 lanes (mul, mul_eo) and 16 lanes (mul_eo)
+        "add2_inline_mul": ([], ((ADD2, "za::launch_add<za::Fq2, za::Ops>("),),
+                            True, ("ec_add_g2",)),
+        "add2_staged8": ([], staged(8, False), True, ("ec_add_g2",)),
+        "add2_staged8_eo": ([], staged(8, True), True, ("ec_add_g2",)),
+        "add2_staged16_eo": ([], staged(16, True), True, ("ec_add_g2",)),
     },
 }
-# the __global__ function of each variant's timed kernel, as ptxas names it
-ENTRY = {"ntt": "_ZN2za18ntt_twiddle_kernelILb1E",
-         "ec": "_ZN2za21to_affine_wave_kernel"}
-# an older checkout's to_affine_g1 kernel (before the one-wave kernel)
-OLD_AFFINE_G1 = "_ZN2za16to_affine_kernelINS_2FpINS_7QParamsEEELi8E"
+# the __global__ function behind each timed entry point, as ptxas names
+# it (the first present)
+ENTRY = {"ntt_twiddle_fr": ("_ZN2za18ntt_twiddle_kernelILb1E",),
+         "to_affine_g1": ("_ZN2za21to_affine_wave_kernelINS_2FpINS_7QParams"
+                          "EEE",),
+         "to_affine_g2": ("_ZN2za21to_affine_wave_kernelINS_3Fq2E",),
+         "ec_add_g2": ("_ZN2za13ec_add_kernelINS_3Fq2E",
+                       "_ZN2za20ec_add_staged_kernelI")}
 
 
 def emit(obj, out) -> None:
@@ -360,6 +466,25 @@ def sass_opcodes(lib: Path) -> dict:
         if m and fn is not None and m.group(1) != "NOP":
             out[fn][m.group(1)] += 1
     return out
+
+
+def sass_digests(lib: Path) -> dict:
+    """{function: sha1 of its SASS instructions} of a shared library
+    (addresses and encodings left out): two builds with equal digests
+    run the same code."""
+    text = subprocess.run([cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = hashlib.sha1()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+([^;]*;)", line)
+        if m and fn is not None:
+            out[fn].update(m.group(1).encode())
+    return {f: h.hexdigest()[:16] for f, h in out.items()}
 
 
 def groups(c: collections.Counter) -> dict:
@@ -416,14 +541,16 @@ def kernel_rows(torch, smoke, rungs, out) -> None:
     # the __global__ function the proof's shapes run, by the checkout's
     # name for it: this tree's vector twiddle, or an older untemplated one
     for name, source, prefixes in (
-            ("ntt_twiddle_fr", "ntt", (ENTRY["ntt"],
+            ("ntt_twiddle_fr", "ntt", (*ENTRY["ntt_twiddle_fr"],
                                        "_ZN2za18ntt_twiddle_kernelE")),
+            ("ntt_prefix_fr", "ntt", ("_ZN2za17ntt_prefix_kernelE",)),
             ("r1cs_matvec_fr", "r1cs", ("_ZN2za18r1cs_matvec_kernelE",))):
         sass = sass_opcodes(bd / f"lib{source}.so")
         fn = next(f for p in prefixes for f in sass if f.startswith(p))
         emit({"section": "kernel_build", "name": name, "entry": fn,
               **smoke.ptxas_usage((bd / f"{source}.log").read_text(), fn),
-              "sass": groups(sass[fn])}, out)
+              "sass": groups(sass[fn]),
+              "sass_sha1": sass_digests(bd / f"lib{source}.so")[fn]}, out)
     for log2n, ctx in rungs.items():
         csr, zin, fs, xt = ctx["csr"], ctx["zin"], ctx["fs"], ctx["xt"]
         got = RC.matvec(csr, zin)
@@ -444,9 +571,32 @@ def kernel_rows(torch, smoke, rungs, out) -> None:
                        torch, lambda: NTT.ntt_twiddle(xt, fs.inter_fwd)),
                    "issue_ms": smoke.issue_ms(
                        torch, lambda: NTT.ntt_twiddle(xt, fs.inter_fwd))},
+               "ntt_prefix_fr": prefix_ms(torch, smoke, ctx),
                "h_ms": smoke.h_inline(torch, ctx["eng"], ctx["r1cs"],
                                       ctx["z_l"], ctx["domain"])}
         emit(row, out)
+
+
+def prefix_ms(torch, smoke, ctx) -> dict:
+    """ntt_prefix_fr's device_ms in each mode at chip_smoke.py's shapes
+    (the first sub-NTT's 3 x n2 x n1; the combine's 3 legs into 1, the
+    store table on 1 leg), each exact against its plain version."""
+    from za_tpu_torch.engine import ntt as NTT
+
+    fs, x = ctx["fs"], ctx["xt"]
+    dom = ctx["eng"]._domain(ctx["m"])
+    m = NTT.prefix_rows(fs.n2, fs.n1)
+    res = {}
+    for mode, xin, kw in (
+            ("plain", x, {}), ("scale_in", x, {"scale_in": dom.h_in}),
+            ("combine", x, {"combine": True}),
+            ("scale_out", x[:, :1].contiguous(), {"scale_out": dom.h_out})):
+        f = lambda xin=xin, kw=kw: NTT.ntt_prefix(  # noqa: E731
+            xin, fs.t2_fwd, m, **kw)
+        assert torch.equal(f(), NTT.ntt_prefix_plain(xin, fs.t2_fwd, m,
+                                                     **kw)), mode
+        res[mode] = smoke.device_ms(torch, f)
+    return res
 
 
 def affine_inputs(torch, smoke, is_g2: bool):
@@ -457,31 +607,100 @@ def affine_inputs(torch, smoke, is_g2: bool):
     return [smoke.rand_fq(torch, E + (npts,), gen) for _ in range(3)]
 
 
-def staging_rows(torch, smoke, out) -> None:
-    from za_tpu_torch.engine import _build, ec
+# the widths each staging kernel runs at on the paths: a tree staging
+# block (3 G1 queries x 2^16 columns, one G2 query x 2^15) and the
+# 2^13 rung's dense b_g2 (nv = 2^13 + 2 points padded to 2^14)
+ADD_WIDTHS = {False: {"staging_block": 3 * (1 << 16)},
+              True: {"staging_block": 1 << 15, "dense_2^13": 1 << 14}}
+# a checkout's staging kernels before this tree's: the __global__
+# function of each entry point, as ptxas names it, newest first
+OLD_FN = {
+    "to_affine_g1": ("_ZN2za21to_affine_wave_kernelINS_3GcdE",
+                     "_ZN2za16to_affine_kernelINS_2FpINS_7QParamsEEELi8E"),
+    "to_affine_g2": ("_ZN2za16to_affine_kernelINS_3Fq2ELi4E",),
+    "ec_add_g1": ("_ZN2za13ec_add_kernelINS_2FpINS_7QParamsEEEEE",),
+    "ec_add_g2": ("_ZN2za13ec_add_kernelINS_3Fq2EEE",),
+}
 
-    ec_log = (_build.build_dir() / "ec.log").read_text()
+
+def staging_fn(smoke, log_text: str, name: str) -> str:
+    """The prefix of the __global__ function behind entry point name in
+    this checkout's ptxas log."""
+    for p in (smoke.KERNEL_FN[name], *OLD_FN.get(name, ())):
+        if f"Compiling entry function '{p}" in log_text:
+            return p
+    raise AssertionError(f"ptxas log: no kernel for {name}")
+
+
+def staging_rows(torch, smoke, out) -> None:
+    """Each staging kernel alone at the paths' widths, exact against its
+    plain version (device_ms, issue_ms, ptxas registers and spill, SASS
+    instructions), then a whole table build of each group as the paths
+    run it: a tree staging block (build_tables_block: 7 ec_add and one
+    to_affine) and, in G2, the 2^13 rung's dense multiples
+    (msm_dense.build_tables: 7 ec_add)."""
+    from za_tpu_torch.engine import _build, ec, msm_dense as MD
+    from za_tpu_torch.engine import msm_tree as MT
+
+    bd = _build.build_dir()
+    ec_log = (bd / "ec.log").read_text()
+    sass = sass_opcodes(bd / "libec.so")
+    digest = sass_digests(bd / "libec.so")
+
+    def usage(name):
+        fn = staging_fn(smoke, ec_log, name)
+        entry = next(f for f in sass if f.startswith(fn))
+        return {"entry": entry, **smoke.ptxas_usage(ec_log, fn),
+                "sass_total": sum(sass[entry].values()),
+                "sass_sha1": digest[entry]}
+
     gen = torch.Generator(device="cuda").manual_seed(3)
     for is_g2 in (False, True):
         g = "g2" if is_g2 else "g1"
-        npts = 3 * (1 << 16) if not is_g2 else 1 << 15
         E = (2,) if is_g2 else ()
-        pts = [smoke.rand_fq(torch, E + (npts,), gen) for _ in range(6)]
+        for width, npts in ADD_WIDTHS[is_g2].items():
+            pts = [smoke.rand_fq(torch, E + (npts,), gen) for _ in range(6)]
+            add = lambda: ec.ec_add(pts[:3], pts[3:6], is_g2)  # noqa: E731
+            want = ec.ec_add_plain(pts[:3], pts[3:6], is_g2)
+            assert all(torch.equal(a, b) for a, b in zip(add(), want)), (
+                f"ec_add_{g} at {npts}: not exact")
+            emit({"section": "staging", "kernel": f"ec_add_{g}",
+                  "width": width, "points": npts,
+                  "device_ms": smoke.device_ms(torch, add),
+                  "issue_ms": smoke.issue_ms(torch, add),
+                  **usage(f"ec_add_{g}")}, out)
         coords = affine_inputs(torch, smoke, is_g2)
-        add = lambda: ec.ec_add(pts[:3], pts[3:6], is_g2)  # noqa: E731
         aff = lambda: ec.to_affine(*coords, is_g2)         # noqa: E731
         want = ec.to_affine_plain(*coords, is_g2)
         assert all(torch.equal(a, b) for a, b in zip(aff(), want))
-        emit({"section": "staging", f"ec_add_{g}": {
-                  "points": npts, "device_ms": smoke.device_ms(torch, add),
-                  "issue_ms": smoke.issue_ms(torch, add)},
-              f"to_affine_{g}": {
-                  "points": coords[0].shape[-1],
-                  "device_ms": smoke.device_ms(torch, aff),
-                  "issue_ms": smoke.issue_ms(torch, aff, reps=2),
-                  **smoke.ptxas_usage(ec_log, next(
-                      p for p in (smoke.KERNEL_FN[f"to_affine_{g}"],
-                                  OLD_AFFINE_G1) if p in ec_log))}}, out)
+        lib = _build.library("ec")
+        plan = {}
+        if hasattr(lib, "to_affine_blocks"):   # the one-wave split
+            lib.to_affine_blocks.restype = ctypes.c_long
+            lib.to_affine_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+            plan["blocks"] = lib.to_affine_blocks(coords[0].shape[-1], is_g2)
+        emit({"section": "staging", "kernel": f"to_affine_{g}",
+              "points": coords[0].shape[-1],
+              "device_ms": smoke.device_ms(torch, aff),
+              "issue_ms": smoke.issue_ms(torch, aff, reps=2),
+              **usage(f"to_affine_{g}"), **plan}, out)
+        # whole table builds, random coordinates (the kernels' work does
+        # not depend on the points being on the curve)
+        npts = ADD_WIDTHS[is_g2]["staging_block"]
+        blk = [smoke.rand_fq(torch, E + (npts,), gen) for _ in range(3)]
+        builds = {"tree_block": lambda: MT.build_tables_block(blk, is_g2)}
+        if is_g2:
+            n = ADD_WIDTHS[True]["dense_2^13"]
+            dense = [smoke.rand_fq(torch, (2, 1, n), gen) for _ in range(3)]
+            builds["dense_2^13"] = lambda: MD.build_tables(dense, True, 16)
+        for what, fn in builds.items():
+            _build.reset_launches()
+            fn()
+            launches = {k: v.launches for k, v in _build.KERNELS.items()
+                        if v.launches}
+            emit({"section": "staging", "kernel": f"table_build_{g}",
+                  "build": what, "launches": launches,
+                  "device_ms": smoke.device_ms(torch, fn)}, out)
 
 
 def nvcc_build(src: Path, lib: Path, flags, include: Path):
@@ -564,64 +783,110 @@ def products(torch, smoke, tmp: Path, out) -> None:
         emit(row, out)
 
 
-def variants(torch, smoke, rungs, tmp: Path, out) -> None:
-    from za_tpu_torch.engine import _build, ec, ntt as NTT
+def variants(torch, smoke, rungs, tmp: Path, out, which) -> None:
+    """Variant builds of csrc/ntt.cu and csrc/ec.cu (the sources in
+    which), one nvcc each, all started together, swapped into the
+    engine's wrappers: ntt_twiddle_fr alone and inside h(x) at both
+    rungs; to_affine_g1/_g2 alone at chip_smoke.py's shapes; ec_add_g2
+    alone at the paths' widths and inside the G2 table builds.  Each
+    exact against the plain version but the timing probes."""
+    from za_tpu_torch.engine import _build, ec, msm_dense as MD
+    from za_tpu_torch.engine import msm_tree as MT, ntt as NTT
 
-    text = {s: (_build.CSRC / f"{s}.cu").read_text() for s in VARIANTS}
-    if "ZA_TW_COLS" not in text["ntt"] or "ZA_AFF_INV1" not in text["ec"]:
+    text = {s: (_build.CSRC / f"{s}.cu").read_text() for s in which}
+    if ("ZA_TW_COLS" not in text.get("ntt", "ZA_TW_COLS")
+            or ADD2 not in text.get("ec", ADD2)):
         smoke.log("variants: the checkout's sources take no variant macros")
         return
     procs = {}
-    for source, vs in VARIANTS.items():
-        for name, (flags, patch, _) in vs.items():
+    for source in which:
+        for name, (flags, patches, _, _) in VARIANTS[source].items():
             src = _build.CSRC / f"{source}.cu"
-            if patch is not None:
-                assert text[source].count(patch[0]) >= 1, (name, patch[0])
+            if patches:
+                body = text[source]
+                for old, new in patches:
+                    assert old in body, (name, old)
+                    body = body.replace(old, new, 1)
                 src = tmp / f"{name}.cu"
-                src.write_text(text[source].replace(patch[0], patch[1], 1))
+                src.write_text(body)
             procs[name] = (source, nvcc_build(
                 src, tmp / f"lib{name}.so", flags, _build.CSRC))
-    usage = {}
+    logs = {}
     for name, (source, proc) in procs.items():
-        log_text = proc.communicate()[0]
-        assert proc.returncode == 0, log_text[-4000:]
-        usage[name] = smoke.ptxas_usage(log_text, ENTRY[source])
-    coords = affine_inputs(torch, smoke, False)
-    aff_want = ec.to_affine_plain(*coords, False)
-    wrappers = {"ntt": NTT.NTT_TWIDDLE, "ec": ec.TO_AFFINE[False]}
-    for source, vs in VARIANTS.items():
-        kern = wrappers[source]
-        default = kern._resolve()
-        for name, (_, _, exact) in vs.items():
-            fn = getattr(ctypes.CDLL(str(tmp / f"lib{name}.so")), kern.name)
-            fn.restype = default.restype
-            fn.argtypes = default.argtypes
-            kern._fn = fn
-            try:
-                row = {"section": "variants", "variant": name,
-                       "exact": exact, **usage[name]}
-                if source == "ec":
-                    f = lambda: ec.to_affine(*coords, False)  # noqa: E731
-                    assert not exact or all(torch.equal(a, b) for a, b in zip(
-                        f(), aff_want)), f"{name}: not exact"
-                    row["device_ms"] = smoke.device_ms(torch, f)
-                    emit(row, out)
-                    continue
-                row["rungs"] = {}
-                for log2n, ctx in rungs.items():
-                    fs, xt = ctx["fs"], ctx["xt"]
-                    f = lambda: NTT.ntt_twiddle(  # noqa: E731
-                        xt, fs.inter_fwd)
-                    assert torch.equal(f(), NTT.ntt_twiddle_plain(
-                        xt, fs.inter_fwd)), f"{name} at 2^{log2n}"
-                    h = smoke.h_inline(torch, ctx["eng"], ctx["r1cs"],
-                                       ctx["z_l"], ctx["domain"])
-                    row["rungs"][f"2^{log2n}"] = {
-                        "device_ms": smoke.device_ms(torch, f),
-                        "h_ms": h[kern.name], "h_span_ms": h["h"]}
-                emit(row, out)
-            finally:
-                kern._fn = default
+        logs[name] = proc.communicate()[0]
+        assert proc.returncode == 0, logs[name][-4000:]
+    wrappers = {"ntt_twiddle_fr": NTT.NTT_TWIDDLE,
+                "to_affine_g1": ec.TO_AFFINE[False],
+                "to_affine_g2": ec.TO_AFFINE[True],
+                "ec_add_g2": ec.EC_ADD[True]}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    coords = {k: affine_inputs(torch, smoke, k == "to_affine_g2")
+              for k in AFF}
+    aff_want = {k: ec.to_affine_plain(*c, k == "to_affine_g2")
+                for k, c in coords.items()}
+    pairs = {n: [smoke.rand_fq(torch, (2, n), gen) for _ in range(6)]
+             for n in ADD_WIDTHS[True].values()}
+    add_want = {n: ec.ec_add_plain(p[:3], p[3:], True)
+                for n, p in pairs.items()}
+    blk = [smoke.rand_fq(torch, (2, ADD_WIDTHS[True]["staging_block"]), gen)
+           for _ in range(3)]
+    dense = [smoke.rand_fq(torch, (2, 1, ADD_WIDTHS[True]["dense_2^13"]),
+                           gen) for _ in range(3)]
+    defaults = {k: w._resolve() for k, w in wrappers.items()}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    for name, (source, _) in procs.items():
+        _, _, exact, timed = VARIANTS[source][name]
+        lib = tmp / f"lib{name}.so"
+        cdll = ctypes.CDLL(str(lib))
+        sass = sass_opcodes(lib)
+        for k in timed:
+            fn = getattr(cdll, k)
+            fn.restype = defaults[k].restype
+            fn.argtypes = defaults[k].argtypes
+            wrappers[k]._fn = fn
+        try:
+            row = {"section": "variants", "variant": name, "exact": exact}
+            for k in timed:
+                entry = next(f for p in ENTRY[k] for f in sass
+                             if f.startswith(p))
+                res = {"entry": entry, **smoke.ptxas_usage(logs[name], entry),
+                       "sass_total": sum(sass[entry].values())}
+                if k in AFF:
+                    g2 = k == "to_affine_g2"
+                    f = lambda g2=g2, c=coords[k]: ec.to_affine(  # noqa: E731
+                        *c, g2)
+                    assert not exact or same(f(), aff_want[k]), (name, k)
+                    res["device_ms"] = smoke.device_ms(torch, f)
+                elif k == "ec_add_g2":
+                    for n, p in pairs.items():
+                        f = lambda p=p: ec.ec_add(p[:3], p[3:], True)  # noqa
+                        assert same(f(), add_want[n]), (name, n)
+                        res[f"device_ms_{n}"] = smoke.device_ms(torch, f)
+                    res["tree_block_build_ms"] = smoke.device_ms(
+                        torch, lambda: MT.build_tables_block(blk, True))
+                    res["dense_2^13_build_ms"] = smoke.device_ms(
+                        torch, lambda: MD.build_tables(dense, True, 16))
+                else:
+                    res["rungs"] = {}
+                    for log2n, ctx in rungs.items():
+                        fs, xt = ctx["fs"], ctx["xt"]
+                        f = lambda: NTT.ntt_twiddle(  # noqa: E731
+                            xt, fs.inter_fwd)
+                        assert torch.equal(f(), NTT.ntt_twiddle_plain(
+                            xt, fs.inter_fwd)), f"{name} at 2^{log2n}"
+                        h = smoke.h_inline(torch, ctx["eng"], ctx["r1cs"],
+                                           ctx["z_l"], ctx["domain"])
+                        res["rungs"][f"2^{log2n}"] = {
+                            "device_ms": smoke.device_ms(torch, f),
+                            "h_ms": h[k], "h_span_ms": h["h"]}
+                row[k] = res
+            emit(row, out)
+        finally:
+            for k, w in wrappers.items():
+                w._fn = defaults[k]
 
 
 def main(argv) -> int:
@@ -630,11 +895,14 @@ def main(argv) -> int:
     ap.add_argument("--products", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--staging", action="store_true")
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--variants", nargs="?", const="ntt,ec", default="",
+                    help="variant builds of these sources (default both)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
     if not (args.products or args.kernels or args.staging or args.variants):
-        args.products = args.kernels = args.staging = args.variants = True
+        args.products = args.kernels = args.staging = True
+        args.variants = "ntt,ec"
+    which = [w for w in args.variants.split(",") if w]
     import torch
 
     if not torch.cuda.is_available():
@@ -656,14 +924,14 @@ def main(argv) -> int:
     if args.products:
         products(torch, smoke, tmp, args.out)
     rungs = {}
-    if args.kernels or args.variants:
+    if args.kernels or "ntt" in which:
         rungs = {k: rung_inputs(torch, smoke, k) for k in (17, 13)}
     if args.kernels:
         kernel_rows(torch, smoke, rungs, args.out)
     if args.staging:
         staging_rows(torch, smoke, args.out)
-    if args.variants:
-        variants(torch, smoke, rungs, tmp, args.out)
+    if which:
+        variants(torch, smoke, rungs, tmp, args.out, which)
     print(name)
     return 0
 

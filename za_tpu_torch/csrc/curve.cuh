@@ -50,11 +50,12 @@ __device__ __forceinline__ Fq2 mul_b3(const Fq2& a) {
 }
 
 // The field products of point_add.  Ops is the default: products
-// inlined, 3b by mul_b3.  The others serve tools/torch_dense_sweep.py's
-// variants of the dense kernel: OpsB3Mul multiplies by 3b as by any
-// constant (the add before mul_b3); OpsCall runs each product as a call
-// of one out-of-line body (an inlined G2 add is ~42 products of code),
-// OpsCallFq the Fq2 products as Karatsuba over calls of the Fq product.
+// inlined, 3b by mul_b3.  OpsEo serves ec_add_g2 (ec.cu): the Fq2
+// products as Karatsuba over mul_eo, inlined.  The others serve
+// tools/torch_dense_sweep.py's variants of the dense kernel: OpsB3Mul
+// multiplies by 3b as by any constant (the add before mul_b3); OpsCall
+// runs each product as a call of one out-of-line body, OpsCallFq the
+// Fq2 products as Karatsuba over calls of the Fq mul.
 struct Ops {
   template <class F>
   __device__ static __forceinline__ F mul(const F& a, const F& b) {
@@ -87,14 +88,16 @@ struct OpsCall {
     return mul_call(b3<Fq2>(), a);
   }
 };
-struct OpsCallFq {
+// The Fq2 products as Karatsuba over C::f, the Fq product
+template <class C>
+struct OpsKaratsuba {
   __device__ static __forceinline__ Fq mul(const Fq& a, const Fq& b) {
-    return mul_call(a, b);
+    return C::f(a, b);
   }
   __device__ static __forceinline__ Fq2 mul(const Fq2& a, const Fq2& b) {
-    const Fq t0 = mul_call(a.c0, b.c0);
-    const Fq t1 = mul_call(a.c1, b.c1);
-    const Fq t2 = mul_call(add(a.c0, a.c1), add(b.c0, b.c1));
+    const Fq t0 = C::f(a.c0, b.c0);
+    const Fq t1 = C::f(a.c1, b.c1);
+    const Fq t2 = C::f(add(a.c0, a.c1), add(b.c0, b.c1));
     return Fq2{sub(t0, t1), sub(sub(t2, t0), t1)};
   }
   __device__ static __forceinline__ Fq mul3b(const Fq& a) {
@@ -104,6 +107,18 @@ struct OpsCallFq {
     return mul(b3<Fq2>(), a);
   }
 };
+struct CallMul {
+  __device__ static __forceinline__ Fq f(const Fq& a, const Fq& b) {
+    return mul_call(a, b);
+  }
+};
+struct MulEo {
+  __device__ static __forceinline__ Fq f(const Fq& a, const Fq& b) {
+    return mul_eo(a, b);
+  }
+};
+using OpsCallFq = OpsKaratsuba<CallMul>;
+using OpsEo = OpsKaratsuba<MulEo>;
 
 // (x1:y1:z1) + (x2:y2:z2), RCB algorithm 7 (a = 0): the same operation
 // order as engine/ec.py point_add, so both give the same coordinates.

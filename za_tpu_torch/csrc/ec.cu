@@ -2,7 +2,9 @@
 //
 // ec_add: complete projective addition (Renes-Costello-Batina 2015,
 // algorithm 7, a = 0), one point pair per thread.  It serves the
-// {1P..8P} table build at staging.
+// {1P..8P} table build at staging: G1 inlined on mul, G2 with its 42 Fq
+// products as Karatsuba over mul_eo (on mul the inlined G2 add held 255
+// registers and spilled).
 // ec_fold: the lane fold of both MSM routes, one launch per MSM, and
 // ec_carry: the tree MSM's chunk carry, one launch per MSM over every
 // chunk's partials; both fold-half levels in shared memory, on
@@ -22,22 +24,21 @@
 // point_add, msm.build_multiples, msm.lane_fold, msm.horner_windows,
 // the carry scan of msm_tree.tree_window_sums), not Pallas kernels.
 // to_affine: projective -> affine (Z = 0 maps to 0), the reference's
-// msm_tree._normalize_affine: a block batch-inverts the Z of its TB * K
-// points (prefix products per thread, block_inverse, walk back), so a
-// point costs ~5 multiplications and the block one inversion.  With
-// Fermat (~380 dependent products, ~0.2 ms) that inversion held every
-// wave of blocks: 0.95 ms for 1.57M G1 points against a 0.12 ms bound.
-// to_affine_g1 inverts with inv_gcd (block_inverse with Gcd, as the tree
-// kernels do), runs in one wave of blocks (to_affine_wave_kernel) and its
-// per-point products on mul_eo; to_affine_g2 keeps Fermat and mul.
+// msm_tree._normalize_affine, for both groups one wave of blocks
+// (to_affine_wave_kernel): a block batch-inverts the keys of its J
+// AFF_TB points (Z in G1, the norm of Z in Fq in G2) with inv_gcd at the
+// root of its tree, all blocks at once, and the per-point products run
+// on mul_eo: 5 a point in G1, 13 in G2.  Before, each block inverted
+// with Fermat (~380 dependent products, ~0.2 ms) wave after wave of
+// blocks: 0.95 ms for 1.57M G1 points against a 0.12 ms bound.
 //
 // Bound: integer multiplies.  An add is 12 field multiplications plus
 // two by 3b (G1: ~3.6k 32-bit multiply-adds; G2 x3 with Karatsuba), a
-// normalisation ~5 (3 for the batch inversion, 2 for X/Z and Y/Z); bytes
-// are 6 (resp. 3) elements in and 3 (resp. 2) out.  The design keeps
-// every operand in registers and launches one thread per point (K per
-// thread for to_affine); the work is independent, so the card fills
-// once there are more than ~100k points, as at table build.
+// normalisation 5 (G1) or 13 (G2), and one inversion a block;
+// bytes are 6 (resp. 3) elements in and 3 (resp. 2) out.  The
+// design keeps every operand in registers and launches one thread per
+// add (J points a thread for to_affine); the work is independent, so
+// the card fills once there are more than ~100k points.
 
 #include <cooperative_groups.h>
 
@@ -47,7 +48,20 @@
 
 namespace za {
 
-template <class F>
+constexpr int ADD_TB = 128;  // threads per ec_add block
+
+// One add a thread on the products O, with no launch bounds (bounds
+// would change G1's code; G2's comes out the same without them).
+// G1: inlined on mul (Ops).  G2: Karatsuba over inlined mul_eo (OpsEo),
+// so that ptxas interleaves independent products; 242 registers, no
+// spill.  Measured (NVIDIA H100 80GB HBM3, 700 W;
+// tools/torch_hpipe_sweep.py --variants ec), ms at 32,768 / 16,384 G2
+// pairs: OpsEo .0368-.0374 / .0329-.0330; inlined on mul .0528-.0537 /
+// .0497-.0498 (255 registers, 8 B spill); the staged add of 8 lanes a
+// pair (Staged<Fq2, 8>, mul_eo) .0756 / .042.  At 2^14 pairs, fewer
+// than two warps a scheduler, one thread's chain of 42 products is the
+// kernel's time whatever the design.
+template <class F, class O>
 __global__ void ec_add_kernel(const uint32_t* __restrict__ X1,
                               const uint32_t* __restrict__ Y1,
                               const uint32_t* __restrict__ Z1,
@@ -62,7 +76,7 @@ __global__ void ec_add_kernel(const uint32_t* __restrict__ X1,
   F x1, y1, z1, x2, y2, z2, x3, y3, z3;
   load(x1, X1, n, i); load(y1, Y1, n, i); load(z1, Z1, n, i);
   load(x2, X2, n, i); load(y2, Y2, n, i); load(z2, Z2, n, i);
-  point_add(x1, y1, z1, x2, y2, z2, x3, y3, z3);
+  point_add<F, O>(x1, y1, z1, x2, y2, z2, x3, y3, z3);
   store(X3, n, i, x3);
   store(Y3, n, i, y3);
   store(Z3, n, i, z3);
@@ -621,158 +635,184 @@ ec_sum_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
 
 constexpr int AFF_TB = 128;  // threads per to_affine block
 
-// to_affine_g2: thread t of a block walks points t, t + AFF_TB, ... of
-// the block's AFF_TB * K (coalesced across the warp), keeping the
-// exclusive prefix products of its nonzero Z; after block_inverse (one
-// Fermat) it walks back, emitting 1/Z = inv_acc * prefix and stepping
-// inv_acc past Z.
-//
-// to_affine_g1's per-point products run on ZA_AFF_MUL, its root
-// inversion on ZA_AFF_INV1 (variants for tools/torch_hpipe_sweep.py).
+// to_affine's per-point products run on ZA_AFF_MUL, its roots'
+// inversions on ZA_AFF_INV (variants for tools/torch_hpipe_sweep.py).
 #ifndef ZA_AFF_MUL
 #define ZA_AFF_MUL mul_eo
 #endif
-#ifndef ZA_AFF_INV1
-#define ZA_AFF_INV1 Gcd
+#ifndef ZA_AFF_INV
+#define ZA_AFF_INV Gcd
 #endif
 __device__ __forceinline__ Fq aff_mul(const Fq& a, const Fq& b) {
   return ZA_AFF_MUL(a, b);
 }
-
-template <class F, int K>
-__global__ void __launch_bounds__(AFF_TB)
-to_affine_kernel(const uint32_t* __restrict__ X,
-                 const uint32_t* __restrict__ Y,
-                 const uint32_t* __restrict__ Z, uint32_t* __restrict__ x,
-                 uint32_t* __restrict__ y, int n) {
-  __shared__ F tree[2 * AFF_TB];
-  const size_t i0 = (size_t)blockIdx.x * AFF_TB * K + threadIdx.x;
-  F pre[K];
-  F acc = one<F>();
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const size_t i = i0 + (size_t)j * AFF_TB;
-    pre[j] = acc;
-    if (i < (size_t)n) {
-      F z;
-      load(z, Z, n, i);
-      if (!is_zero(z)) acc = mul(acc, z);
-    }
-  }
-  F inv_acc = block_inverse<F, AFF_TB>(acc, tree);
-#pragma unroll
-  for (int j = K - 1; j >= 0; --j) {
-    const size_t i = i0 + (size_t)j * AFF_TB;
-    if (i >= (size_t)n) continue;
-    F a, b, z;
-    load(z, Z, n, i);
-    F zi = zero<F>();
-    if (!is_zero(z)) {
-      zi = mul(inv_acc, pre[j]);
-      inv_acc = mul(inv_acc, z);
-    }
-    load(a, X, n, i);
-    load(b, Y, n, i);
-    store(x, n, i, mul(a, zi));
-    store(y, n, i, mul(b, zi));
-  }
+__device__ __forceinline__ Fq2 aff_mul(const Fq2& a, const Fq2& b) {
+  const Fq t0 = aff_mul(a.c0, b.c0);  // Karatsuba, as mul(Fq2, Fq2)
+  const Fq t1 = aff_mul(a.c1, b.c1);
+  const Fq t2 = aff_mul(add(a.c0, a.c1), add(b.c0, b.c1));
+  return Fq2{sub(t0, t1), sub(sub(t2, t0), t1)};
 }
 
-// to_affine_g1 in one wave: the grid is as many blocks as the card holds
+// What the batch inversion inverts for a Z (its key, always in Fq), and
+// 1/Z from the key's inverse.  G1: the key is Z, and the walk back
+// reloads it.  G2: the key is the norm N(Z) = Z0^2 + Z1^2, nonzero
+// exactly where Z is (-1 is not a square mod q), parked in x's c1
+// planes beside the prefix in its c0 planes; 1/Z = conj(Z) N(Z)^-1.
+// The tree and the root's inversion stay on Fq, and a G2 point costs 13
+// Fq products: 2 squarings and the prefix, 2 in the walk back, 2 for
+// conj(Z) N^-1 and 3 + 3 for X/Z and Y/Z (the multi-wave kernel before
+// ran the tree, the prefixes and the walk in Fq2: 15 and a Fermat a
+// block).
+template <class F> struct Affine;
+template <> struct Affine<Fq> {
+  using Park = Fq;
+  __device__ static __forceinline__ Fq key(const Fq& z) { return z; }
+  __device__ static __forceinline__ Park park(const Fq& pre, const Fq&) {
+    return pre;
+  }
+  __device__ static __forceinline__ Fq pre(const Park& p) { return p; }
+  __device__ static __forceinline__ Fq key(const Park&, const Fq& z) {
+    return z;
+  }
+  __device__ static __forceinline__ Fq inv(const Fq&, const Fq& ki) {
+    return ki;
+  }
+};
+template <> struct Affine<Fq2> {
+  using Park = Fq2;
+  __device__ static __forceinline__ Fq key(const Fq2& z) {
+    return add(aff_mul(z.c0, z.c0), aff_mul(z.c1, z.c1));
+  }
+  __device__ static __forceinline__ Park park(const Fq& pre, const Fq& k) {
+    return Fq2{pre, k};
+  }
+  __device__ static __forceinline__ Fq pre(const Park& p) { return p.c0; }
+  __device__ static __forceinline__ Fq key(const Park& p, const Fq2&) {
+    return p.c1;
+  }
+  __device__ static __forceinline__ Fq2 inv(const Fq2& z, const Fq& ki) {
+    return Fq2{aff_mul(z.c0, ki), neg(aff_mul(z.c1, ki))};
+  }
+};
+
+// to_affine in one wave: the grid is as many blocks as the card holds
 // at once, each block takes J AFF_TB consecutive points (thread t the
-// points t + j AFF_TB, coalesced) and parks each exclusive prefix
-// product in x, where the walk back reads it before writing the point.
-// So every block inverts once, all at the same time: one inversion's
-// latency for the launch, not one for each wave of blocks, for 64 B
-// more traffic a point.  Each walk loads its next point while it
-// multiplies the current one.  On 1.57M points (NVIDIA H100 80GB HBM3,
-// 700 W; tools/torch_hpipe_sweep.py): 0.226 ms against 0.372 for the
-// multi-wave to_affine_kernel with inv_gcd and 0.946 with Fermat; 0.242
-// without the loads in flight, 0.455 with Fermat at the root, 0.262 on
-// mul; 0.185 with no inversion at all (a timing probe).
-template <class Inv>
-__global__ void __launch_bounds__(AFF_TB)
+// points t + j AFF_TB, coalesced), its threads keep the exclusive
+// prefix products of their nonzero keys and park each in x, where the
+// walk back reads it before writing the point.  block_inverse inverts
+// the threads' products (a tree in shared memory, one inversion at the
+// root), so every block inverts once, all at the same time: one
+// inversion's latency for the launch, not one for each wave of blocks.
+// Each walk loads its next point while it multiplies the current one.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; tools/torch_hpipe_sweep.py):
+// G1 on 1.57M points 0.226 ms against 0.372 for a multi-wave kernel
+// with inv_gcd and 0.946 with Fermat; 0.242 without the loads in
+// flight, 0.455 with Fermat at the root, 0.262 on mul; 0.185 with no
+// inversion at all (a timing probe); 0.205-0.207 once the launch bounds
+// name one block an SM (116 registers, 96 before).  G2 on 262,144
+// points 0.114 against 0.757 for the multi-wave kernel in Fq2 with
+// Fermat; 0.253 with Fermat at the roots, 0.136-0.139 on mul, 0.090
+// with no inversion; capped at 3 or 4 blocks an SM 0.128-0.131,
+// spilling.
+template <class F, class Inv>
+__global__ void __launch_bounds__(AFF_TB, 1)
 to_affine_wave_kernel(const uint32_t* __restrict__ X,
                       const uint32_t* __restrict__ Y,
                       const uint32_t* __restrict__ Z, uint32_t* x,
                       uint32_t* __restrict__ y, int n, int J) {
+  using A = Affine<F>;
+  using Park = typename A::Park;
   __shared__ Fq tree[2 * AFF_TB];
   const size_t i0 = (size_t)blockIdx.x * J * AFF_TB + threadIdx.x;
   // the thread's points are i0 + j AFF_TB for j < m
   const long left = ((long)n - (long)i0 + AFF_TB - 1) / AFF_TB;
   const int m = left < 0 ? 0 : left < J ? (int)left : J;
-  Fq acc = one<Fq>(), z;
+  Fq acc = one<Fq>();
+  F z;
   if (m > 0) load(z, Z, n, i0);
   for (int j = 0; j < m; ++j) {     // the next Z in flight
     const size_t i = i0 + (size_t)j * AFF_TB;
-    Fq zn;
+    F zn;
     if (j + 1 < m) load(zn, Z, n, i + AFF_TB);
-    store(x, n, i, acc);
-    if (!is_zero(z)) acc = aff_mul(acc, z);
+    const Fq k = A::key(z);
+    store(x, n, i, A::park(acc, k));
+    if (!is_zero(k)) acc = aff_mul(acc, k);
     z = zn;
   }
   Fq inv_acc = block_inverse<Fq, AFF_TB, Inv>(acc, tree);
-  Fq pre, a, b;
+  Park pk;
+  F a, b;
   if (m > 0) {
     const size_t i = i0 + (size_t)(m - 1) * AFF_TB;
     load(z, Z, n, i);
-    load(pre, x, n, i);
+    load(pk, x, n, i);
     load(a, X, n, i);
     load(b, Y, n, i);
   }
   for (int j = m - 1; j >= 0; --j) {  // the previous point's loads in flight
     const size_t i = i0 + (size_t)j * AFF_TB;
-    Fq zp, pp, ap, bp;
+    F zp, ap, bp;
+    Park pp;
     if (j > 0) {
       load(zp, Z, n, i - AFF_TB);
       load(pp, x, n, i - AFF_TB);
       load(ap, X, n, i - AFF_TB);
       load(bp, Y, n, i - AFF_TB);
     }
-    Fq zi = zero<Fq>();
-    if (!is_zero(z)) {
-      zi = aff_mul(inv_acc, pre);
-      inv_acc = aff_mul(inv_acc, z);
+    const Fq k = A::key(pk, z);
+    F zi = zero<F>();
+    if (!is_zero(k)) {
+      zi = A::inv(z, aff_mul(inv_acc, A::pre(pk)));
+      inv_acc = aff_mul(inv_acc, k);
     }
     store(x, n, i, aff_mul(a, zi));
     store(y, n, i, aff_mul(b, zi));
     z = zp;
-    pre = pp;
+    pk = pp;
     a = ap;
     b = bp;
   }
 }
 
-template <class Inv>
-int launch_affine_wave(const void* X, const void* Y, const void* Z, void* x,
-                       void* y, int n, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
+// The one-wave split of n points: J points a thread, so that the blocks
+// (returned) fit on the card at once; negative: a CUDA error.
+template <class F, class Inv>
+long affine_split(int n, int& J) {
   int dev = 0, sms = 0, per = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess)
     rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc == cudaSuccess)
     rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per, to_affine_wave_kernel<Inv>, AFF_TB, 0);
-  if (rc != cudaSuccess) return (int)rc;
+        &per, to_affine_wave_kernel<F, Inv>, AFF_TB, 0);
+  if (rc != cudaSuccess) return -(long)rc;
   const long threads = ((long)n + AFF_TB - 1) / AFF_TB;
   const long slots = (long)sms * (per > 0 ? per : 1);
-  const int J = (int)((threads + slots - 1) / slots);
-  const long blocks = (threads + J - 1) / J;
-  to_affine_wave_kernel<Inv><<<(unsigned)blocks, AFF_TB, 0,
-                               (cudaStream_t)stream>>>(
+  J = (int)((threads + slots - 1) / slots);
+  return (threads + J - 1) / J;
+}
+
+template <class F, class Inv>
+int launch_affine_wave(const void* X, const void* Y, const void* Z, void* x,
+                       void* y, int n, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  int J = 0;
+  const long blocks = affine_split<F, Inv>(n, J);
+  if (blocks < 0) return (int)-blocks;
+  to_affine_wave_kernel<F, Inv><<<(unsigned)blocks, AFF_TB, 0,
+                                  (cudaStream_t)stream>>>(
       (const uint32_t*)X, (const uint32_t*)Y, (const uint32_t*)Z,
       (uint32_t*)x, (uint32_t*)y, n, J);
   return (int)cudaGetLastError();
 }
 
-template <class F>
+template <class F, class O>
 int launch_add(const void* X1, const void* Y1, const void* Z1,
                const void* X2, const void* Y2, const void* Z2, void* X3,
                void* Y3, void* Z3, int n, void* stream) {
   if (n > 0) {
-    const int tb = 128;
-    ec_add_kernel<F><<<(n + tb - 1) / tb, tb, 0, (cudaStream_t)stream>>>(
+    ec_add_kernel<F, O><<<(n + ADD_TB - 1) / ADD_TB, ADD_TB, 0,
+                          (cudaStream_t)stream>>>(
         (const uint32_t*)X1, (const uint32_t*)Y1, (const uint32_t*)Z1,
         (const uint32_t*)X2, (const uint32_t*)Y2, (const uint32_t*)Z2,
         (uint32_t*)X3, (uint32_t*)Y3, (uint32_t*)Z3, n);
@@ -862,19 +902,6 @@ int g2_width(const void* x, const void* y, const void* z, void* X, void* Y,
 }
 #endif
 
-template <class F, int K>
-int launch_affine(const void* X, const void* Y, const void* Z, void* x,
-                  void* y, int n, void* stream) {
-  if (n > 0) {
-    const int per = AFF_TB * K;
-    to_affine_kernel<F, K><<<(n + per - 1) / per, AFF_TB, 0,
-                             (cudaStream_t)stream>>>(
-        (const uint32_t*)X, (const uint32_t*)Y, (const uint32_t*)Z,
-        (uint32_t*)x, (uint32_t*)y, n);
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace za
 
 extern "C" {
@@ -882,15 +909,15 @@ extern "C" {
 int ec_add_g1(const void* X1, const void* Y1, const void* Z1, const void* X2,
               const void* Y2, const void* Z2, void* X3, void* Y3, void* Z3,
               int n, void* stream) {
-  return za::launch_add<za::Fq>(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, n,
-                                stream);
+  return za::launch_add<za::Fq, za::Ops>(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3,
+                                         n, stream);
 }
 
 int ec_add_g2(const void* X1, const void* Y1, const void* Z1, const void* X2,
               const void* Y2, const void* Z2, void* X3, void* Y3, void* Z3,
               int n, void* stream) {
-  return za::launch_add<za::Fq2>(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, n,
-                                 stream);
+  return za::launch_add<za::Fq2, za::OpsEo>(X1, Y1, Z1, X2, Y2, Z2, X3, Y3,
+                                           Z3, n, stream);
 }
 
 int ec_fold_g1(const void* X, const void* Y, const void* Z, void* OX,
@@ -960,12 +987,24 @@ int horner_g2(const void* WX, const void* WY, const void* WZ, void* X,
 
 int to_affine_g1(const void* X, const void* Y, const void* Z, void* x,
                  void* y, int n, void* stream) {
-  return za::launch_affine_wave<za::ZA_AFF_INV1>(X, Y, Z, x, y, n, stream);
+  return za::launch_affine_wave<za::Fq, za::ZA_AFF_INV>(X, Y, Z, x, y, n,
+                                                        stream);
 }
 
 int to_affine_g2(const void* X, const void* Y, const void* Z, void* x,
                  void* y, int n, void* stream) {
-  return za::launch_affine<za::Fq2, 4>(X, Y, Z, x, y, n, stream);
+  return za::launch_affine_wave<za::Fq2, za::ZA_AFF_INV>(X, Y, Z, x, y, n,
+                                                         stream);
+}
+
+// The blocks to_affine_g1 (g2 = 0) or _g2 launches for n points, each
+// inverting once (chip_smoke.py counts them in the bound); negative: a
+// CUDA error.
+long to_affine_blocks(int n, int g2) {
+  int J = 0;
+  if (n <= 0) return 0;
+  return g2 ? za::affine_split<za::Fq2, za::ZA_AFF_INV>(n, J)
+            : za::affine_split<za::Fq, za::ZA_AFF_INV>(n, J);
 }
 
 }  // extern "C"

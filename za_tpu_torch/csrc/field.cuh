@@ -25,14 +25,15 @@
 // tree-level blocks, whatever they held.  inv_gcd (Bernstein-Yang
 // divsteps on machine words) gives the same value from short word
 // operations.  Users: block_inverse_gcd (inv_gcd at the root, Fq2
-// through the norm) in the four tree kernels, block_inverse with Gcd in
-// to_affine_g1; block_inverse with Fermat only in to_affine_g2.
+// through the norm) in the four tree kernels, block_inverse on Fq with
+// Gcd in to_affine_g1 and _g2 (G2 on the norms); Fermat in no kernel.
 //
 // mul_eo (below mul) gives mul's value from the same CIOS rows with two
 // accumulators, no register shifts between rows: 181 SASS instructions a
 // product against mul's 328, 61 M products/ms on independent values
 // against 51 (NVIDIA H100 80GB HBM3, 700 W; tools/torch_hpipe_sweep.py).
-// Users: ntt_twiddle_fr and to_affine_g1; every other kernel keeps mul.
+// Users: ntt_twiddle_fr, to_affine_g1/_g2 and ec_add_g2 (curve.cuh
+// OpsEo); every other kernel keeps mul.
 
 #pragma once
 
