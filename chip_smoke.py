@@ -37,11 +37,22 @@ Phases:
      GpuEngine(msm_style="fused") (radix 4), checked against the same
      proof, and its MSMs checked and timed; one JSON line;
   4. a real 510-constraint proof (host setup with fixed toxic waste,
-     GpuEngine prove, dense path, radix-2 NTT below FOURSTEP_MIN) that
+     GpuEngine prove, dense path, the four-step NTT at 32 x 16) that
      the pairing check accepts; its launches count as a path; then the
      2^13 pk with one raw G1 point off the curve, and with one raw G2
      point off the twist: staging must raise FormatError for each
      (the 2^13 line's "off_curve_refused");
+  4b. the tree path at 2^20 constraints, lean: the chain's inputs
+     ("inputs_s"), the domain's tables (2^21, "domain_tables_s"), one
+     staging ("stage_s"; 2^14-point chunks, each MSM's (S, C) in
+     "layout"), the first prove with its launches
+     ("launches_per_proof_2^20": a tail launch a sub-NTT of h(x)'s
+     three transforms, 6) checked exactly and by the pairing check,
+     device compute per stage (median of 3 after a warm-up), h(x) by
+     kernel in place ("h_inline_ms": matvec, prefix, tail, twiddle),
+     each MSM's launches in place ("msm_inline_ms": carry, fold,
+     Horner, the first and the last chunk's levels), "h_torch_ops" all
+     zero, peak memory, the phase's seconds; one JSON line;
   5. each kernel against its plain PyTorch version on the shapes of the
      path that runs it, exact equality (integers mod p), timed beside
      its bound; the tree levels at every level of one 2^17 chunk
@@ -60,14 +71,16 @@ Phases:
      windows a block, blocks a window, warps, levels one add a thread)
      and the carry at each 2^17 MSM's (C chunks of partials), device
      time with a chain floor (dependent adds x the Horner rows' time
-     per add, "chain_floor_ms"); printed as one JSON line {"kernels":
-     [...]}; then one
-     NTT through both routes (radix-2, four-step) at sizes from 2^9 to
-     2^20, equal results, timed (the 2^17 line's "ntt_routes_ms");
+     per add, "chain_floor_ms"); the tail kernel (ntt_stage_fr) at the
+     2^20 proof's sub-NTT tails (a) 3 x 1024 x 2048, (b) 3 x 2048 x
+     1024, (c) 1 x 2048 x 1024 with the store mode; printed as one JSON
+     line {"kernels": [...]}; then one NTT through the four-step at
+     sizes from 2^9 to 2^21, held to the plain versions and up to 2^12
+     to the host Domain.ntt, timed (the 2^17 line's "ntt_routes_ms");
   6. the card's name and power limit, then the result line.
 Launches are counted per path (each path's staging and first prove)
 and every kernel must launch on at least one path; the four-step's
-kernels on both the tree and the dense path.
+kernels on every path, the tail kernel on the 2^20 path alone.
 
 Exits non-zero without a CUDA card, without the package beside it, or
 when any phase fails.
@@ -122,7 +135,8 @@ INV_GCD_MULS = 16
 # <Fq, Gcd> and <Fq2, Gcd>; dense_sums_kernel <Fq, true, ...>,
 # <Fq2, true, ...> (signed radix 16), <Fq, false, ...>, <Fq2, false,
 # ...> (radix 4); ntt_prefix_kernel, ntt_twiddle_kernel<true> (vector
-# accesses: the proof's shapes), ntt_stage_kernel; r1cs_matvec_kernel
+# accesses: the proof's shapes), ntt_tail_kernel<stages>;
+# r1cs_matvec_kernel
 KERNEL_FN = {
     "dense_window_sums_g1":
         "_ZN2za17dense_sums_kernelINS_2FpINS_7QParamsEEELb1E",
@@ -154,16 +168,21 @@ KERNEL_FN = {
     "to_affine_g2": "_ZN2za21to_affine_wave_kernelINS_3Fq2ENS_3GcdE",
     "ntt_prefix_fr": "_ZN2za17ntt_prefix_kernelE",
     "ntt_twiddle_fr": "_ZN2za18ntt_twiddle_kernelILb1E",
-    "ntt_stage_fr": "_ZN2za16ntt_stage_kernelE",
+    "ntt_stage_fr": "_ZN2za15ntt_tail_kernelILi",   # + stages, "E"
     "r1cs_matvec_fr": "_ZN2za18r1cs_matvec_kernelE",
 }
 
 SEED = 20261016
 LOG2N = 17        # the tree path
 LOG2N_DENSE = 13  # the dense path (padded queries below TREE_MIN)
-# NTT sizes at which both routes of engine/ntt.py are timed: around
-# FOURSTEP_MIN, both rungs' domains, and 2^20, where the tail runs
-ROUTE_LOG2 = (9, 10, 11, 12, 14, 18, 20)
+LOG2N_BIG = 20    # bench.py's top rung: 2^14 tree chunks, sub-NTT tails
+# NTT sizes at which the four-step is timed: the 510-constraint check's
+# domain and up, both rungs' domains, 2^20 and the top rung's 2^21,
+# where the tails run
+ROUTE_LOG2 = (9, 10, 11, 12, 14, 18, 20, 21)
+# sizes checked against the host Domain.ntt, the others against the
+# plain versions
+ROUTE_HOST_LOG2 = 12
 
 
 def log(msg: str) -> None:
@@ -335,18 +354,21 @@ def chain_inputs(log2n: int) -> dict:
             "rng": rng}
 
 
-def prove_path(torch, timer, log2n: int):
+def prove_path(torch, timer, log2n: int, lean: bool = False):
     """Stage, prove and time the chain at 2^log2n constraints through
     the engine's default routing; check h(x), the MSMs and the proof
-    exactly.  The dense path (no "g1abl" staged) also proves through
-    GpuEngine(msm_style="fused") and times its MSMs there."""
+    exactly, and the proof by the pairing check.  The dense path (no
+    "g1abl" staged) also proves through GpuEngine(msm_style="fused")
+    and times its MSMs there.  lean (the 2^20 path): the domain's
+    tables built and timed apart before staging, no rerun of the curve
+    checks, no breakdowns, no restaging; h split by kernel in place."""
     from za_tpu_torch.curve import G1_GEN, G2_GEN, R, g1_mul, g2_mul
     from za_tpu_torch.engine import _build, ntt as NTT
     from za_tpu_torch.engine.engine import GpuEngine
     from za_tpu_torch.engine.field import limbs_to_ints
     from za_tpu_torch.groth16.prove import prove
 
-    t0 = time.time()
+    t_phase = t0 = time.time()
     inp = chain_inputs(log2n)
     r1cs, z, domain, params = (inp[k] for k in ("r1cs", "z", "domain",
                                                 "params"))
@@ -356,15 +378,26 @@ def prove_path(torch, timer, log2n: int):
         "alpha", "beta", "delta", "r", "s", "rng"))
     n, ni = r1cs.num_constraints, r1cs.num_inputs
     m = domain.size
-    log(f"2^{log2n} inputs: n={n} domain={m} ({time.time() - t0:.1f}s)")
+    inputs_s = time.time() - t0
+    log(f"2^{log2n} inputs: n={n} domain={m} ({inputs_s:.1f}s)")
 
     eng = GpuEngine()
+    extra = {"inputs_s": inputs_s}
+    if lean:   # the tables of DeviceDomain(m), built on the host
+        t0 = time.time()
+        eng._domain(m)
+        extra["domain_tables_s"] = time.time() - t0
+        extra["base_mem_bytes"] = torch.cuda.memory_allocated()
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    (staged, stage_s), check_s, checks = timed_curve_checks(
-        torch, lambda: timer(lambda: eng.stage_params(params, r1cs)))
-    assert checks > 0, "staging checked no raw query against the curve"
+    if lean:
+        staged, stage_s = timer(lambda: eng.stage_params(params, r1cs))
+        check_s = checks = None
+    else:
+        (staged, stage_s), check_s, checks = timed_curve_checks(
+            torch, lambda: timer(lambda: eng.stage_params(params, r1cs)))
+        assert checks > 0, "staging checked no raw query against the curve"
     stage_launches = launch_counts()
     _build.reset_launches()
     modes0 = dict(NTT.PREFIX_LAUNCHES)
@@ -412,15 +445,20 @@ def prove_path(torch, timer, log2n: int):
     torch_ops = h_torch_ops(eng, r1cs, z_l, domain)
     assert not any(torch_ops.values()), f"h(x) ran tensor code: {torch_ops}"
     h_in = h_inline(torch, eng, r1cs, z_l, domain)
-    parts = breakdown(timer, eng, r1cs, z_l, domain, staged, out["h"])
-    inline = median_split(lambda: msm_breakdowns(
-        torch, eng, staged, z_l, out["h"], ni, sync=False))
-    tail = msm_tail_torch_ops(eng, staged, z_l, out["h"], ni)
+    if lean:
+        extra["msm_inline_ms"] = msm_launch_split(torch, eng, staged, z_l,
+                                                  out["h"], ni)
+    else:
+        parts = breakdown(timer, eng, r1cs, z_l, domain, staged, out["h"])
+        inline = median_split(lambda: msm_breakdowns(
+            torch, eng, staged, z_l, out["h"], ni, sync=False))
+        tail = msm_tail_torch_ops(eng, staged, z_l, out["h"], ni)
     eng.r1cs_satisfied(r1cs, z_l)
     sat_ok, sat_s = timer(lambda: eng.r1cs_satisfied(r1cs, z_l))
     peak = torch.cuda.max_memory_allocated()
     # after the launch counts and the peak: the restagings add to neither
-    check_ab = stage_check_on_off(timer, params, r1cs)
+    if not lean:
+        check_ab = stage_check_on_off(timer, params, r1cs)
 
     # exact checks on the host
     t0 = time.time()
@@ -463,6 +501,7 @@ def prove_path(torch, timer, log2n: int):
     assert proof.a == g1_mul(G1_GEN, pa), "proof A"
     assert proof.b == g2_mul(G2_GEN, pb), "proof B"
     assert proof.c == g1_mul(G1_GEN, pc), "proof C"
+    assert pairing_accepts(inp, proof, pa, pb, pc), "pairing check"
     log(f"2^{log2n} checks passed ({time.time() - t0:.1f}s)")
 
     result = {
@@ -471,15 +510,9 @@ def prove_path(torch, timer, log2n: int):
         "unit": "s",
         "route": "tree" if tree else "dense",
         "stages_s": stages,
-        "breakdown_s": parts,
-        "msm_inline_s": inline,
-        "msm_tail_torch_ops": tail,
         "runs_s": totals,
         "warmup_s": warm,
         "stage_s": stage_s,
-        "curve_check_s": check_s,
-        "curve_checks": checks,
-        "stage_check_on_off_s": check_ab,
         "prove_cold_s": prove_cold_s,
         "sat_check_s": sat_s,
         "h_torch_ops": torch_ops,
@@ -488,7 +521,17 @@ def prove_path(torch, timer, log2n: int):
         "constraints": n,
         "domain": m,
         "peak_mem_bytes": peak,
+        "pairing_ok": True,
+        **extra,
     }
+    if lean:
+        result["layout"] = {tag: [t.chunk_cols, t.chunks]
+                            for tag, t in staged.items()}
+    else:
+        result.update({
+            "breakdown_s": parts, "msm_inline_s": inline,
+            "msm_tail_torch_ops": tail, "curve_check_s": check_s,
+            "curve_checks": checks, "stage_check_on_off_s": check_ab})
     ctx = {"eng": eng, "staged": staged, "z_l": z_l, "h": out["h"],
            "params": params, "r1cs": r1cs, "m": m,
            "per_proof": per_proof}
@@ -511,7 +554,27 @@ def prove_path(torch, timer, log2n: int):
         log(f"fused proof and MSMs checked: {fstages}; "
             f"launches {launches['fused']}")
     result["launches"] = launches
+    result["phase_s"] = time.time() - t_phase
     return result, launches, ctx
+
+
+def pairing_accepts(inp, proof, pa, pb, pc) -> bool:
+    """The pairing check (groth16.verify_proof) of a proof over the
+    synthetic pk.  Its pool queries hold no QAP, so the vk's IC point
+    for the constant input is the one solved from the host's discrete
+    logs of the expected proof (pa, pb, pc): e(A, B) = e(alpha, beta)
+    e(IC, gamma) e(C, delta) with gamma = 1, IC = ic0 + x ic1, ic1 = 1."""
+    import dataclasses
+
+    from za_tpu_torch.curve import G1_GEN, R, g1_mul
+    from za_tpu_torch.groth16 import verify_proof
+
+    x = inp["z"][1] % R
+    ic0 = (pa * pb - inp["alpha"] * inp["beta"] - pc * inp["delta"]
+           - x) % R
+    vk = dataclasses.replace(inp["params"].vk,
+                             ic=[g1_mul(G1_GEN, ic0), G1_GEN])
+    return verify_proof(vk, proof, [x])
 
 
 def timed_curve_checks(torch, fn):
@@ -650,7 +713,7 @@ def breakdown(timer, eng, r1cs, z_l, domain, staged, h):
     t.update(fourstep_breakdown(timer, dom, legs))
     x, t["h.intt3"] = timer(lambda: NTT.transform(dom, legs, True))
     x, t["h.coset_ntt3"] = timer(
-        lambda: NTT.transform(dom, x, False, scale_in=dom.h_in))
+        lambda: NTT.transform(dom, x, False, scale_in=dom.coset_pow))
     hc, t["h.coset_intt"] = timer(lambda: NTT.transform(
         dom, x, True, combine=True, scale_out=dom.h_out))
     assert torch.equal(hc.reshape(F.NLIMBS, m)[:, :m - 1], h), "h steps"
@@ -906,7 +969,8 @@ def dense_steps(split, tabs, sc, tag):
 
 
 def real_proof():
-    """-> (the prove's launches, its domain size)."""
+    """-> the prove's launches (its domain, 512, through the four-step:
+    32 x 16)."""
     from za_tpu_torch.engine import _build
     from za_tpu_torch.engine.engine import GpuEngine
     from za_tpu_torch.groth16 import generate_parameters, prove, verify_proof
@@ -924,7 +988,7 @@ def real_proof():
     log(f"510-constraint proof: setup {t1 - t0:.1f}s, prove+verify "
         f"{time.time() - t1:.1f}s, verifies={ok}")
     assert ok, "the 510-constraint proof does not verify"
-    return launches, params.domain_size
+    return launches
 
 
 # -- phase 5: kernels against their plain versions ----------------------------------
@@ -1018,41 +1082,83 @@ def h_inline(torch, eng, r1cs, z_l, domain, reps: int = 5) -> dict:
     """One h_coeffs_limbs (the matvec, then the three transforms) with
     every kernel launch between CUDA events, queued behind a sleep
     kernel so that the host has issued them all before the card reaches
-    them -> {kernel: device ms of its launches in h, "h": h's span},
-    medians of reps after a warm-up."""
+    them (launch_times) -> {kernel: device ms of its launches in h, "h":
+    h's span}, medians of reps after a warm-up."""
+    runs = []
+    for _ in range(reps + 1):
+        eng._sat_legs = None            # the matvec runs inside h
+        seq, span = launch_times(
+            torch, lambda: eng.h_coeffs_limbs(r1cs, z_l, domain), 4_000_000)
+        run = {"h": span}
+        for name, ms in seq:
+            run[name] = run.get(name, 0.0) + ms
+        runs.append(run)
+    return {k: statistics.median(r[k] for r in runs[1:]) for k in runs[1]}
+
+
+def launch_times(torch, fn, sleep_cycles: int):
+    """fn() with every kernel launch between CUDA events, queued behind a
+    sleep kernel of sleep_cycles -> ([(kernel, device ms)] in launch
+    order, fn's span in ms)."""
     from za_tpu_torch.engine import _build
 
     call = _build.Kernel.__call__
-    runs = []
-    for _ in range(reps + 1):
-        marks = []
+    marks = []
 
-        def timed(self, *args):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            call(self, *args)
-            b.record()
-            marks.append((self.name, a, b))
+    def timed(self, *args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        call(self, *args)
+        b.record()
+        marks.append((self.name, a, b))
 
-        eng._sat_legs = None            # the matvec runs inside h
-        torch.cuda.synchronize()
-        torch.cuda._sleep(4_000_000)    # cycles
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        _build.Kernel.__call__ = timed
-        try:
-            s.record()
-            eng.h_coeffs_limbs(r1cs, z_l, domain)
-            e.record()
-        finally:
-            _build.Kernel.__call__ = call
-        torch.cuda.synchronize()
-        run = {"h": s.elapsed_time(e)}
-        for name, a, b in marks:
-            run[name] = run.get(name, 0.0) + a.elapsed_time(b)
-        runs.append(run)
-    return {k: statistics.median(r[k] for r in runs[1:]) for k in runs[1]}
+    torch.cuda.synchronize()
+    torch.cuda._sleep(sleep_cycles)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    _build.Kernel.__call__ = timed
+    try:
+        s.record()
+        fn()
+        e.record()
+    finally:
+        _build.Kernel.__call__ = call
+    torch.cuda.synchronize()
+    return [(n, a.elapsed_time(b)) for n, a, b in marks], s.elapsed_time(e)
+
+
+def msm_launch_split(torch, eng, staged, z_l, h, ni, reps: int = 3) -> dict:
+    """Each tree MSM of one prove with its launches timed in place
+    (launch_times behind a ~25 ms sleep, so the host has queued them) ->
+    {tag: {kernel: ms summed, "chunk_first" / "chunk_last" /
+    "chunk_mean": a chunk's level 0 and levels, "chunks", "span"}},
+    medians of reps after a warm-up."""
+    from za_tpu_torch.engine import cuda_tree as CT
+
+    out = {}
+    for tag, tabs, scal in msm_queries(staged, z_l, h, ni):
+        sc = eng._scalars(tabs, scal)
+        runs = []
+        for _ in range(reps + 1):
+            seq, span = launch_times(torch, lambda: CT.msm_tree(tabs, sc),
+                                     50_000_000)
+            chunks, run = [], {"span": span}
+            for name, ms in seq:
+                if name.startswith("tree_level0_"):
+                    chunks.append(0.0)
+                if name.startswith(("tree_level0_", "tree_level_")):
+                    chunks[-1] += ms
+                else:
+                    run[name] = run.get(name, 0.0) + ms
+            run.update({"chunk_first": chunks[0], "chunk_last": chunks[-1],
+                        "chunk_mean": statistics.mean(chunks),
+                        "chunks": len(chunks)})
+            runs.append(run)
+        out[tag] = {k: statistics.median(r[k] for r in runs[1:])
+                    for k in runs[1]}
+        log(f"{tag} in place: {out[tag]}")
+    return out
 
 
 def compare(torch, name, kern, plain, args, reps: int = 3):
@@ -1140,10 +1246,10 @@ def staging_edge_checks(torch, gen) -> None:
     log("staging kernels exact at ragged n with zero Z")
 
 
-def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
+def kernels_vs_plain(torch, tctx, dctx, bctx, launches):
     """tctx: the tree path's engine and staged tables (2^17); dctx: the
-    dense path's, default and fused style (2^13); small_domain: the
-    510-constraint check's domain size."""
+    dense path's, default and fused style (2^13); bctx: the 2^20 path's
+    domain and launches."""
     from za_tpu_torch.engine import _build, cuda_tree as CT, ec, msm as MSM
     from za_tpu_torch.engine import field as F, msm_dense as MD
     from za_tpu_torch.engine import msm_tree as MT, ntt as NTT, r1cs as RC
@@ -1290,7 +1396,7 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
     # 3 legs; the combine of the 3 legs into 1; the store table on 1
     prefix_cases = [
         ("plain", x, {}, 3),
-        ("scale_in", x, {"scale_in": dom.h_in}, 3),
+        ("scale_in", x, {"scale_in": dom.coset_pow}, 3),
         ("combine", x, {"combine": True}, 1),
         ("scale_out", x[:, :1].contiguous(), {"scale_out": dom.h_out}, 1)]
     for mode, xin, kw, legs_out in prefix_cases:
@@ -1343,20 +1449,35 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
             3 * (tfs.n2 - 1) * (tfs.n1 - 1))
         rows[-1].update(ptxas_usage(ntt_log, KERNEL_FN["ntt_twiddle_fr"]))
 
-    # the stage kernel where it runs on a path: the 510-constraint
-    # check's radix-2 transforms (3 legs x 2^k, one lane)
-    dom = NTT.DeviceDomain(small_domain, "cuda")
-    x = rand_fq(torch, (3, dom.size, 1), gen)
-    outs, ms, pms, err = compare(
-        torch, "ntt_stage_fr", lambda a, t: (NTT.ntt_stages(a, t),),
-        lambda a, t: (NTT.ntt_stages_plain(a, t),), (x, dom.w_fwd), reps=5)
-    stages = dom.size.bit_length() - 1
-    row("ntt_stage_fr", ntt_src, "za_tpu/engine/ntt_rns.py:156",
-        f"3 x 2^{stages} x 1", Times(ms / stages, ms.issue / stages),
-        pms / stages, err,
-        nbytes(x, outs[0], dom.w_fwd),
-        3 * dit_muls(dom.size, dom.size) // stages)
-    rows[-1].update(ptxas_usage(ntt_log, KERNEL_FN["ntt_stage_fr"]))
+    # the tail kernel at the 2^20 rung's sub-NTT tails (domain 2^21): (a)
+    # the first sub-NTT of a 3-leg transform, (b) the second, (c) the
+    # coset iNTT's second with the store mode
+    dom = bctx["dom"]
+    fs = dom.fourstep
+    for tag, B, S, L, tw, table in (
+            ("a", 3, fs.n2, fs.n1, fs.t2_fwd, None),
+            ("b", 3, fs.n1, fs.n2, fs.t1_fwd, None),
+            ("c", 1, fs.n1, fs.n2, fs.t1_inv, dom.h_out)):
+        m = NTT.prefix_rows(S, L)
+        x = rand_fq(torch, (B, S, L), gen)
+        outs, ms, pms, err = compare(
+            torch, f"ntt_stage_fr ({tag})",
+            lambda a, t: (NTT.ntt_stages(a, t, 2 * m, table),),
+            lambda a, t: (NTT.ntt_stages_plain(a, t, 2 * m, table),),
+            (x, tw), reps=5)
+        stages = (S // m).bit_length() - 1
+        # a product a butterfly whose twiddle is not w^0 = 1, one a value
+        # for the store
+        muls = B * L * sum(S // 2 - S // (2 * (m << u))
+                           for u in range(stages))
+        row("ntt_stage_fr", ntt_src, "za_tpu/engine/ntt_rns.py:156",
+            f"({tag}) {B} x {S} x {L}, m_fuse {m}, {stages} stages"
+            + (", scale_out" if table is not None else ""), ms, pms, err,
+            nbytes(x, outs[0], tw, *([table] if table is not None else [])),
+            muls + (B * S * L if table is not None else 0))
+        rows[-1].update(ptxas_usage(
+            ntt_log, f"{KERNEL_FN['ntt_stage_fr']}{stages}E"))
+        rows[-1]["tail"] = tag
 
     for is_g2 in (False, True):
         g = "g2" if is_g2 else "g1"
@@ -1394,8 +1515,9 @@ def kernels_vs_plain(torch, tctx, dctx, small_domain, launches):
         if "mode" in r:
             key = f"ntt_prefix_fr.{r['mode']}"
         r["launches_per_proof"] = tctx["per_proof"].get(key, 0)
-        r[f"launches_per_proof_2^{LOG2N_DENSE}"] = dctx["per_proof"].get(
-            key, 0)
+        for log2n, ctx in ((LOG2N_DENSE, dctx), (LOG2N_BIG, bctx)):
+            r[f"launches_per_proof_2^{log2n}"] = ctx["per_proof"].get(
+                key, 0)
     return rows
 
 
@@ -1516,13 +1638,12 @@ def tail_rows(torch, tctx, dctx, gen, launches, warp_us, ec_log) -> list:
 
 
 def ntt_routes(torch, cached):
-    """One 3-leg forward transform (l32, no scaling) through both routes
-    of engine/ntt.py at each 2^k of ROUTE_LOG2: radix-2 (a one-lane
-    sub-NTT: gather, k stage launches) and the four-step; the results
-    must be equal.  CUDA-event ms, median of 5 after a warm-up; where
-    the prefix's budget cuts a sub-NTT short (2^20), one tail stage
-    launch timed alone.  cached: {n: FourStepTables} the paths built."""
-    from za_tpu_torch.engine import ntt as NTT
+    """One 3-leg forward transform (l32, no modes) through the four-step
+    at each 2^k of ROUTE_LOG2, held equal to the plain versions' (the
+    same steps on the card as tensor code) and, up to 2^ROUTE_HOST_LOG2,
+    each leg to the host Domain.ntt; CUDA-event ms, median of 5 after a
+    warm-up.  cached: {n: FourStepTables} the paths built."""
+    from za_tpu_torch.engine import field as F, ntt as NTT
     from za_tpu_torch.groth16.domain import Domain
 
     timer = Timer(torch)
@@ -1532,27 +1653,31 @@ def ntt_routes(torch, cached):
         n = 1 << k
         host = Domain(n)
         fs = cached.get(n) or NTT.FourStepTables(host, "cuda")
-        tw = NTT._twiddles(host.omega, n // 2, "cuda")
         x = rand_fq(torch, (3, n), gen)
-        routes = {
-            "radix2": lambda: NTT.sub_ntt(
-                x.unsqueeze(-1), tw, n).reshape(8, 3, n),
-            "fourstep": lambda: NTT.fourstep_core(
-                x, *fs.tables(False), fs.n1, fs.n2)}
-        ys, ms = {}, {}
-        for name, fn in routes.items():
-            ys[name] = fn()
-            ms[name] = statistics.median(
-                timer(fn)[1] for _ in range(5)) * 1e3
-        assert torch.equal(ys["radix2"], ys["fourstep"]), f"2^{k}: routes"
-        m = NTT.prefix_rows(fs.n2, fs.n1)
-        if m < fs.n2:   # the first sub-NTT's tail, its first stage
-            a = NTT.ntt_prefix(x.reshape(8, 3, fs.n2, fs.n1), fs.t2_fwd, m)
-            ms["tail_stage"] = statistics.median(
-                timer(lambda: NTT.NTT_STAGE(a, fs.t2_fwd, 3, fs.n2, fs.n1,
-                                            m))[1] for _ in range(5)) * 1e3
+        t2, t1, inter = fs.tables(False)
+
+        def fourstep():
+            return NTT.fourstep_core(x, t2, t1, inter, fs.n1, fs.n2)
+
+        y = fourstep()
+        a = NTT.sub_ntt_plain(x.reshape(8, 3, fs.n2, fs.n1), t2, fs.n2)
+        a = NTT.sub_ntt_plain(NTT.ntt_twiddle_plain(a, inter), t1, fs.n1)
+        assert torch.equal(y, a.reshape(8, 3, n)), f"2^{k}: plain"
+        if k <= ROUTE_HOST_LOG2:
+            got = F.FR.from_mont(F.unpack(y).reshape(F.NLIMBS, -1)).cpu()
+            got = F.limbs_to_ints(got.numpy())
+            vals = F.FR.from_mont(F.unpack(x).reshape(F.NLIMBS, -1)).cpu()
+            vals = F.limbs_to_ints(vals.numpy())
+            for b in range(3):
+                assert got[b * n:(b + 1) * n] == host.ntt(
+                    vals[b * n:(b + 1) * n]), f"2^{k}: host, leg {b}"
+        ms = {"fourstep": statistics.median(
+            timer(fourstep)[1] for _ in range(5)) * 1e3,
+            "m_fuse": [NTT.prefix_rows(fs.n2, fs.n1),
+                       NTT.prefix_rows(fs.n1, fs.n2)],
+            "checked": "host" if k <= ROUTE_HOST_LOG2 else "plain"}
         out[f"2^{k}"] = ms
-        log(f"NTT routes at 2^{k} (3 legs): {ms}")
+        log(f"NTT at 2^{k} (3 legs, {fs.n2} x {fs.n1}): {ms}")
     return out
 
 
@@ -1592,36 +1717,56 @@ def main() -> int:
     assert tree["route"] == "tree", "2^17 did not take the tree"
     dense, dense_launches, dctx = prove_path(torch, timer, LOG2N_DENSE)
     assert dense["route"] == "dense", "2^13 did not take the dense path"
-    check_launches, small_domain = real_proof()
+    check_launches = real_proof()
     dense["off_curve_refused"] = off_curve_refused(dctx["params"],
                                                    dctx["r1cs"])
+    big, big_launches, bctx = prove_path(torch, timer, LOG2N_BIG, lean=True)
+    assert big["route"] == "tree", f"2^{LOG2N_BIG} did not take the tree"
+    bctx = {"per_proof": bctx["per_proof"],
+            "dom": bctx["eng"]._domain(bctx["m"])}   # the tables go
     per_path = {"tree": tree_launches["default"],
                 "dense": dense_launches["default"],
                 "fused": dense_launches["fused"],
-                "check510": check_launches}
+                "check510": check_launches,
+                f"tree_2^{LOG2N_BIG}": big_launches["default"]}
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in _build.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels launched on no path: {missing}"
-    for path, ctx in (("tree", tctx), ("dense", dctx)):
-        idle = [k for k in ("ntt_prefix_fr", "ntt_twiddle_fr",
-                            "r1cs_matvec_fr", "ntt_prefix_fr.scale_in",
-                            "ntt_prefix_fr.combine", "ntt_prefix_fr.scale_out")
+    # h(x)'s kernels on every path; the store mode in the prefix where it
+    # ends the coset iNTT, in the tail at 2^20
+    h_kernels = ("ntt_prefix_fr", "ntt_twiddle_fr", "r1cs_matvec_fr",
+                 "ntt_prefix_fr.scale_in", "ntt_prefix_fr.combine")
+    for path, ctx, store in (("tree", tctx, "ntt_prefix_fr.scale_out"),
+                             ("dense", dctx, "ntt_prefix_fr.scale_out"),
+                             (f"tree_2^{LOG2N_BIG}", bctx, "ntt_stage_fr")):
+        idle = [k for k in h_kernels + (store,)
                 if ctx["per_proof"].get(k, 0) == 0]
         assert not idle, f"{path}: h(x) did not run on kernels: {idle}"
-    rows = kernels_vs_plain(torch, tctx, dctx, small_domain, launches)
+    # the tail: one launch a sub-NTT tail of the 2^20 proof's three
+    # transforms, on no other path
+    tails = {p: v["ntt_stage_fr"] for p, v in per_path.items()}
+    assert bctx["per_proof"]["ntt_stage_fr"] == 6 and tails == {
+        **{p: 0 for p in per_path}, f"tree_2^{LOG2N_BIG}": 6}, \
+        f"ntt_stage_fr launches: {tails}, a 2^20 proof " \
+        f"{bctx['per_proof']['ntt_stage_fr']}"
+    rows = kernels_vs_plain(torch, tctx, dctx, bctx, launches)
     tree["ntt_routes_ms"] = ntt_routes(torch, {
         d: ctx["eng"]._domain(d).fourstep
         for d, ctx in ((1 << (LOG2N + 1), tctx),
-                       (1 << (LOG2N_DENSE + 1), dctx))})
+                       (1 << (LOG2N_DENSE + 1), dctx))}
+        | {bctx["dom"].size: bctx["dom"].fourstep})
 
-    for result in (tree, dense):
+    for result in (tree, dense, big):
         result.update({"device": torch.cuda.get_device_name(0),
                        "card": card})
     tree.update({"build_s": build_s, "smoke_s": time.time() - t_start,
                  "check510_launches": check_launches})
+    big[f"launches_per_proof_2^{LOG2N_BIG}"] = big.pop(
+        "launches_per_proof")
     print(json.dumps(tree))
     print(json.dumps(dense))
+    print(json.dumps(big))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -84,16 +84,25 @@ def test_ec_add_g2_ragged_and_dense_width(gen, n):
                  ec.ec_add_plain(p[:3], p[3:], True))
 
 
-def test_ntt_stage_kernel_matches_plain(gen):
-    """L = 1 (the radix-2 transform) and L > 1 from a mid-transform
-    start (the four-step's tail stages)."""
-    dom = NTT.DeviceDomain(1 << 10, "cuda")
-    x = _rand_fq((3, 1 << 10, 1), gen)  # top limb < 0x3064: canonical mod r
-    assert torch.equal(NTT.ntt_stages(x, dom.w_fwd),
-                       NTT.ntt_stages_plain(x, dom.w_fwd))
-    x = _rand_fq((3, 1 << 10, 24), gen)
-    assert torch.equal(NTT.ntt_stages(x, dom.w_fwd, 64),
-                       NTT.ntt_stages_plain(x, dom.w_fwd, 64))
+@pytest.mark.parametrize("B,S,L,start,store", [
+    (3, 1024, 2048, 1024, False), (3, 2048, 1024, 1024, False),
+    (1, 2048, 1024, 1024, True), (2, 64, 24, 8, False),
+    (1, 256, 8, 2, True)], ids=["a", "b", "c", "t3", "8-stages-store"])
+def test_ntt_stage_kernel_matches_plain(gen, B, S, L, start, store):
+    """The tail kernel at the 2^20 rung's sub-NTT tails (a) 3 x 1024 x
+    2048, one stage, (b) 3 x 2048 x 1024, two, (c) the same on one leg
+    with the store mode; three stages in one launch at a lane count off
+    the warp; eight stages (three launches) ending in the store mode."""
+    tw = NTT._twiddles(NTT.Domain(S).omega, S // 2, "cuda")
+    x = _rand_fq((B, S, L), gen)   # top limb < 0x3064: canonical mod r
+    table = _rand_fq((S * L,), gen) if store else None
+    before = NTT.NTT_STAGE.launches
+    got = NTT.ntt_stages(x, tw, start, scale_out=table)
+    stages = (S // start).bit_length()
+    assert NTT.NTT_STAGE.launches - before == -(-stages //
+                                                 NTT.TAIL_MAX_STAGES)
+    assert got.shape == (16 if store else 8, B, S, L)
+    assert torch.equal(got, NTT.ntt_stages_plain(x, tw, start, table))
 
 
 @pytest.mark.parametrize("S,L,m", [(512, 512, 512), (256, 64, 16),
@@ -146,15 +155,23 @@ def test_ntt_prefix_modes_match_plain(gen, S, L, m, mode):
     assert got.shape == want.shape and torch.equal(got, want)
 
 
-def test_h_transforms_match_plain(gen):
-    """h(x)'s three transforms at 2^12 (four-step, every prefix mode)
-    and 2^10 (radix-2, the modes as tensor code) against the plain
-    versions on the CPU."""
-    for size in (1 << 12, 1 << 10):
-        legs = _rand_fq((3, size), gen)
-        got = NTT.h_transforms(NTT.DeviceDomain(size, "cuda"), legs)
-        want = NTT.h_transforms(NTT.DeviceDomain(size, "cpu"), legs.cpu())
-        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+@pytest.mark.parametrize("size,m_fuse", [(1 << 12, 64), (1 << 10, 32),
+                                         (1 << 12, 16)])
+def test_h_transforms_match_plain(gen, monkeypatch, size, m_fuse):
+    """h(x)'s three transforms at 2^12 and 2^10 (the four-step, every
+    prefix mode) and at 2^12 with the prefix cut to 16 rows, so that
+    every sub-NTT ends in a tail of two stages, the coset iNTT's with
+    the store mode: against the plain versions on the CPU."""
+    monkeypatch.setattr(NTT, "PREFIX_SMEM_BYTES",
+                        m_fuse * NTT.PREFIX_LANES * 32)
+    legs = _rand_fq((3, size), gen)
+    dom = NTT.DeviceDomain(size, "cuda")
+    assert NTT.prefix_rows(dom.fourstep.n2, dom.fourstep.n1) == m_fuse
+    before = NTT.NTT_STAGE.launches
+    got = NTT.h_transforms(dom, legs)
+    assert NTT.NTT_STAGE.launches - before == (6 if m_fuse == 16 else 0)
+    want = NTT.h_transforms(NTT.DeviceDomain(size, "cpu"), legs.cpu())
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
 
 
 def _rows(rng, n, nv, long_rows):

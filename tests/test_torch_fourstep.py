@@ -1,11 +1,11 @@
 """The port's four-step NTT (za_tpu_torch.engine.ntt: sub_ntt with the
-fused prefix, the twiddle transpose, fourstep_core, the transforms and
-h(x) from 2^12 up) against the reference: its XLA sub-NTT and four-step
-core (ntt_rns), its fused Pallas prefix in interpret mode (pallas_ntt),
-its host Domain and HostEngine.h_coeffs.  Every plain version runs
-here.  Values are compared mod r after decoding (the reference's
-residues with its M1-Montgomery, the port's limbs with 2^256); exact
-equality."""
+fused prefix and the tail, the twiddle transpose, fourstep_core, the
+transforms and h(x) at every size) against the reference: its XLA
+sub-NTT and four-step core (ntt_rns), its fused Pallas prefix in
+interpret mode (pallas_ntt), its host Domain and HostEngine.h_coeffs.
+Every plain version runs here.  Values are compared mod r after
+decoding (the reference's residues with its M1-Montgomery, the port's
+limbs with 2^256); exact equality."""
 
 import random
 
@@ -244,13 +244,100 @@ def test_h_coeffs_fourstep_match_host_engine():
     assert F.limbs_to_ints(h.numpy()) == want
 
 
-def test_routing_by_size():
-    """(h) The four-step from FOURSTEP_MIN up, on any device; below it
-    the radix-2 tables, and no radix-2 tables above it."""
-    assert ntt.FOURSTEP_MIN == NR.FOURSTEP_MIN == 1 << 12
-    big = ntt.DeviceDomain(1 << 12, "cpu")
-    small = ntt.DeviceDomain(1 << 11, "cpu")
-    assert big.fourstep is not None and small.fourstep is None
-    assert not hasattr(big, "w_fwd") and not hasattr(big, "coset_inv_pow")
-    assert big.fourstep.inter_fwd.shape == (8, 64, 64)
-    assert small.w_fwd.shape == (8, 1 << 10)
+@pytest.mark.parametrize("k", range(1, 14))
+def test_routing_by_size(k):
+    """(h) Every size takes the four-step, n1 = 2^ceil(k/2) lanes and
+    n2 = n / n1 rows, on any device: its tables at every size, and no
+    radix-2 tables; from 2^9 (the smallest engine domain) the prefix
+    takes both sub-NTTs whole.  The transform equals the host's."""
+    n = 1 << k
+    dom = ntt.DeviceDomain(n, "cpu")
+    fs = dom.fourstep
+    assert (fs.n1, fs.n2) == (1 << (k + 1) // 2, 1 << k // 2)
+    assert fs.inter_fwd.shape == fs.inter_inv.shape == (8, fs.n2, fs.n1)
+    assert fs.t1_fwd.shape == (8, max(fs.n1 // 2, 1))
+    assert fs.t2_inv.shape == (8, max(fs.n2 // 2, 1))
+    assert dom.h_out.shape == dom.coset_inv.shape == (8, n)
+    assert not hasattr(ntt, "FOURSTEP_MIN")
+    for name in ("w_fwd", "w_inv", "size_inv", "coset_inv_pow"):
+        assert not hasattr(dom, name), name
+    if k >= 9:
+        assert ntt.prefix_rows(fs.n2, fs.n1) == fs.n2
+        assert ntt.prefix_rows(fs.n1, fs.n2) == fs.n1
+    vals = _vals(random.Random(k), n)
+    zd = ZDomain(n)
+    x = _mont16(vals)
+    assert _ints16(ntt.ntt(dom, x)) == zd.ntt(vals)
+    assert _ints16(ntt.coset_intt(dom, x)) == zd.coset_intt(vals)
+
+
+# -- the tail: stages above m_fuse, the store mode in the tail kernel ---------------
+
+
+def _budget(m):
+    """A prefix budget under which prefix_rows picks m_fuse = m."""
+    return m * ntt.PREFIX_LANES * 32
+
+
+@pytest.mark.parametrize("t", [1, 2, 3])
+@pytest.mark.parametrize("store", [False, True], ids=["plain", "scale_out"])
+def test_tail_stages_match_host(monkeypatch, t, store):
+    """sub_ntt_plain at (S, L) = (256, 8) with m_fuse = S / 2^t: the
+    prefix, then a tail of t stages with and without the store mode;
+    each lane column against the host NTT (times the plain table)."""
+    S, L = 256, 8
+    monkeypatch.setattr(ntt, "PREFIX_SMEM_BYTES", _budget(S >> t))
+    assert ntt.prefix_rows(S, L) == S >> t
+    rng = random.Random(10 + t)
+    vals = _vals(rng, S * L)
+    table = _vals(rng, S * L) if store else None
+    (tw, _), _ = _tables(S)
+    got = ntt.sub_ntt_plain(
+        _mont32(vals, (8, 1, S, L)), tw, S,
+        scale_out=ntt._table32(table, "cpu", mont=False) if store else None)
+    if store:   # 16-bit plain limbs
+        assert got.shape == (16, 1, S, L) and got.dtype == torch.int32
+        got = F.limbs_to_ints(got.reshape(16, -1).numpy())
+    else:
+        got = _ints32(got)
+    zd = ZDomain(S)
+    for lane in range(L):
+        want = zd.ntt(vals[lane::L])
+        if store:
+            want = [v * c % R for v, c in zip(want, table[lane::L])]
+        assert got[lane::L] == want, lane
+
+
+@pytest.mark.parametrize("k", [12, 13])
+@pytest.mark.parametrize("t", [1, 2, 3])
+def test_tail_transforms_and_h_match_host(monkeypatch, k, t):
+    """The four transforms and h(x) at 2^12 (64 x 64) and 2^13 (128 x
+    64) with the prefix cut to S / 2^t rows of the 64-row sub-NTTs (the
+    128-row one gets t + 1 tail stages, two launches on the card at t =
+    3): against the host Domain and za_tpu's HostEngine.h_coeffs."""
+    monkeypatch.setattr(ntt, "PREFIX_SMEM_BYTES", _budget(64 >> t))
+    m = 1 << k
+    dom = ntt.DeviceDomain(m, "cpu")
+    fs = dom.fourstep
+    assert ntt.prefix_rows(fs.n2, fs.n1) == 64 >> t
+    assert ntt.prefix_rows(fs.n1, fs.n2) == 64 >> t
+    rng = random.Random(20 * k + t)
+    legs = [_vals(rng, m) for _ in range(3)]
+    x = torch.stack([_mont16(v) for v in legs], dim=1)   # (16, 3, m)
+    zd = ZDomain(m)
+    for fn, want in ((ntt.ntt, zd.ntt), (ntt.intt, zd.intt),
+                     (ntt.coset_ntt, zd.coset_ntt),
+                     (ntt.coset_intt, zd.coset_intt)):
+        got = fn(dom, x)
+        for b, v in enumerate(legs):
+            assert _ints16(got[:, b]) == want(v), (fn.__name__, b)
+    n = m - 200
+    a, b, c, z = _chain(n, k + t)
+    r1cs = R1CS(num_inputs=2, num_aux=n, input_names=["main.x"],
+                a_rows=a, b_rows=b, c_rows=c)
+    zr1cs = ZR1CS(num_inputs=2, num_aux=n, input_names=["main.x"],
+                  a_rows=a, b_rows=b, c_rows=c, var_of_signal=[])
+    assert Domain.for_constraints(n + 2).size == m
+    h = GpuEngine(device="cpu").h_coeffs_limbs(r1cs, z, Domain(m))
+    want = ZHostEngine().h_coeffs(zr1cs, z, ZDomain(m))
+    assert F.limbs_to_ints(h.numpy()) == want

@@ -1,8 +1,10 @@
 """Models of the h(x) kernels' schedules, parsed from the CUDA sources and
 run on the CPU: the Montgomery products of csrc/field.cuh (``mul`` and
-``mul_eo``) as their PTX carry chains, and the tile schedule of
-csrc/ntt.cu's twiddle transpose.  Exact: products against a b R^-1 mod
-p, the transpose against the index map out[b, c, r] = a[b, r, c]."""
+``mul_eo``) as their PTX carry chains, the tile schedule of
+csrc/ntt.cu's twiddle transpose and the thread schedule of its tail
+kernel.  Exact: products against a b R^-1 mod p, the transpose against
+the index map out[b, c, r] = a[b, r, c], the tail against the plain
+stages."""
 
 import pathlib
 import random
@@ -254,8 +256,10 @@ def _tw_schedule(B, R_, C, v, tr, tc):
 
 
 @pytest.mark.parametrize("B,R_,C", [(3, 128, 128), (3, 512, 512),
-                                    (2, 37, 70), (1, 4, 3)],
-                         ids=["2^13", "2^17", "ragged", "tiny"])
+                                    (2, 37, 70), (1, 4, 3), (3, 16, 32),
+                                    (3, 32, 64)],
+                         ids=["2^13", "2^17", "ragged", "tiny", "2^9",
+                              "2^11"])
 def test_twiddle_tile_schedule_model(B, R_, C):
     """Every (b, r, c) is multiplied once and lands at (b, c, r), every
     output is written once, on the rungs' shapes, a ragged shape and one
@@ -304,8 +308,167 @@ def test_twiddle_tile_accesses():
             assert np.all((c2[live2] * R_ + r2[live2]) % v == 0)
 
 
+# -- the tail kernel's thread schedule --------------------------------------------
+
+
+def _tail_constants():
+    """TAIL_MAX_STAGES and TAIL_TB of csrc/ntt.cu, after checking that
+    ntt_tail_kernel maps threads to rows and twiddles as the model below
+    does and that engine/ntt.py splits a tail into launches as
+    _tail_launches does."""
+    from za_tpu_torch.engine import ntt
+
+    for text in ("const unsigned per = (unsigned)(S >> s) * (unsigned)L;",
+                 "const unsigned b = t / per, r = t - b * per;",
+                 "const unsigned g = r / (unsigned)L, l = r - g * (unsigned)L;",
+                 "const unsigned seg = g >> log_hb, j = g & (unsigned)(hb - 1);",
+                 "const size_t row0 = (size_t)seg * V * hb + j;",
+                 "load(v[q], x, plane, b * sl + (row0 + (size_t)q * hb) * L + l);",
+                 "const size_t step = step0 >> u;",
+                 "const size_t k = j + (size_t)e * hb;",
+                 "w.v[qq] = __ldg(tw + (size_t)qq * (S / 2) + k * step);",
+                 "for (int hi = 0; hi < (V >> (u + 1)); ++hi) {",
+                 "const int q = (hi << (u + 1)) | e;",
+                 "const Fr vt = TailMul::f(v[q + (1 << u)], w);",
+                 "v[q + (1 << u)] = sub(v[q], vt);",
+                 "v[q] = add(v[q], vt);",
+                 "const size_t dst = (row0 + (size_t)q * hb) * L + l;",
+                 "(unsigned)((total + za::TAIL_TB - 1) / za::TAIL_TB)"):
+        assert text in NTT, text
+    stages = int(re.search(r"constexpr int TAIL_MAX_STAGES = (\d+);",
+                           NTT).group(1))
+    tb = int(re.search(r"constexpr int TAIL_TB = (\d+);", NTT).group(1))
+    assert stages == ntt.TAIL_MAX_STAGES
+    return stages, tb
+
+
+def _tail_launches(S, start, most):
+    """(hb, s) of each launch of engine/ntt.py ntt_stages."""
+    h, left, out = start // 2, (S // (start // 2)).bit_length() - 1, []
+    while True:
+        s = min(left, most)
+        out.append((h, s))
+        if s == left:
+            return out
+        h, left = h << s, left - s
+
+
+def _tail_threads(B, S, L, hb, s, tb):
+    """Every live thread of one launch (blocks of tb threads) -> its
+    (b, l, j, row0), as ntt_tail_kernel derives them."""
+    import numpy as np
+
+    per = (S >> s) * L
+    total = B * per
+    t = np.arange(-(-total // tb) * tb)
+    t = t[t < total]
+    b, r = t // per, t % per
+    g, l = r // L, r % L
+    log_hb = hb.bit_length() - 1
+    seg, j = g >> log_hb, g & (hb - 1)
+    return b, l, j, seg * (1 << s) * hb + j
+
+
+def _tail_butterflies(s):
+    """(u, e, q, q + 2^u) of one thread's butterflies, in its order."""
+    return [(u, e, q, q + (1 << u))
+            for u in range(s) for e in range(1 << u)
+            for q in [(hi << (u + 1)) | e
+                      for hi in range((1 << s) >> (u + 1))]]
+
+
+@pytest.mark.parametrize("B,S,L,start", [
+    (3, 1024, 2048, 1024), (3, 2048, 1024, 1024), (1, 2048, 1024, 1024),
+    (2, 64, 8, 8), (1, 256, 8, 2), (2, 128, 24, 16)],
+    ids=["a", "b", "c", "t3", "8-stages", "L24"])
+def test_tail_schedule_model(B, S, L, start):
+    """The tail's launches at the 2^20 rung's shapes (a)-(c), a tail of 3
+    stages, one of 8 (three launches) and a lane count off the warp:
+    each butterfly of the stages of lengths start..S done once, on a
+    top row whose bit h is clear and its partner h rows down, with the
+    twiddle index of the plain stages (engine/ntt.py _stages16: table
+    index (row mod h) S / 2h)."""
+    import numpy as np
+
+    most, tb = _tail_constants()
+    launches = _tail_launches(S, start, most)
+    assert sum(s for _, s in launches) == (S // start).bit_length()
+    assert len(launches) == -(-(S // start).bit_length() // most)
+    for hb, s in launches:
+        b, l, j, row0 = _tail_threads(B, S, L, hb, s, tb)
+        assert b.size == B * L * S >> s
+        seen = {}
+        for u, e, q, p in _tail_butterflies(s):
+            h = hb << u
+            top, low = row0 + q * hb, row0 + p * hb
+            assert np.all(low == top + h) and np.all(top % (2 * h) < h)
+            k = j + e * hb                      # the kernel's twiddle
+            assert np.array_equal(k * ((S // 2 // hb) >> u),
+                                  (top % h) * (S // (2 * h)))
+            key = (b * S + top) * L + l
+            seen.setdefault(h, []).append(key)
+        for h, keys in seen.items():        # S/2 butterflies a stage
+            keys = np.concatenate(keys)
+            assert keys.size == B * L * S // 2
+            assert np.unique(keys).size == keys.size, h
+
+
+@pytest.mark.parametrize("B,S,L,start,store", [
+    (2, 64, 8, 8, False), (1, 32, 4, 2, True), (1, 16, 3, 16, True)],
+    ids=["t3", "5-stages-store", "t1-store"])
+def test_tail_model_runs_the_plain_stages(B, S, L, start, store):
+    """The model's schedule run on values (Python ints mod r, Montgomery
+    products as a b R^-1) equals ntt_stages_plain, the store mode too:
+    the plain product by the table, 16-bit limbs."""
+    import numpy as np
+    import torch
+
+    from za_tpu_torch.engine import field as F, ntt
+    from za_tpu_torch.groth16.domain import Domain
+
+    most, tb = _tail_constants()
+    rng = random.Random(S + start)
+    rinv = pow(1 << 256, -1, R)
+    x = [rng.randrange(R) for _ in range(B * S * L)]
+    tw = [pow(Domain(S).omega, k, R) * (1 << 256) % R
+          for k in range(S // 2)]
+    table = [rng.randrange(R) for _ in range(S * L)] if store else None
+    v = [a * (1 << 256) % R for a in x]          # Montgomery
+    launches = _tail_launches(S, start, most)
+    for n, (hb, s) in enumerate(launches):
+        b, l, j, row0 = _tail_threads(B, S, L, hb, s, tb)
+        for bi, li, ji, r0 in zip(b.tolist(), l.tolist(), j.tolist(),
+                                  row0.tolist()):
+            idx = [(bi * S + r0 + q * hb) * L + li for q in range(1 << s)]
+            w = [v[i] for i in idx]
+            for u, e, q, p in _tail_butterflies(s):
+                k = (ji + e * hb) * ((S // 2 // hb) >> u)
+                vt = w[p] * tw[k] * rinv % R
+                w[p], w[q] = (w[q] - vt) % R, (w[q] + vt) % R
+            if store and n == len(launches) - 1:   # plain product
+                w = [a * table[i % (S * L)] * rinv % R
+                     for a, i in zip(w, idx)]
+            for i, a in zip(idx, w):
+                v[i] = a
+    x32 = torch.from_numpy(F.ints_to_l32(
+        [a * (1 << 256) % R for a in x]).copy()).reshape(8, B, S, L)
+    tw32 = torch.from_numpy(F.ints_to_l32(tw).copy())
+    tab = (torch.from_numpy(F.ints_to_l32(table).copy()) if store
+           else None)
+    want = ntt.ntt_stages_plain(x32, tw32, start, tab)
+    if store:
+        assert want.shape == (16, B, S, L)
+        got = F.limbs_to_ints(np.asarray(want.reshape(16, -1)))
+    else:
+        got = [a * rinv % R for a in F.limbs_to_ints(
+            np.asarray(F.unpack(want).reshape(16, -1)))]
+        v = [a * rinv % R for a in v]
+    assert got == v
+
+
 def test_mul_eo_users_and_to_affine_inversions():
-    """mul_eo is the product of ntt_twiddle_fr, of to_affine_g1/_g2's
+    """mul_eo is the product of ntt_twiddle_fr, of the tail kernel
+    (ntt_stage_fr: its butterflies and its store), of to_affine_g1/_g2's
     per-point products (Karatsuba over it in G2) and of ec_add_g2's
     thread add (OpsEo: Karatsuba over mul_eo); every other kernel keeps
     mul.  Both to_affine kernels are the one-wave
@@ -314,12 +477,19 @@ def test_mul_eo_users_and_to_affine_inversions():
     left in ec.cu; the matvec keeps mul."""
     users = {f.name: re.sub(r"//.*", "", f.read_text()).count("mul_eo")
              for f in sorted(CSRC.glob("*.cu"))}
-    assert users == {"dense.cu": 0, "ec.cu": 1, "ntt.cu": 1, "r1cs.cu": 0,
+    assert users == {"dense.cu": 0, "ec.cu": 1, "ntt.cu": 2, "r1cs.cu": 0,
                      "tree.cu": 0}, users
     ntt, ec = NTT, (CSRC / "ec.cu").read_text()
     code = re.sub(r"//.*", "", ec)
     assert "#define ZA_TW_MUL mul_eo" in ntt
     assert "const Fr p = ZA_TW_MUL(x, w);" in ntt
+    # the tail's butterflies and its store (TailMul), the prefix on mul
+    assert re.search(r"struct TailMul \{\s+__device__ static __forceinline__ "
+                     r"Fr f\(const Fr& a, const Fr& b\) \{\s+"
+                     r"return mul_eo\(a, b\);", ntt)
+    assert "const Fr vt = TailMul::f(v[q + (1 << u)], w);" in ntt
+    assert "store_out<TailMul>(" in ntt and "store_out<PrefixMul>(" in ntt
+    assert "const Fr vt = mul(v, w);" in ntt     # the prefix's butterfly
     assert "#define ZA_AFF_MUL mul_eo" in ec
     assert "#define ZA_AFF_INV Gcd" in ec
     assert "launch_affine_wave<za::Fq, za::ZA_AFF_INV>" in ec

@@ -4,7 +4,7 @@ matvec (TpuEngine._matvec_rns_jit), the prefix's load and store modes
 (engine.ntt) against the tensor code they replace, a step-for-step
 model of the ntt_prefix_fr kernel's schedule (csrc/ntt.cu) against the
 plain prefix, and GpuEngine.h_coeffs_limbs against za_tpu's
-h_coeffs_limbs on a four-step and a radix-2 domain.  Inputs from
+h_coeffs_limbs on two four-step domains (2^12 and 2^6).  Inputs from
 seeded numpy; values compared mod r after decoding, exact equality."""
 
 import pathlib
@@ -358,11 +358,12 @@ def _chain(n, rng):
     return a, b, c, z
 
 
-@pytest.mark.parametrize("n,fourstep", [(3000, True), (61, False)],
-                         ids=["fourstep-2^12", "radix2-2^6"])
-def test_h_coeffs_limbs_match_reference(ref_engine, n, fourstep):
+@pytest.mark.parametrize("n,split", [(3000, (64, 64)), (61, (8, 8))],
+                         ids=["fourstep-2^12", "fourstep-2^6"])
+def test_h_coeffs_limbs_match_reference(ref_engine, n, split):
     """GpuEngine(device="cpu").h_coeffs_limbs (matvec with the input
-    rows in A, the prefix's modes) against za_tpu's h_coeffs_limbs."""
+    rows in A, the prefix's modes) against za_tpu's h_coeffs_limbs; both
+    domains through the four-step (n1, n2)."""
     a, b, c, z = _chain(n, np.random.default_rng(n))
     r1cs = R1CS(num_inputs=2, num_aux=n, input_names=["main.x"],
                 a_rows=a, b_rows=b, c_rows=c)
@@ -371,7 +372,8 @@ def test_h_coeffs_limbs_match_reference(ref_engine, n, fourstep):
     m = Domain.for_constraints(n + 2).size
     eng = GpuEngine(device="cpu")
     h = eng.h_coeffs_limbs(r1cs, z, Domain(m))
-    assert (eng._domain(m).fourstep is not None) == fourstep
+    fs = eng._domain(m).fourstep
+    assert (fs.n1, fs.n2) == split
     assert h.dtype == torch.int32 and h.shape == (16, m - 1)
     want = np.asarray(ref_engine.h_coeffs_limbs(zr1cs, z, ZDomain(m)))
     assert F.limbs_to_ints(h.numpy()) == F.limbs_to_ints(want)

@@ -5,7 +5,8 @@ inside h(x), to_affine and ec_add alone and inside the table builds,
 and their variants, each held exactly against its plain version.
 
     python3 tools/torch_hpipe_sweep.py [--root DIR] [--products]
-        [--kernels] [--staging] [--variants [ntt,ec]] [--out FILE]
+        [--kernels] [--staging] [--tail] [--variants [ntt,ec]]
+        [--out FILE]
 
 --root DIR runs the za_tpu_torch package of another checkout (an older
 commit unpacked with git archive): its kernels are built from its own
@@ -38,15 +39,27 @@ JSON line:
       their text; then whole table builds with their launches: a tree
       staging block (build_tables_block: 7 ec_add and one to_affine) of
       each group and the 2^13 rung's dense G2 multiples (7 ec_add);
+  tail: the stages above m_fuse of the 2^20 rung's sub-NTTs (domain
+      2^21) at three shapes, (a) 3 x 1024 x 2048 (one stage), (b) 3 x
+      2048 x 1024 (two), (c) 1 x 2048 x 1024 (two, then the store
+      mode), each exact: on a checkout whose ntt_stage_fr runs a whole
+      tail, its launch (device_ms; and with one stage a launch); on an
+      older one each stage launch alone, the tensor store (store_plain)
+      alone and the tail as its engine ran it; the kernel's registers,
+      spill, SASS instructions and digest;
   variants (of the sources named, default both): builds of csrc/ntt.cu
-      with its variant macros (ZA_TW_COLS, ZA_TW_ROWS, ZA_TW_MUL) and of
+      with its variant macros (ZA_TW_COLS, ZA_TW_ROWS, ZA_TW_MUL) and
+      text patches of its tail kernel (products on mul, 128 or 512
+      threads a block, at least 3 blocks an SM, the store table loaded
+      before the stages) and of
       csrc/ec.cu with its own (ZA_AFF_INV: Fermat or inv_gcd at the
       blocks' roots, ZA_AFF_MUL: mul or mul_eo, and a build without the
       blocks' inversions, timed, not exact; text patches for ec_add_g2:
       one add a thread inlined on mul, or the staged add on 8 or 16
       lanes a pair, on mul or mul_eo), swapped into the engine's
       wrappers: each exact against the plain version, then the twiddle
-      alone and inside h(x) at both rungs, to_affine_g1/_g2 alone at
+      alone and inside h(x) at both rungs, the tail at its three
+      shapes, to_affine_g1/_g2 alone at
       chip_smoke.py's shapes, ec_add_g2 alone at the paths' widths and
       inside the G2 table builds; with registers, spill and SASS
       instructions.
@@ -391,6 +404,35 @@ def staged(w: int, eo: bool) -> tuple:
             + ((HW2_EO,) if eo else ()))
 
 
+# the tail kernel's products (butterflies and store) on mul
+TAIL_EO = ("struct TailMul {\n  __device__ static __forceinline__ Fr "
+           "f(const Fr& a, const Fr& b) {\n    return mul_eo(a, b);",
+           "struct TailMul {\n  __device__ static __forceinline__ Fr "
+           "f(const Fr& a, const Fr& b) {\n    return mul(a, b);")
+
+
+TAIL_PREFETCH = (
+    ("    load(v[q], x, plane, b * sl + (row0 + (size_t)q * hb) * L + l);\n",
+     "    load(v[q], x, plane, b * sl + (row0 + (size_t)q * hb) * L + l);\n"
+     "  Fr tv[V];\n"
+     "  if (mode & PREFIX_SCALE_OUT)\n"
+     "#pragma unroll\n"
+     "    for (int q = 0; q < V; ++q)\n"
+     "      load(tv[q], tout, sl, (row0 + (size_t)q * hb) * L + l);\n"),
+    ("    store_out<TailMul>(y, plane, b * sl + dst, tout, sl, dst, v[q], "
+     "mode);\n",
+     "    if (mode & PREFIX_SCALE_OUT) {\n"
+     "      const Fr p = TailMul::f(v[q], tv[q]);\n"
+     "#pragma unroll\n"
+     "      for (int w = 0; w < 8; ++w) {\n"
+     "        y[(2 * w) * plane + b * sl + dst] = p.v[w] & 0xffffu;\n"
+     "        y[(2 * w + 1) * plane + b * sl + dst] = p.v[w] >> 16;\n"
+     "      }\n"
+     "    } else {\n"
+     "      store(y, plane, b * sl + dst, v[q]);\n"
+     "    }\n"))
+
+
 VARIANTS = {
     "ntt": {
         "tw_cols2_rows16_eo": ([], (), True, ("ntt_twiddle_fr",)),
@@ -400,6 +442,23 @@ VARIANTS = {
                                ("ntt_twiddle_fr",)),
         "tw_cols2_rows16_mul": (["-DZA_TW_MUL=mul"], (), True,
                                 ("ntt_twiddle_fr",)),
+        # the tail kernel: its products on mul; 128 or 512 threads a
+        # block
+        "tail_mul": ([], (TAIL_EO,), True, ("ntt_stage_fr",)),
+        "tail_tb128": ([], (("constexpr int TAIL_TB = 256;",
+                             "constexpr int TAIL_TB = 128;"),), True,
+                       ("ntt_stage_fr",)),
+        "tail_tb512": ([], (("constexpr int TAIL_TB = 256;",
+                             "constexpr int TAIL_TB = 512;"),), True,
+                       ("ntt_stage_fr",)),
+        # at least 3 blocks an SM (ptxas caps the registers); the store
+        # table loaded with the values, before the stages
+        "tail_minb3": ([], (("__global__ void __launch_bounds__(TAIL_TB)\n"
+                             "ntt_tail_kernel(",
+                             "__global__ void __launch_bounds__(TAIL_TB, 3)"
+                             "\nntt_tail_kernel("),), True,
+                       ("ntt_stage_fr",)),
+        "tail_prefetch": ([], TAIL_PREFETCH, True, ("ntt_stage_fr",)),
     },
     "ec": {
         "default": ([], (), True, AFF + ("ec_add_g2",)),
@@ -420,6 +479,7 @@ VARIANTS = {
 # the __global__ function behind each timed entry point, as ptxas names
 # it (the first present)
 ENTRY = {"ntt_twiddle_fr": ("_ZN2za18ntt_twiddle_kernelILb1E",),
+         "ntt_stage_fr": ("_ZN2za15ntt_tail_kernelI",),
          "to_affine_g1": ("_ZN2za21to_affine_wave_kernelINS_2FpINS_7QParams"
                           "EEE",),
          "to_affine_g2": ("_ZN2za21to_affine_wave_kernelINS_3Fq2E",),
@@ -588,7 +648,7 @@ def prefix_ms(torch, smoke, ctx) -> dict:
     m = NTT.prefix_rows(fs.n2, fs.n1)
     res = {}
     for mode, xin, kw in (
-            ("plain", x, {}), ("scale_in", x, {"scale_in": dom.h_in}),
+            ("plain", x, {}), ("scale_in", x, {"scale_in": dom.coset_pow}),
             ("combine", x, {"combine": True}),
             ("scale_out", x[:, :1].contiguous(), {"scale_out": dom.h_out})):
         f = lambda xin=xin, kw=kw: NTT.ntt_prefix(  # noqa: E731
@@ -703,6 +763,101 @@ def staging_rows(torch, smoke, out) -> None:
                   "device_ms": smoke.device_ms(torch, fn)}, out)
 
 
+# the 2^20 rung's sub-NTT tails (domain 2^21: n1 = 2048, n2 = 1024, the
+# prefix's m_fuse = 512): (shape, B, S, L, inverse twiddles, store mode)
+# -- (a) the first sub-NTT of a 3-leg transform, one stage; (b) the
+# second, two stages; (c) the coset iNTT's second sub-NTT, two stages,
+# then the store mode (a plain table, 16-bit plain limbs out)
+TAIL_SHAPES = (("a", 3, 1024, 2048, False, False),
+               ("b", 3, 2048, 1024, False, False),
+               ("c", 1, 2048, 1024, True, True))
+TAIL_M = 512
+# the stage kernel's __global__ functions, as ptxas names them: the
+# one-launch tail (a template over its stage count), or a stage a launch
+TAIL_FN = ("_ZN2za15ntt_tail_kernelI", "_ZN2za16ntt_stage_kernelE")
+
+
+def tail_inputs(torch, smoke):
+    """{shape: (B, S, L, x, tw, table or None)} of TAIL_SHAPES: random
+    canonical values, the sub-NTT's twiddles, a random plain table."""
+    from za_tpu_torch.engine import ntt as NTT
+    from za_tpu_torch.groth16.domain import Domain
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    for name, B, S, L, inverse, store in TAIL_SHAPES:
+        d = Domain(S)
+        tw = NTT._twiddles(d.omega_inv if inverse else d.omega, S // 2,
+                           "cuda")
+        x = smoke.rand_fq(torch, (B, S, L), gen)
+        table = smoke.rand_fq(torch, (S * L,), gen) if store else None
+        out[name] = (B, S, L, x, tw, table)
+    return out
+
+
+def tail_rows(torch, smoke, out) -> None:
+    """The stages above m_fuse of the 2^20 rung's sub-NTTs at
+    TAIL_SHAPES, each exact against the plain stages (and the plain
+    store): on a checkout with the one-launch tail, its launch (the
+    store mode in it); on an older one, each ntt_stage_fr launch alone
+    (in place, on a copy), the tensor store (store_plain) alone, and the
+    whole tail as the engine ran it (a copy, the stage launches, the
+    store); device_ms each.  Then the kernel's registers, spill, SASS
+    instructions and digest."""
+    import inspect
+
+    from za_tpu_torch.engine import _build, ntt as NTT
+
+    one_launch = "scale_out" in inspect.signature(
+        NTT.ntt_stages).parameters
+    for name, (B, S, L, x, tw, table) in tail_inputs(torch, smoke).items():
+        start = 2 * TAIL_M
+        want = NTT.store_plain(NTT.ntt_stages_plain(x, tw, start), table)
+        row = {"section": "tail", "shape": name, "B": B, "S": S, "L": L,
+               "m_fuse": TAIL_M, "stages": (S // TAIL_M).bit_length() - 1,
+               "store": table is not None, "one_launch": one_launch}
+        if one_launch:
+            def tail():
+                return NTT.ntt_stages(x, tw, start, scale_out=table)
+        else:
+            def tail():
+                return NTT.store_plain(NTT.ntt_stages(x, tw, start), table)
+        before = NTT.NTT_STAGE.launches
+        got = tail()
+        row["launches"] = NTT.NTT_STAGE.launches - before
+        assert torch.equal(got, want), f"tail ({name}): not exact"
+        row["device_ms"] = smoke.device_ms(torch, tail)
+        if one_launch and row["stages"] > 1:   # a launch a stage
+            most, NTT.TAIL_MAX_STAGES = NTT.TAIL_MAX_STAGES, 1
+            try:
+                assert torch.equal(tail(), want)
+                row["device_ms_stage_a_launch"] = smoke.device_ms(
+                    torch, tail)
+            finally:
+                NTT.TAIL_MAX_STAGES = most
+        if not one_launch:
+            y = x.clone()
+            h = TAIL_M
+            while h < S:
+                row[f"stage_h{h}_ms"] = smoke.device_ms(
+                    torch, lambda h=h: NTT.NTT_STAGE(y, tw, B, S, L, h))
+                h *= 2
+            if table is not None:
+                y = NTT.ntt_stages_plain(x, tw, start)
+                row["store_plain_ms"] = smoke.device_ms(
+                    torch, lambda: NTT.store_plain(y, table))
+        emit(row, out)
+    bd = _build.build_dir()
+    log = (bd / "ntt.log").read_text()
+    sass = sass_opcodes(bd / "libntt.so")
+    digest = sass_digests(bd / "libntt.so")
+    for fn in sorted(f for f in sass if f.startswith(TAIL_FN)):
+        emit({"section": "tail_build", "entry": fn,
+              **smoke.ptxas_usage(log, fn),
+              "sass_total": sum(sass[fn].values()),
+              "sass_sha1": digest[fn]}, out)
+
+
 def nvcc_build(src: Path, lib: Path, flags, include: Path):
     from za_tpu_torch.engine import _build
 
@@ -794,7 +949,7 @@ def variants(torch, smoke, rungs, tmp: Path, out, which) -> None:
     from za_tpu_torch.engine import msm_tree as MT, ntt as NTT
 
     text = {s: (_build.CSRC / f"{s}.cu").read_text() for s in which}
-    if ("ZA_TW_COLS" not in text.get("ntt", "ZA_TW_COLS")
+    if ("TAIL_TB" not in text.get("ntt", "TAIL_TB")
             or ADD2 not in text.get("ec", ADD2)):
         smoke.log("variants: the checkout's sources take no variant macros")
         return
@@ -816,6 +971,7 @@ def variants(torch, smoke, rungs, tmp: Path, out, which) -> None:
         logs[name] = proc.communicate()[0]
         assert proc.returncode == 0, logs[name][-4000:]
     wrappers = {"ntt_twiddle_fr": NTT.NTT_TWIDDLE,
+                "ntt_stage_fr": NTT.NTT_STAGE,
                 "to_affine_g1": ec.TO_AFFINE[False],
                 "to_affine_g2": ec.TO_AFFINE[True],
                 "ec_add_g2": ec.EC_ADD[True]}
@@ -832,6 +988,9 @@ def variants(torch, smoke, rungs, tmp: Path, out, which) -> None:
            for _ in range(3)]
     dense = [smoke.rand_fq(torch, (2, 1, ADD_WIDTHS[True]["dense_2^13"]),
                            gen) for _ in range(3)]
+    tails = tail_inputs(torch, smoke)
+    tail_want = {k: NTT.ntt_stages_plain(x, tw, 2 * TAIL_M, table)
+                 for k, (_, _, _, x, tw, table) in tails.items()}
     defaults = {k: w._resolve() for k, w in wrappers.items()}
 
     def same(a, b):
@@ -854,7 +1013,18 @@ def variants(torch, smoke, rungs, tmp: Path, out, which) -> None:
                              if f.startswith(p))
                 res = {"entry": entry, **smoke.ptxas_usage(logs[name], entry),
                        "sass_total": sum(sass[entry].values())}
-                if k in AFF:
+                if k == "ntt_stage_fr":    # its one- and two-stage forms
+                    res = {"builds": [
+                        {"entry": f, **smoke.ptxas_usage(logs[name], f),
+                         "sass_total": sum(sass[f].values())}
+                        for f in sorted(sass) if f.startswith(
+                            tuple(f"{ENTRY[k][0]}Li{v}E" for v in (1, 2)))]}
+                    for tag, (_, _, _, x, tw, table) in tails.items():
+                        f = lambda x=x, tw=tw, table=table: (  # noqa: E731
+                            NTT.ntt_stages(x, tw, 2 * TAIL_M, table))
+                        assert torch.equal(f(), tail_want[tag]), (name, tag)
+                        res[f"device_ms_{tag}"] = smoke.device_ms(torch, f)
+                elif k in AFF:
                     g2 = k == "to_affine_g2"
                     f = lambda g2=g2, c=coords[k]: ec.to_affine(  # noqa: E731
                         *c, g2)
@@ -895,12 +1065,14 @@ def main(argv) -> int:
     ap.add_argument("--products", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--staging", action="store_true")
+    ap.add_argument("--tail", action="store_true")
     ap.add_argument("--variants", nargs="?", const="ntt,ec", default="",
                     help="variant builds of these sources (default both)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
-    if not (args.products or args.kernels or args.staging or args.variants):
-        args.products = args.kernels = args.staging = True
+    if not (args.products or args.kernels or args.staging or args.tail
+            or args.variants):
+        args.products = args.kernels = args.staging = args.tail = True
         args.variants = "ntt,ec"
     which = [w for w in args.variants.split(",") if w]
     import torch
@@ -930,6 +1102,8 @@ def main(argv) -> int:
         kernel_rows(torch, smoke, rungs, args.out)
     if args.staging:
         staging_rows(torch, smoke, args.out)
+    if args.tail:
+        tail_rows(torch, smoke, args.out)
     if which:
         variants(torch, smoke, rungs, tmp, args.out, which)
     print(name)

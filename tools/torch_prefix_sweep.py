@@ -137,7 +137,7 @@ def main(argv) -> int:
     stream = torch.cuda.current_stream().cuda_stream
     results = {name: {"ms": {}, **usage[name]} for name in names}
     for mode, (xin, flag, B) in cases.items():
-        kw = {"scale_in": dom.h_in} if flag == 1 else {}
+        kw = {"scale_in": dom.coset_pow} if flag == 1 else {}
         if flag == 2:
             kw = {"combine": True}
         if flag == 4:
@@ -147,7 +147,7 @@ def main(argv) -> int:
 
         def launch(fn):
             rc = fn(xin.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                    dom.h_in.data_ptr(), dom.h_out.data_ptr(), B, 512, 512,
+                    dom.coset_pow.data_ptr(), dom.h_out.data_ptr(), B, 512, 512,
                     512, flag, stream)
             assert rc == 0, rc
 

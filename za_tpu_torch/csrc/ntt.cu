@@ -1,5 +1,5 @@
-// The NTT over Fr: three kernels of the four-step transform
-// (engine/ntt.py fourstep_core) and of the radix-2 one below it.
+// The NTT over Fr: the three kernels of the four-step transform
+// (engine/ntt.py fourstep_core), which takes every domain size.
 //
 // Values are canonical Montgomery Fr elements as limb planes.  A batch
 // of B sub-NTTs of length S, each applied to L lanes, is (8, B, S, L):
@@ -60,11 +60,24 @@
 // Shapes whose R or C is no multiple of TW_V, or unaligned tensors, take
 // the same schedule with 4-byte accesses and bounds checks.
 //
-// ntt_stage_fr replaces one stage of the reference's XLA stage loop
-// (ntt_rns.py _ntt_core, _sub_ntt_axis1): one thread per butterfly, in
-// place.  It runs the stages above m_fuse of a sub-NTT, and every stage
-// of the radix-2 transform of domains below the four-step's minimum
-// (L = 1).  Bound: bytes, 64 B per butterfly for one multiplication.
+// ntt_stage_fr replaces the reference's XLA stage loop (ntt_rns.py
+// _ntt_core, _sub_ntt_axis1) where the prefix does not end a sub-NTT:
+// the stages of half-lengths m_fuse .. S/2 (the tail; S > m_fuse = 512
+// first at a 2^19 domain), out of place, with the prefix's store mode.
+// The rows j + q hb (q < 2^s) of one transform b and lane l, j < hb,
+// are closed under the stages of half-lengths hb .. 2^(s-1) hb, so one
+// thread takes one such group: it loads its 2^s values (consecutive
+// threads, consecutive lanes: 128 B a warp and limb plane), runs the s
+// stages in registers and stores once; with PREFIX_SCALE_OUT it
+// multiplies each output by the plain table and writes 16-bit plain
+// limbs, the prefix's store code.  Stage u (half h = 2^u hb) pairs q and
+// q + 2^u (bit u of q clear) with the twiddle w^(k S / 2h), k = j + (q
+// mod 2^u) hb: the 2^s - 1 twiddles of a thread are loaded once each,
+// and a warp's 32 lanes share them.  A launch runs up to
+// TAIL_MAX_STAGES stages (8 values a thread); more take further
+// launches (first at a 2^25 domain).  Products are mul_eo.  Bound:
+// bytes, 64 B per value (32 in, 32 out) and 32 more for the table and
+// 32 more out in the store mode, against one product per butterfly.
 
 #include "field.cuh"
 
@@ -100,6 +113,10 @@ constexpr int TW_V = ZA_TW_COLS;
 constexpr int TW_R = ZA_TW_ROWS;
 constexpr int TW_C = 32;
 constexpr int TW_TB = TW_R * TW_C / TW_V;   // threads of a block
+// the tail: stages a launch at most (2^this values a thread; engine/ntt.py
+// TAIL_MAX_STAGES, held equal by a test) and threads a block
+constexpr int TAIL_MAX_STAGES = 3;
+constexpr int TAIL_TB = 256;
 
 __device__ __forceinline__ unsigned bitrev(unsigned i, int bits) {
   return bits ? __brev(i) >> (32 - bits) : 0u;
@@ -111,25 +128,91 @@ __device__ __forceinline__ void butterfly(Fr& u, Fr& v, const Fr& w) {
   u = add(u, vt);
 }
 
-__global__ void ntt_stage_kernel(uint32_t* __restrict__ x,
-                                 const uint32_t* __restrict__ tw, int B,
-                                 int S, int L, int h) {
-  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t per = (size_t)(S / 2) * L;  // butterflies per transform
-  if (t >= (size_t)B * per) return;
-  const size_t b = t / per, r = t - b * per;
-  const size_t k = r / L, l = r - k * L;
-  const size_t g = k / h, j = k - g * h;
-  const size_t i0 = (b * S + g * 2 * h + j) * L + l;
-  const size_t i1 = i0 + (size_t)h * L;
-  const size_t plane = (size_t)B * S * L;
-  Fr u, v, w;
-  load(u, x, plane, i0);
-  load(v, x, plane, i1);
-  load(w, tw, S / 2, j * (S / 2 / h));
-  butterfly(u, v, w);
-  store(x, plane, i0, u);
-  store(x, plane, i1, v);
+// the products of the prefix (mul) and of the tail (mul_eo)
+struct PrefixMul {
+  __device__ static __forceinline__ Fr f(const Fr& a, const Fr& b) {
+    return mul(a, b);
+  }
+};
+struct TailMul {
+  __device__ static __forceinline__ Fr f(const Fr& a, const Fr& b) {
+    return mul_eo(a, b);
+  }
+};
+
+// the store of value v where a pass ends its sub-NTT: at index at of
+// planes plane_out; with PREFIX_SCALE_OUT the product by the plain table
+// tout[dst] (planes sl), which is the plain value, as 16 planes of
+// 16-bit limbs, else v as 8 planes
+template <class M>
+__device__ __forceinline__ void store_out(uint32_t* y, size_t plane_out,
+                                          size_t at, const uint32_t* tout,
+                                          size_t sl, size_t dst,
+                                          const Fr& v, int mode) {
+  if (mode & PREFIX_SCALE_OUT) {
+    Fr w;
+    load(w, tout, sl, dst);
+    const Fr p = M::f(v, w);  // tout plain: the plain product
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      y[(2 * q) * plane_out + at] = p.v[q] & 0xffffu;
+      y[(2 * q + 1) * plane_out + at] = p.v[q] >> 16;
+    }
+  } else {
+    store(y, plane_out, at, v);
+  }
+}
+
+// the stages of half-lengths hb .. 2^(s-1) hb of (8, B, S, L) x into y:
+// thread t takes lane l = t mod L of transform b, rows r0 + q hb, r0 =
+// seg 2^s hb + j (j < hb), from (b, seg, j) = t / L
+template <int s>
+__global__ void __launch_bounds__(TAIL_TB)
+ntt_tail_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                const uint32_t* __restrict__ tw,
+                const uint32_t* __restrict__ tout, int B, int S, int L,
+                int hb, int mode) {
+  constexpr int V = 1 << s;
+  // B S L < 2^32 (the entry point checks it): 32-bit index arithmetic
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned per = (unsigned)(S >> s) * (unsigned)L;  // a transform's
+  if (t >= (unsigned)B * per) return;
+  const unsigned b = t / per, r = t - b * per;
+  const unsigned g = r / (unsigned)L, l = r - g * (unsigned)L;
+  const int log_hb = __ffs(hb) - 1;
+  const unsigned seg = g >> log_hb, j = g & (unsigned)(hb - 1);
+  const size_t sl = (size_t)S * L;
+  const size_t plane = (size_t)B * sl;
+  const size_t row0 = (size_t)seg * V * hb + j;
+  const size_t step0 = (size_t)(S / 2) >> log_hb;   // S / 2hb
+  Fr v[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q)
+    load(v[q], x, plane, b * sl + (row0 + (size_t)q * hb) * L + l);
+#pragma unroll
+  for (int u = 0; u < s; ++u) {
+    const size_t step = step0 >> u;                  // S / 2h
+#pragma unroll
+    for (int e = 0; e < (1 << u); ++e) {
+      const size_t k = j + (size_t)e * hb;   // the row mod h
+      Fr w;
+#pragma unroll
+      for (int qq = 0; qq < 8; ++qq)
+        w.v[qq] = __ldg(tw + (size_t)qq * (S / 2) + k * step);
+#pragma unroll
+      for (int hi = 0; hi < (V >> (u + 1)); ++hi) {
+        const int q = (hi << (u + 1)) | e;
+        const Fr vt = TailMul::f(v[q + (1 << u)], w);
+        v[q + (1 << u)] = sub(v[q], vt);
+        v[q] = add(v[q], vt);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const size_t dst = (row0 + (size_t)q * hb) * L + l;
+    store_out<TailMul>(y, plane, b * sl + dst, tout, sl, dst, v[q], mode);
+  }
 }
 
 // row of value idx of thread t (tile row) in a pass of s stages of
@@ -268,18 +351,8 @@ ntt_prefix_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
 #pragma unroll
   for (int i = 0; i < PREFIX_EL; ++i) {
     const size_t dst = (size_t)(row0 + pass_row(t, i, s, ld)) * L + col;
-    if (mode & PREFIX_SCALE_OUT) {
-      Fr w;
-      load(w, tout, sl, dst);
-      const Fr p = mul(v[i], w);  // tout plain: the plain product
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        y[(2 * q) * plane_out + b * sl + dst] = p.v[q] & 0xffffu;
-        y[(2 * q + 1) * plane_out + b * sl + dst] = p.v[q] >> 16;
-      }
-    } else {
-      store(y, plane_out, b * sl + dst, v[i]);
-    }
+    store_out<PrefixMul>(y, plane_out, b * sl + dst, tout, sl, dst, v[i],
+                         mode);
   }
 }
 
@@ -383,17 +456,44 @@ inline bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 extern "C" {
 
-// x: (8, B, S, L) int32 in place; tw: (8, S/2) int32; h: the stage's half
-int ntt_stage_fr(void* x, const void* tw, int B, int S, int L, int h,
-                 void* stream) {
-  if (!za::pow2(S) || !za::pow2(h) || h >= S || L < 1 || B < 0)
+// x -> y: (8, B, S, L) int32, the DIT stages of half-lengths h .. 2^(s-1)
+// h along S (0 <= s <= TAIL_MAX_STAGES, 2^s h <= S); tw: (8, S/2).  mode:
+// 0, or PREFIX_SCALE_OUT (tout (8, S L) plain values multiplied in on
+// store; y (16, B, S, L) 16-bit plain limbs).  tout is not read without
+// the flag.
+int ntt_stage_fr(const void* x, void* y, const void* tw, const void* tout,
+                 int B, int S, int L, int h, int s, int mode, void* stream) {
+  if (!za::pow2(S) || !za::pow2(h) || s < 0 || s > za::TAIL_MAX_STAGES
+      || ((long)h << s) > S || L < 1 || B < 0
+      || (long)B * S * L >= (1L << 32)
+      || (mode & ~za::PREFIX_SCALE_OUT) != 0)
     return (int)cudaErrorInvalidValue;
-  const long total = (long)B * (S / 2) * L;
+  const long total = (long)B * (S >> s) * L;
   if (total > 0) {
-    const int tb = 128;
-    za::ntt_stage_kernel<<<(unsigned)((total + tb - 1) / tb), tb, 0,
-                           (cudaStream_t)stream>>>(
-        (uint32_t*)x, (const uint32_t*)tw, B, S, L, h);
+    const unsigned blocks =
+        (unsigned)((total + za::TAIL_TB - 1) / za::TAIL_TB);
+    const cudaStream_t st = (cudaStream_t)stream;
+    const uint32_t* xi = (const uint32_t*)x;
+    const uint32_t* twi = (const uint32_t*)tw;
+    const uint32_t* ti = (const uint32_t*)tout;
+    uint32_t* yo = (uint32_t*)y;
+    switch (s) {
+      case 0:
+        za::ntt_tail_kernel<0><<<blocks, za::TAIL_TB, 0, st>>>(
+            xi, yo, twi, ti, B, S, L, h, mode);
+        break;
+      case 1:
+        za::ntt_tail_kernel<1><<<blocks, za::TAIL_TB, 0, st>>>(
+            xi, yo, twi, ti, B, S, L, h, mode);
+        break;
+      case 2:
+        za::ntt_tail_kernel<2><<<blocks, za::TAIL_TB, 0, st>>>(
+            xi, yo, twi, ti, B, S, L, h, mode);
+        break;
+      default:
+        za::ntt_tail_kernel<3><<<blocks, za::TAIL_TB, 0, st>>>(
+            xi, yo, twi, ti, B, S, L, h, mode);
+    }
   }
   return (int)cudaGetLastError();
 }

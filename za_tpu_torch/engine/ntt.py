@@ -1,34 +1,32 @@
 """The NTT over Fr on the device, for the QAP quotient h(x).
 
-Domains of ``FOURSTEP_MIN = 2^12`` and up take the four-step split of
-the reference (za_tpu/engine/ntt_rns.py _fourstep_core, RnsFourStep):
-n = n1 n2, the values viewed as (n2, n1), a sub-NTT of length n2 over
-each of the n1 lane columns, the inter-factor twiddles w^(k2 j1) with a
-transpose to (n1, n2), and a sub-NTT of length n1 over each of the n2
-columns; the result is in natural order.  Each sub-NTT runs its bit
-reversal and first log2(m_fuse) stages in one ``ntt_prefix_fr`` launch
-(the port of the reference's fused Pallas prefix, pallas_ntt.py
-sub_ntt_fused), any stages above m_fuse in ``ntt_stage_fr``; the
-twiddle multiply and transpose is ``ntt_twiddle_fr`` (csrc/ntt.cu).
-The route depends on the size alone, so the CPU runs it too, through
-the plain versions.
-
-Smaller domains take the radix-2 transform, a sub-NTT of one lane: a
-bit-reversal gather, then one ``ntt_stage_fr`` launch per stage.
+Every domain takes the four-step split of the reference
+(za_tpu/engine/ntt_rns.py _fourstep_core, RnsFourStep): n = n1 n2, the
+values viewed as (n2, n1), a sub-NTT of length n2 over each of the n1
+lane columns, the inter-factor twiddles w^(k2 j1) with a transpose to
+(n1, n2), and a sub-NTT of length n1 over each of the n2 columns; the
+result is in natural order.  Each sub-NTT runs its bit reversal and
+first log2(m_fuse) stages in one ``ntt_prefix_fr`` launch (the port of
+the reference's fused Pallas prefix, pallas_ntt.py sub_ntt_fused), and
+the stages above m_fuse (the tail, from a 2^19 domain) in one
+``ntt_stage_fr`` launch; the twiddle multiply and transpose is
+``ntt_twiddle_fr`` (csrc/ntt.cu).  The route depends on the size alone,
+so the CPU runs it too, through the plain versions.
 
 Transforms run on l32 (8, B, n) values (``transform``).  The prefix
 kernel takes in the code at a transform's boundaries: a scaling table on
 load (the coset powers), the combine a b - c of h(x)'s three legs on
 load, and on store a table of plain values with the output in 16-bit
 plain limbs (the inverse coset powers, 1/Z on the coset and from_mont
-in one product), so ``h_transforms`` is launches only on the four-step
-up to 2^18.  Where the prefix does not end a sub-NTT (tail stages above
-2^18) the store side, and on the radix-2 route both sides, run as
-tensor code over ``engine.field`` (``load_plain``, ``store_plain``).  In
-the four-step the inverse twiddles hold 1/n; radix-2 folds it into its
-tables.  Tables are built on the host once per domain size.  Mirrors
-``groth16.domain.Domain``, the host golden model; ``ntt``, ``intt``,
-``coset_ntt`` and ``coset_intt`` keep its l16 interface.
+in one product); where a tail ends the sub-NTT, the tail kernel takes
+the store mode in, so ``h_transforms`` is launches alone at every
+engine domain.  The plain versions run the modes as tensor code over
+``engine.field`` (``load_plain``, ``store_plain``), and so does a
+sub-NTT too short for the prefix (S < 8, or L off its lane tile; no
+engine domain).  The inverse twiddles hold 1/n.  Tables are built on
+the host once per domain size.  Mirrors ``groth16.domain.Domain``, the
+host golden model; ``ntt``, ``intt``, ``coset_ntt`` and ``coset_intt``
+keep its l16 interface.
 """
 
 from __future__ import annotations
@@ -43,13 +41,9 @@ from . import field as F
 from ._build import kernel
 
 FR = F.FR
-NTT_STAGE = kernel("ntt_stage_fr", "ntt", "ppiiii")
+NTT_STAGE = kernel("ntt_stage_fr", "ntt", "ppppiiiiii")
 NTT_PREFIX = kernel("ntt_prefix_fr", "ntt", "pppppiiiii")
 NTT_TWIDDLE = kernel("ntt_twiddle_fr", "ntt", "pppiii")
-
-#: domains at least this large take the four-step (the reference's
-#: FOURSTEP_MIN, ntt_rns.py)
-FOURSTEP_MIN = 1 << 12
 
 #: the ntt_prefix_fr lane tile, L a multiple of it (eight 4-byte lanes:
 #: one 32-byte sector a row and limb plane): PREFIX_LANES in csrc/ntt.cu,
@@ -64,6 +58,10 @@ PREFIX_ROWS = 512
 #: m_fuse rows x PREFIX_LANES lanes x 32 B.  128 KB fuses every stage of
 #: a 512-row sub-NTT (2^18).
 PREFIX_SMEM_BYTES = 128 * 1024
+
+#: stages one ntt_stage_fr launch runs at most (TAIL_MAX_STAGES in
+#: csrc/ntt.cu, which a test holds equal to this one)
+TAIL_MAX_STAGES = 3
 
 #: ntt_prefix_fr's mode flags (csrc/ntt.cu PREFIX_SCALE_IN, ...)
 PREFIX_MODES = {"scale_in": 1, "combine": 2, "scale_out": 4}
@@ -135,39 +133,21 @@ class FourStepTables:
 
 
 class DeviceDomain:
-    """Twiddle and scaling tables of a 2^k domain on ``device``:
-    four-step tables from FOURSTEP_MIN up, radix-2 ones below.  Scaling
-    tables are l32 (8, n); ``h_in`` (Montgomery) and ``h_out`` (plain
-    values) are h(x)'s load and store tables: the coset powers, and the
-    inverse coset powers times 1/Z on the coset, each with 1/n where the
-    transform does not fold it in (radix-2)."""
+    """Twiddle and scaling tables of a 2^k domain on ``device``: the
+    four-step tables, and l32 (8, n) scaling tables: the coset powers
+    (``coset_pow``, h(x)'s load table), their inverses (``coset_inv``),
+    and ``h_out``, h(x)'s store table of plain values: the inverse coset
+    powers times 1/Z on the coset (1/n is in the inverse transform)."""
 
     def __init__(self, size: int, device):
         self.size = size
         self.host = h = Domain(size)
+        self.fourstep = FourStepTables(h, device)
         self.coset_pow = _table32(_pow_list(h.coset_gen, size), device)
-        if size >= FOURSTEP_MIN:
-            self.fourstep = FourStepTables(h, device)
-            # the four-step inverse folds 1/n into its inter twiddles
-            self.coset_inv_nofold = _table32(
-                _pow_list(h.coset_gen_inv, size), device)
-            self.h_in = self.coset_pow
-            self.h_out = _table32(
-                _pow_list(h.coset_gen_inv, size, h.z_coset_inv), device,
-                mont=False)
-            return
-        self.fourstep = None
-        self.w_fwd = _twiddles(h.omega, size // 2, device)
-        self.w_inv = _twiddles(h.omega_inv, size // 2, device)
-        self.size_inv = _table32([h.size_inv], device)
-        # inverse coset scaling with 1/n folded in
-        self.coset_inv_pow = _table32(
-            _pow_list(h.coset_gen_inv, size, scale=h.size_inv), device)
-        self.h_in = _table32(_pow_list(h.coset_gen, size, h.size_inv),
-                             device)
+        self.coset_inv = _table32(_pow_list(h.coset_gen_inv, size), device)
         self.h_out = _table32(
-            _pow_list(h.coset_gen_inv, size, h.size_inv * h.z_coset_inv),
-            device, mont=False)
+            _pow_list(h.coset_gen_inv, size, h.z_coset_inv), device,
+            mont=False)
 
 
 # -- the three kernels and their plain versions ------------------------------
@@ -199,32 +179,49 @@ def _bitrev_rows(x: torch.Tensor) -> torch.Tensor:
     return x.index_select(2, _bitrev_index(x.shape[2], x.device))
 
 
-def ntt_stages_plain(x: torch.Tensor, tw: torch.Tensor,
-                     start: int = 2) -> torch.Tensor:
+def ntt_stages_plain(x: torch.Tensor, tw: torch.Tensor, start: int = 2,
+                     scale_out=None) -> torch.Tensor:
     """DIT stages of lengths start..S along axis 2 of l32 (8, B, S, L)
-    whose rows are in bit-reversed order (the earlier stages done)."""
+    whose rows are in bit-reversed order (the earlier stages done); the
+    store mode as store_plain."""
     S = x.shape[2]
-    return F.pack(_stages16(F.unpack(x), F.unpack(tw), start, S))
+    y = F.pack(_stages16(F.unpack(x), F.unpack(tw), start, S))
+    return store_plain(y, scale_out)
 
 
-def ntt_stages(x: torch.Tensor, tw: torch.Tensor,
-               start: int = 2) -> torch.Tensor:
-    """The stage kernel, launched once per stage on a copy of x."""
+def ntt_stages(x: torch.Tensor, tw: torch.Tensor, start: int = 2,
+               scale_out=None) -> torch.Tensor:
+    """The tail kernel, out of place: the stages of lengths start..S in
+    one launch (up to TAIL_MAX_STAGES a launch), with the prefix's store
+    mode: scale_out (8, S L) plain values multiplied in on store, (16, B,
+    S, L) plain limbs out."""
     if x.device.type == "cpu":
-        return ntt_stages_plain(x, tw, start)
+        return ntt_stages_plain(x, tw, start, scale_out)
     _, B, S, L = x.shape
     if (x.dtype != torch.int32 or tw.dtype != torch.int32
-            or tw.shape != (8, S // 2) or S & (S - 1)
-            or start & (start - 1) or start < 2):
+            or tw.shape != (8, max(S // 2, 1)) or S & (S - 1)
+            or start & (start - 1) or not 2 <= start <= 2 * S
+            or (scale_out is not None
+                and (scale_out.dtype != torch.int32
+                     or scale_out.shape != (8, S * L)))):
         raise ValueError("ntt_stages: int32 (8, B, 2^k, L) values, "
-                         "(8, 2^(k-1)) twiddles, a power-of-two start")
-    y = x.contiguous().clone()
-    tw = tw.contiguous()
+                         "(8, 2^(k-1)) twiddles, a power-of-two start "
+                         "2 <= start <= 2^(k+1), an (8, 2^k L) store table")
     h = start // 2
-    while h < S:
-        NTT_STAGE(y, tw, B, S, L, h)
-        h *= 2
-    return y
+    left = (S // h).bit_length() - 1       # stages to run
+    if left == 0 and scale_out is None:
+        return x
+    x, tw = x.contiguous(), tw.contiguous()
+    while True:
+        s = min(left, TAIL_MAX_STAGES)
+        store = s == left and scale_out is not None
+        y = torch.empty((16 if store else 8, B, S, L), dtype=torch.int32,
+                        device=x.device)
+        NTT_STAGE(x, y, tw, scale_out.contiguous() if store else x, B, S,
+                  L, h, s, PREFIX_MODES["scale_out"] if store else 0)
+        if s == left:
+            return y
+        x, h, left = y, h << s, left - s
 
 
 def prefix_rows(S: int, L: int) -> int:
@@ -347,22 +344,22 @@ def ntt_twiddle(a: torch.Tensor, inter: torch.Tensor) -> torch.Tensor:
 def _sub_ntt(x, table, S, prefix, stages, scale_in=None, combine=False,
              scale_out=None):
     m = prefix_rows(S, x.shape[3])
-    if m < 4:   # nothing worth fusing at this shape
-        y = stages(_bitrev_rows(load_plain(x, scale_in, combine)), table, 2)
-        return store_plain(y, scale_out)
+    if m < 4:   # nothing worth fusing at this shape (no engine domain)
+        return stages(_bitrev_rows(load_plain(x, scale_in, combine)), table,
+                      2, scale_out)
     if m == S:
         return prefix(x, table, m, scale_in, combine, scale_out)
-    y = stages(prefix(x, table, m, scale_in, combine), table, 2 * m)
-    return store_plain(y, scale_out)
+    return stages(prefix(x, table, m, scale_in, combine), table, 2 * m,
+                  scale_out)
 
 
 def sub_ntt(x: torch.Tensor, table: torch.Tensor, S: int, scale_in=None,
             combine: bool = False, scale_out=None) -> torch.Tensor:
     """Radix-2 DIT NTT along axis 2 of l32 (8, B, S, L), natural order
     in and out: the bit reversal and stages 2..m_fuse in the prefix
-    kernel, the stages 2 m_fuse..S in the stage kernel.  The load modes
-    run in the prefix, the store mode too where it ends the transform
-    (m_fuse = S), else in tensor code (load_plain, store_plain)."""
+    kernel, the stages 2 m_fuse..S in the tail kernel.  The load modes
+    run in the prefix, the store mode in the launch that ends the
+    sub-NTT."""
     return _sub_ntt(x, table, S, ntt_prefix, ntt_stages, scale_in, combine,
                     scale_out)
 
@@ -395,20 +392,13 @@ def transform(dom: DeviceDomain, x: torch.Tensor, inverse: bool,
               scale_in=None, combine: bool = False,
               scale_out=None) -> torch.Tensor:
     """NTT along the last axis of l32 (8, B, n) Montgomery values,
-    natural order in and out, by w^-1 where inverse (four-step: times
-    1/n).  The prefix's modes: scale_in (8, n) Montgomery multiplied in
-    on load; combine: B = 3 i legs a, b, c -> a b - c; scale_out (8, n)
-    plain values multiplied in on store, (16, B, n) int32 plain limbs
-    out."""
+    natural order in and out, by w^-1 times 1/n where inverse.  The
+    modes: scale_in (8, n) Montgomery multiplied in on load; combine:
+    B = 3 i legs a, b, c -> a b - c; scale_out (8, n) plain values
+    multiplied in on store, (16, B, n) int32 plain limbs out."""
     fs = dom.fourstep
-    if fs is not None:
-        return fourstep_core(x, *fs.tables(inverse), fs.n1, fs.n2,
-                             scale_in, combine, scale_out)
-    # radix-2: one sub-NTT over a single lane, nothing fused
-    table = dom.w_inv if inverse else dom.w_fwd
-    y = sub_ntt(x.unsqueeze(-1), table, dom.size, scale_in, combine,
-                scale_out)
-    return y.squeeze(-1)
+    return fourstep_core(x, *fs.tables(inverse), fs.n1, fs.n2, scale_in,
+                         combine, scale_out)
 
 
 def _core(dom: DeviceDomain, x: torch.Tensor, inverse: bool, **modes):
@@ -431,10 +421,7 @@ def ntt(dom: DeviceDomain, coeffs):
 
 
 def intt(dom: DeviceDomain, evals):
-    x = _core(dom, evals, True)
-    if dom.fourstep is not None:  # inter_inv holds 1/n
-        return x
-    return _scale(x, dom.size_inv)
+    return _core(dom, evals, True)   # inter_inv holds 1/n
 
 
 def coset_ntt(dom: DeviceDomain, coeffs):
@@ -442,10 +429,7 @@ def coset_ntt(dom: DeviceDomain, coeffs):
 
 
 def coset_intt(dom: DeviceDomain, evals):
-    x = _core(dom, evals, True)
-    if dom.fourstep is not None:
-        return _scale(x, dom.coset_inv_nofold)
-    return _scale(x, dom.coset_inv_pow)
+    return _scale(_core(dom, evals, True), dom.coset_inv)
 
 
 def h_transforms(dom: DeviceDomain, legs: torch.Tensor) -> torch.Tensor:
@@ -454,6 +438,6 @@ def h_transforms(dom: DeviceDomain, legs: torch.Tensor) -> torch.Tensor:
     powers, 1/Z on the coset and from_mont on store) -> (16, m) int32
     plain limbs of h_0 .. h_{m-1}."""
     x = transform(dom, legs, True)
-    x = transform(dom, x, False, scale_in=dom.h_in)
+    x = transform(dom, x, False, scale_in=dom.coset_pow)
     h = transform(dom, x, True, combine=True, scale_out=dom.h_out)
     return h.reshape(F.NLIMBS, dom.size)
