@@ -53,6 +53,20 @@ Phases:
      each MSM's launches in place ("msm_inline_ms": carry, fold,
      Horner, the first and the last chunk's levels), "h_torch_ops" all
      zero, peak memory, the phase's seconds; one JSON line;
+  4c. the user's path, the za CLI and a prove from a pk file: (a)
+     ``python3 -m za_tpu_torch.cli`` setup (host, random toxic waste),
+     prove twice on the card and verify, each a process of its own, on
+     bench.py's chain as circuit text at 600 constraints (past the
+     staged gate); (b) the chain's text at 2^17 constraints compiled by
+     the port's Evaluator and optimizer, its pk (pool queries, the vk
+     solved from their logs) written by format.write_pk, then
+     helper.prove three times: interpreting and staging (writing
+     <pk>.wtrace and <pk>.gpucache), replaying natively and loading the
+     cache, and again in a process of its own; three equal proofs,
+     exact against the host's values; pk read, compile, witness,
+     staging against the cache load, prove, self-verify and wall
+     seconds, peak memory, and what a process pays outside
+     helper.prove (imports, CUDA context) at both sizes; one JSON line;
   5. each kernel against its plain PyTorch version on the shapes of the
      path that runs it, exact equality (integers mod p), timed beside
      its bound; the tree levels at every level of one 2^17 chunk
@@ -91,6 +105,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -272,7 +287,7 @@ def pool_query_g1(rng, k: int, pool: int = 67):
 
     from za_tpu_torch.curve import G1_GEN, R, g1_mul
     from za_tpu_torch.engine import ec
-    from za_tpu_torch.groth16.convert import RawG1Query
+    from za_tpu_torch.groth16.format import RawG1Query
 
     s = [rng.randrange(1, R) for _ in range(pool)]
     x, y, z = ec.g1_limb_coords([g1_mul(G1_GEN, v) for v in s])
@@ -285,12 +300,24 @@ def pool_query_g2(rng, k: int, pool: int = 19):
 
     from za_tpu_torch.curve import G2_GEN, R, g2_mul
     from za_tpu_torch.engine import ec
-    from za_tpu_torch.groth16.convert import RawG2Query
+    from za_tpu_torch.groth16.format import RawG2Query
 
     s = [rng.randrange(1, R) for _ in range(pool)]
     c = ec.g2_limb_coords([g2_mul(G2_GEN, v) for v in s])
     idx = np.arange(k) % pool
     return RawG2Query(*(a[:, idx] for a in c[:5])), s
+
+
+def pool_points(rng, k: int, pool: int, g2: bool = False):
+    """k points cycling through a prime-size pool with known discrete
+    logs, as the point list format.write_pk writes -> (points, dlogs);
+    the draws of pool_query_g1 / pool_query_g2."""
+    from za_tpu_torch.curve import G1_GEN, G2_GEN, R, g1_mul, g2_mul
+
+    s = [rng.randrange(1, R) for _ in range(pool)]
+    mul, gen = (g2_mul, G2_GEN) if g2 else (g1_mul, G1_GEN)
+    pts = [mul(gen, v) for v in s]
+    return [pts[i % pool] for i in range(k)], s
 
 
 def pooled_dot(scalars, dlogs) -> int:
@@ -630,7 +657,7 @@ def off_curve_refused(params, r1cs) -> dict:
     import dataclasses
 
     from za_tpu_torch.engine.engine import GpuEngine
-    from za_tpu_torch.groth16.convert import FormatError, G1_KEYS, G2_KEYS
+    from za_tpu_torch.groth16.format import FormatError, G1_KEYS, G2_KEYS
 
     out = {}
     for g, name, key, keys in (("g1", "a", "y", G1_KEYS),
@@ -989,6 +1016,330 @@ def real_proof():
         f"{time.time() - t1:.1f}s, verifies={ok}")
     assert ok, "the 510-constraint proof does not verify"
     return launches
+
+
+# -- phase 4c: the za CLI and a prove from a pk file ---------------------------------
+
+# bench.py's multiplier chain as circuit text (bench.py witness_bench)
+CHAIN_ZA = (
+    "template chain(N) {\n"
+    " signal input x;\n signal output out;\n signal t[N];\n"
+    " t[0] <== x * x;\n"
+    " for (var i=1;i<N;i+=1) { t[i] <== t[i-1] * t[i-1] + i; }\n"
+    " out <== t[N-1];\n}\ncomponent main = chain(%d);\n"
+)
+CLI_N = 600        # the round trip's chain: past the staged gate of 512
+CLI_X = 3
+# a process's start-up, timed alone: the interpreter and the modules a
+# prove imports; the CUDA context (printed in seconds)
+STARTUP_IMPORTS = ("import za_tpu_torch.cli, za_tpu_torch.groth16.helper, "
+                   "za_tpu_torch.engine.engine")
+STARTUP_CUDA = ("import time, torch; t = time.time(); "
+                "torch.zeros(1, device='cuda'); torch.cuda.synchronize(); "
+                "print(time.time() - t)")
+# the third 2^17 prove, a process of its own as a user's `za prove` is:
+# argv pk, x, r, s, out -> out holds the proof.json string, the
+# prove's timings, its stage_info, its launches and the process's import
+# and CUDA start-up seconds
+PROVE_CHILD = """
+import json, sys, time
+t0 = time.time()
+import torch
+from za_tpu_torch.algebra import FS
+from za_tpu_torch.engine import _build
+from za_tpu_torch.engine.engine import GpuEngine
+from za_tpu_torch.groth16 import helper
+import_s = time.time() - t0
+pk, x, r, s, out = sys.argv[1:]
+t0 = time.time()
+eng = GpuEngine()
+torch.zeros(1, device=eng.device)
+torch.cuda.synchronize()
+t = {"import_s": import_s, "cuda_init_s": time.time() - t0}
+pj = helper.prove(pk, [("main.x", FS(int(x)))], engine=eng,
+                  deterministic_rs=(int(r), int(s)), timings=t)
+t.update(eng.stage_info)
+t["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+t["launches"] = {k.name: k.launches for k in _build.KERNELS.values()}
+with open(out, "w") as f:
+    json.dump({"proof": pj, "timings": t}, f)
+"""
+
+
+def cli_round_trip(root: str, work: str) -> dict:
+    """python3 -m za_tpu_torch.cli setup (host, random toxic waste),
+    prove twice (the card, the default engine) and verify, each a
+    process of its own, on the chain at CLI_N constraints -> seconds a
+    command.  The first prove interprets and writes <pk>.wtrace, the
+    second replays it; both check the constraints on the device (the
+    staged branch) and both proofs verify.  The second prove's seconds
+    are split at helper.prove's wall; a process's imports and its CUDA
+    context are timed alone."""
+    d = os.path.join(work, "cli")
+    os.makedirs(d)
+    with open(os.path.join(d, "circuit.za"), "w") as f:
+        f.write(CHAIN_ZA % CLI_N)
+    with open(os.path.join(d, "input.json"), "w") as f:
+        json.dump({"x": str(CLI_X)}, f)
+    env = dict(os.environ, PYTHONPATH=root)
+    out = {}
+
+    def za(tag, *argv):
+        t0 = time.time()
+        p = subprocess.run([sys.executable, "-m", "za_tpu_torch.cli", "-v",
+                            *argv], cwd=d, env=env, capture_output=True,
+                           text=True, timeout=600)
+        out[tag] = time.time() - t0
+        if p.returncode != 0 and tag not in ("verify_tampered",):
+            raise AssertionError(f"za {' '.join(argv)}: rc {p.returncode}"
+                                 f"\n{p.stdout}\n{p.stderr[-4000:]}")
+        return p
+
+    za("setup_s", "setup", "--verifiertype", "json")
+    first = za("prove1_s", "prove")
+    assert os.path.exists(os.path.join(d, "proving.key.wtrace")), \
+        "the first prove wrote no .wtrace"
+    second = za("prove2_s", "prove", "--proof", "proof2.json")
+    for tag, p in (("first", first), ("second", second)):
+        assert "(device)" in p.stderr and "(host)" not in p.stderr, \
+            f"{tag} CLI prove: constraint check not on the device"
+    assert "Witness generation time" in first.stderr
+    assert "Witness replay time" in second.stderr
+    assert "Witness generation time" not in second.stderr, \
+        "the second CLI prove re-interpreted the circuit"
+    # what the second prove's process pays outside helper.prove: the
+    # interpreter and the imports (timed alone), the CUDA context (timed
+    # alone), input.json and proof.json
+    helper_wall = re.search(r"prove wall time: ([0-9.]+)s", second.stderr)
+    assert helper_wall, "the second CLI prove logged no wall time"
+    out["prove2_helper_wall_s"] = float(helper_wall.group(1))
+    out["prove2_outside_helper_s"] = (out["prove2_s"]
+                                      - out["prove2_helper_wall_s"])
+    t0 = time.time()
+    subprocess.run([sys.executable, "-c", STARTUP_IMPORTS], cwd=d, env=env,
+                   check=True, timeout=600)
+    out["startup_import_s"] = time.time() - t0
+    p = subprocess.run([sys.executable, "-c", STARTUP_CUDA], cwd=d, env=env,
+                       check=True, capture_output=True, text=True,
+                       timeout=600)
+    out["startup_cuda_init_s"] = float(p.stdout.split()[-1])
+    for proof in ("proof.json", "proof2.json"):
+        p = za("verify_s", "verify", "--proof", proof)
+        assert p.stdout.strip() == "OK", f"verify {proof}: {p.stdout!r}"
+    # a tampered public input must not verify
+    with open(os.path.join(d, "proof.json")) as f:
+        pj = json.load(f)
+    pj["public_inputs"][0] = str(int(pj["public_inputs"][0]) + 1)
+    with open(os.path.join(d, "bad.json"), "w") as f:
+        json.dump(pj, f)
+    p = za("verify_tampered", "verify", "--proof", "bad.json")
+    assert p.returncode == 1 and p.stdout.strip() == "INVALID", p.stdout
+    out.pop("verify_tampered")
+    out["constraints"] = CLI_N
+    log(f"CLI round trip at {CLI_N} constraints: {out}")
+    return out
+
+
+def chain_z(signals, r1cs, n: int, x: int) -> list:
+    """The chain's witness in closed form (t[0] = x^2, t[i] = t[i-1]^2 +
+    i, out = t[n-1]), placed by the R1CS's variable map."""
+    from za_tpu_torch.curve import R
+
+    t = [x * x % R]
+    for i in range(1, n):
+        t.append((t[-1] * t[-1] + i) % R)
+    val = {"main.x": x, "main.out": t[-1]}
+    val.update((f"main.t[{i}]", v) for i, v in enumerate(t))
+    z = [0] * r1cs.num_vars
+    z[0] = 1
+    for sid, v in enumerate(r1cs.var_of_signal):
+        if v is not None and sid > 0:
+            z[v] = val[signals.get_by_id(sid).full_name]
+    return z
+
+
+def cli_path(torch, root: str) -> tuple:
+    """The user's path at full width: (a) the CLI round trip; (b) the
+    chain at 2^LOG2N constraints as circuit text, compiled by the port's
+    Evaluator and optimizer, its pk (queries from prime-size pools,
+    vk solved from their logs for the proof of a fixed r, s) written
+    with format.write_pk, then helper.prove on the card three times:
+    twice in one GpuEngine (the first interprets the circuit, stages
+    the tables and writes <pk>.wtrace and <pk>.gpucache; the second
+    replays natively and loads the cache), once in a process of its own
+    (PROVE_CHILD: replays, loads).  The three proof.json strings must be equal and
+    hold the exact host values -> (the phase's line, the three proves'
+    launches)."""
+    import shutil
+    import tempfile
+
+    from za_tpu_torch.compiler import Evaluator, Mode, optimize
+    from za_tpu_torch.compiler.evaluator import Scope
+    from za_tpu_torch.curve import G1_GEN, G2_GEN, R, g1_mul, g2_mul
+    from za_tpu_torch.algebra import FS
+    from za_tpu_torch.engine import _build
+    from za_tpu_torch.engine.engine import GpuEngine
+    from za_tpu_torch.engine.field import limbs_to_ints
+    from za_tpu_torch.groth16 import format as fmt, helper
+    from za_tpu_torch.groth16.domain import Domain
+    from za_tpu_torch.groth16.r1cs import R1CS
+    from za_tpu_torch.groth16.setup import Groth16Parameters, VerifyingKey
+    from za_tpu_torch.native import wtrace_lib
+
+    t_phase = time.time()
+    work = tempfile.mkdtemp(prefix="za_cli_")
+    try:
+        result = {"metric": f"za_prove_from_pk_{1 << LOG2N}c",
+                  "round_trip_s": cli_round_trip(root, work)}
+
+        n = 1 << LOG2N
+        t0 = time.time()
+        ev = Evaluator(Mode.GEN_CONSTRAINTS)
+        ev.eval_inline(Scope(True, None, "root"), CHAIN_ZA % n)
+        result["compile_s"] = time.time() - t0
+        t0 = time.time()
+        cons, removed = optimize(ev.constraints, ev.signals.main_input_ids())
+        r1cs = R1CS.from_constraints(ev.signals, cons, removed)
+        result["optimize_r1cs_s"] = time.time() - t0
+        ni, nv = r1cs.num_inputs, r1cs.num_vars
+        domain = Domain.for_constraints(r1cs.num_constraints + ni)
+        m = domain.size
+        assert (r1cs.num_constraints, ni, m) == (n, 3, 2 * n), \
+            (r1cs.num_constraints, ni, m)
+        z = chain_z(ev.signals, r1cs, n, CLI_X)
+
+        # the pk: pool queries, the expected proof from their logs
+        t0 = time.time()
+        rng = random.Random(SEED + 1)
+        a_q, sa = pool_points(rng, nv, 67)
+        b1_q, sb1 = pool_points(rng, nv, 67)
+        l_q, sl = pool_points(rng, r1cs.num_aux, 67)
+        h_q, sh = pool_points(rng, m - 1, 67)
+        b2_q, sb2 = pool_points(rng, nv, 19, g2=True)
+        alpha, beta, delta = (rng.randrange(1, R) for _ in range(3))
+        rs = (rng.randrange(1, R), rng.randrange(1, R))
+        h = limbs_to_ints(GpuEngine().h_coeffs_limbs(r1cs, z, domain).cpu())
+        tpt = rng.randrange(2, R)
+        lag = domain.lagrange_at(tpt)
+        az, bz, cz = r1cs.eval_constraints(z)
+        az = az + list(z[:ni])
+        A = sum(a * lag[j] for j, a in enumerate(az)) % R
+        B = sum(b * lag[j] for j, b in enumerate(bz)) % R
+        C = sum(c * lag[j] for j, c in enumerate(cz)) % R
+        ht = 0
+        for c in reversed(h):
+            ht = (ht * tpt + c) % R
+        assert ht * (pow(tpt, m, R) - 1) % R == (A * B - C) % R, "h(x)"
+        a_d, b_d = r1cs.densities()
+        za_ = [v * d for v, d in zip(z, a_d)]
+        zb_ = [v * d for v, d in zip(z, b_d)]
+        want = {"a": pooled_dot(za_, sa), "b1": pooled_dot(zb_, sb1),
+                "l": pooled_dot(z[ni:], sl), "h": pooled_dot(h, sh),
+                "b2": pooled_dot(zb_, sb2)}
+        r_, s_ = rs
+        pa = (alpha + want["a"] + r_ * delta) % R
+        pb = (beta + want["b2"] + s_ * delta) % R
+        pb1 = (beta + want["b1"] + s_ * delta) % R
+        pc = (want["l"] + want["h"] + s_ * pa + r_ * pb1
+              - r_ * s_ * delta) % R
+        ic0 = (pa * pb - alpha * beta - pc * delta - sum(z[1:ni])) % R
+        vk = VerifyingKey(
+            alpha_g1=g1_mul(G1_GEN, alpha), beta_g1=g1_mul(G1_GEN, beta),
+            beta_g2=g2_mul(G2_GEN, beta), gamma_g2=G2_GEN,
+            delta_g1=g1_mul(G1_GEN, delta),
+            delta_g2=g2_mul(G2_GEN, delta),
+            ic=[g1_mul(G1_GEN, ic0)] + [G1_GEN] * (ni - 1))
+        params = Groth16Parameters(vk=vk, h=h_q, l=l_q, a=a_q, b_g1=b1_q,
+                                   b_g2=b2_q, domain_size=m)
+        result["pk_inputs_s"] = time.time() - t0
+        pk = os.path.join(work, "proving.key")
+        t0 = time.time()
+        with open(pk, "wb") as f:
+            fmt.write_pk(f, ev.collected_asts, cons, removed, params,
+                         densities=(a_d, b_d))
+        result["pk_write_s"] = time.time() - t0
+        result["pk_bytes"] = os.path.getsize(pk)
+        del ev, params, a_q, b1_q, l_q, h_q, b2_q
+        log(f"2^{LOG2N} pk from circuit text: compile "
+            f"{result['compile_s']:.1f}s, {result['pk_bytes']} bytes")
+
+        # three proves, the launches counted over them: two in this
+        # process, one in a process of its own
+        inputs = [("main.x", FS(CLI_X))]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        eng = GpuEngine()
+        proves = []
+        for k in range(2):
+            t = {}
+            pj = helper.prove(pk, inputs, engine=eng,
+                              deterministic_rs=rs, timings=t)
+            t.update(eng.stage_info)
+            proves.append((pj, t))
+            if k == 0:
+                assert os.path.isdir(pk + helper.GPUCACHE_SUFFIX) and \
+                    os.path.exists(pk + ".wtrace"), "no .wtrace/.gpucache"
+        launches = launch_counts()
+        result["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        assert wtrace_lib() is not None, "the native replay did not build"
+        del eng
+        torch.cuda.empty_cache()
+        out = os.path.join(work, "child.json")
+        t0 = time.time()
+        subprocess.run([sys.executable, "-c", PROVE_CHILD, pk, str(CLI_X),
+                        str(rs[0]), str(rs[1]), out], cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root), check=True,
+                       timeout=900)
+        process_s = time.time() - t0
+        with open(out) as f:
+            child = json.load(f)
+        t = child["timings"]
+        launches = {k: v + t["launches"].get(k, 0)
+                    for k, v in launches.items()}
+        proves.append((child["proof"], t))
+        result["fresh_process"] = {
+            "process_s": process_s, "import_s": t["import_s"],
+            "cuda_init_s": t["cuda_init_s"],
+            "outside_helper_s": process_s - t["wall_s"],
+            "peak_mem_bytes": t["peak_mem_bytes"]}
+        ways = [(t["witness"], t["source"], t["cache"]) for _, t in proves]
+        assert ways == [("interpret", "staged", "miss")] + [
+            ("replay_native", "cache", "hit")] * 2, ways
+        assert proves[0][0] == proves[1][0] == proves[2][0], "proofs differ"
+        proof, pub = fmt.proof_from_json(proves[0][0])
+        assert pub == z[1:ni], "public inputs"
+        assert proof.a == g1_mul(G1_GEN, pa), "proof A"
+        assert proof.b == g2_mul(G2_GEN, pb), "proof B"
+        assert proof.c == g1_mul(G1_GEN, pc), "proof C"
+        assert not os.path.exists(pk + ".devcache")
+        cache = pk + helper.GPUCACHE_SUFFIX
+        result.update({
+            "constraints": n, "domain": m, "route": "tree",
+            "witness_interpret_s": proves[0][1]["witness_s"],
+            "witness_replay_s": [t["witness_s"] for _, t in proves[1:]],
+            "stage_s": proves[0][1]["stage_s"],
+            "cache_save_s": proves[0][1]["cache_save_s"],
+            "cache_load_s": [t["cache_load_s"] for _, t in proves[1:]],
+            "cache_bytes": proves[1][1]["cache_bytes"],
+            "cache_disk_bytes": sum(
+                os.path.getsize(os.path.join(cache, f))
+                for f in os.listdir(cache)),
+            "wtrace_bytes": os.path.getsize(pk + ".wtrace"),
+            "wtrace_dump_s": proves[0][1]["wtrace_dump_s"],
+            **{k: [t[k] for _, t in proves] for k in (
+                "pk_read_s", "digest_s", "wtrace_load_s", "witness_s",
+                "sat_check_s", "prove_s", "self_verify_s", "wall_s")},
+            "launches": launches,
+        })
+        log(f"2^{LOG2N} from the pk: three equal proofs (the third in a "
+            f"process of its own, {process_s:.1f}s); helper walls "
+            f"{result['wall_s']}, stage {result['stage_s']:.2f}s against "
+            f"cache loads {result['cache_load_s']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result["phase_s"] = time.time() - t_phase
+    return result, launches
 
 
 # -- phase 5: kernels against their plain versions ----------------------------------
@@ -1724,11 +2075,13 @@ def main() -> int:
     assert big["route"] == "tree", f"2^{LOG2N_BIG} did not take the tree"
     bctx = {"per_proof": bctx["per_proof"],
             "dom": bctx["eng"]._domain(bctx["m"])}   # the tables go
+    cli, cli_launches = cli_path(torch, root)
     per_path = {"tree": tree_launches["default"],
                 "dense": dense_launches["default"],
                 "fused": dense_launches["fused"],
                 "check510": check_launches,
-                f"tree_2^{LOG2N_BIG}": big_launches["default"]}
+                f"tree_2^{LOG2N_BIG}": big_launches["default"],
+                f"cli_2^{LOG2N}": cli_launches}
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in _build.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
@@ -1757,7 +2110,7 @@ def main() -> int:
                        (1 << (LOG2N_DENSE + 1), dctx))}
         | {bctx["dom"].size: bctx["dom"].fourstep})
 
-    for result in (tree, dense, big):
+    for result in (tree, dense, big, cli):
         result.update({"device": torch.cuda.get_device_name(0),
                        "card": card})
     tree.update({"build_s": build_s, "smoke_s": time.time() - t_start,
@@ -1767,6 +2120,7 @@ def main() -> int:
     print(json.dumps(tree))
     print(json.dumps(dense))
     print(json.dumps(big))
+    print(json.dumps(cli))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

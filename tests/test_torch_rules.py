@@ -4,6 +4,7 @@ wrappers never take a CPU path for CUDA work; chip_smoke.py refuses to
 run without a card or without the package."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -26,9 +27,19 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "za_tpu"
              or m.startswith("za_tpu."))
-print(len([m for m in sys.modules if m.startswith("za_tpu_torch")]))
+print(" ".join(sorted(m for m in sys.modules if m.startswith("za_tpu_torch"))))
 assert not bad, bad
 """
+
+# the subpackages and modules of the CLI path, which must be among them
+CLI_PATH = ("za_tpu_torch.algebra", "za_tpu_torch.lang",
+            "za_tpu_torch.lang.parser", "za_tpu_torch.compiler",
+            "za_tpu_torch.compiler.evaluator", "za_tpu_torch.compiler.wtrace",
+            "za_tpu_torch.compiler.tester", "za_tpu_torch.native",
+            "za_tpu_torch.groth16.bincode", "za_tpu_torch.groth16.format",
+            "za_tpu_torch.groth16.ethereum", "za_tpu_torch.groth16.helper",
+            "za_tpu_torch.cli")
+_IMPORT = re.compile(r"^\s*(from|import) (za_tpu|jax)\b", re.M)
 
 
 def test_package_imports_no_jax_and_no_za_tpu():
@@ -37,7 +48,15 @@ def test_package_imports_no_jax_and_no_za_tpu():
                          capture_output=True, text=True, env=env,
                          timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15  # every module was imported
+    mods = set(out.stdout.split())
+    assert len(mods) >= 28 and set(CLI_PATH) <= mods  # every module
+    # and no import line names either, not even one never executed
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(
+            os.path.join(ROOT, "za_tpu_torch")) for f in fs
+        if f.endswith(".py")]
+    bad = [f for f in files if _IMPORT.search(open(f).read())]
+    assert not bad, bad
 
 
 def test_engine_needs_cuda(monkeypatch):

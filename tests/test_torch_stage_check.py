@@ -31,7 +31,7 @@ from za_tpu_torch.curve import (
 from za_tpu_torch.engine import ec
 from za_tpu_torch.engine.engine import GpuEngine
 from za_tpu_torch.engine.field import ints_to_limbs, limbs_to_ints
-from za_tpu_torch.groth16.convert import FormatError, RawG1Query, RawG2Query
+from za_tpu_torch.groth16.format import FormatError, RawG1Query, RawG2Query
 from za_tpu_torch.groth16.r1cs import R1CS
 from za_tpu_torch.groth16.setup import Groth16Parameters, VerifyingKey
 

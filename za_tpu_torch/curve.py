@@ -336,16 +336,62 @@ def g1_neg(p: G1Point) -> G1Point:
     return None if p is None else (p[0], (-p[1]) % Q)
 
 
+def _jac_double(X, Y, Z):
+    """2(X : Y : Z) in Jacobian coordinates on y^2 = x^3 + b (dbl-2009-l)."""
+    A = X * X
+    B = Y * Y
+    C = B * B
+    D = ((X + B) * (X + B) - A - C) * 2
+    E = A * 3
+    X3 = E * E - D * 2
+    return X3, E * (D - X3) - C * 8, Y * Z * 2
+
+
+def _jac_mul(p, k: int, reduce, one, zero):
+    """k p by double-and-add in Jacobian coordinates with affine
+    additions (madd-2007-bl), so the caller inverts once instead of once
+    an add.  reduce(v) -> v's canonical form, zero(v) -> whether it is
+    0, one: the coordinate field's 1 (an int or an Fq2); returns (Z, X,
+    Y), None for infinity."""
+    if p is None or k == 0:
+        return None
+    x2, y2 = p
+    X, Y, Z = one, one, one * 0
+    for bit in bin(k)[2:]:
+        if not zero(Z):
+            X, Y, Z = (reduce(c) for c in _jac_double(X, Y, Z))
+        if bit == "1":
+            if zero(Z):
+                X, Y, Z = x2, y2, one
+                continue
+            ZZ = reduce(Z * Z)
+            H = reduce(x2 * ZZ - X)
+            r = reduce(y2 * Z * ZZ - Y)
+            if zero(H):
+                if zero(r):
+                    X, Y, Z = (reduce(c) for c in _jac_double(X, Y, Z))
+                else:
+                    Z = one * 0
+                continue
+            HH = reduce(H * H)
+            HHH = reduce(H * HH)
+            V = reduce(X * HH)
+            X3 = reduce(r * r - HHH - V * 2)
+            X, Y, Z = X3, reduce(r * (V - X3) - Y * HHH), reduce(Z * H)
+    if zero(Z):
+        return None
+    return Z, X, Y
+
+
 def g1_mul(p: G1Point, k: int) -> G1Point:
-    k %= R
-    result: G1Point = None
-    add = p
-    while k:
-        if k & 1:
-            result = g1_add(result, add)
-        add = g1_add(add, add)
-        k >>= 1
-    return result
+    p = None if p is None else (p[0] % Q, p[1] % Q)
+    out = _jac_mul(p, k % R, lambda v: v % Q, 1, lambda v: v == 0)
+    if out is None:
+        return None
+    Z, X, Y = out
+    zi = _inv(Z, Q)
+    zi2 = zi * zi % Q
+    return (X * zi2 % Q, Y * zi2 * zi % Q)
 
 
 def g2_add(p1: G2Point, p2: G2Point) -> G2Point:
@@ -357,14 +403,17 @@ def g2_neg(p: G2Point) -> G2Point:
 
 
 def g2_mul(p: G2Point, k: int) -> G2Point:
-    result: G2Point = None
-    add = p
-    while k:
-        if k & 1:
-            result = g2_add(result, add)
-        add = g2_add(add, add)
-        k >>= 1
-    return result
+    out = _jac_mul(p, k, lambda v: v, Fq2.one(), lambda v: v.is_zero())
+    if out is None:
+        return None
+    Z, X, Y = out
+    zi = Z.inv()
+    zi2 = zi.square()
+    return (X * zi2, Y * zi2 * zi)
+
+
+def g2_is_in_subgroup(p: G2Point) -> bool:
+    return g2_is_on_curve(p) and g2_mul(p, R) is None
 
 
 # -- optimal ate pairing -----------------------------------------------------

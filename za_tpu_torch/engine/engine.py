@@ -6,7 +6,7 @@ Provides the surface ``groth16.prove`` calls: ``stage_params``,
 ``msm_g1``, ``msm_g2``, plus the staging calls ``stage_g1_affine`` /
 ``stage_g2_affine`` (tree) and ``stage_g1_stacked`` /
 ``stage_g2_stacked`` (dense) for callers that stage queries themselves.
-Raw limb-array queries (``groth16.convert``) come without the host's
+Raw limb-array queries (``groth16.format``) come without the host's
 per-point check, so staging checks their points against the curve on
 the device and raises ``FormatError`` (the reference's stage_params
 with ``curve_check``).
@@ -22,15 +22,30 @@ every size (the reference's "fused" style).
 The engine runs on ``cuda`` unless the caller asks for another device
 (the tests pass ``device="cpu"``, where every kernel wrapper takes its
 plain version).  Without CUDA, ``GpuEngine()`` raises.
+
+Staged-table cache: when ``groth16.helper.prove`` proves from a pk file
+it sets ``params._gpucache_path`` (``<pk>.gpucache``) and
+``params._gpucache_digest``; tree staging then loads the tables from
+that directory (``.npy`` files and ``meta.json``) when its key matches,
+or stages and saves them.  The key is the engine ("gpu"), the pk
+digest, ``msm_style``, ``TREE_MIN``, each table's chunk layout and the
+cache's version; a cache that misses the key or fails to load is
+restaged.  ``stage_info`` says what the last ``stage_params`` did.
 """
 
 from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+import time
 
 import numpy as np
 import torch
 
 from ..curve import R
-from ..groth16 import convert as CV
+from ..groth16 import format as FMT
 from ..groth16.domain import Domain
 from ..groth16.r1cs import R1CS
 from ..groth16.setup import expand_queries
@@ -49,12 +64,18 @@ TREE_MIN = 1 << 15
 # msm_style -> radix of the dense kernel
 STYLES = {None: 16, "fused": 4}
 
+# the staged-table cache's format; a cache of another version restages
+GPUCACHE_VERSION = 1
+TREE_TABLES = ("g1abl", "g1h", "b_g2x")
+
+log = logging.getLogger("za_tpu_torch")
+
 
 def _raw(queries) -> bool:
     """Whether staging checks these queries against the curve: raw
     limb-array queries come without the host's per-point check; point
     lists were checked when they were made."""
-    return any(isinstance(q, (CV.RawG1Query, CV.RawG2Query))
+    return any(isinstance(q, (FMT.RawG1Query, FMT.RawG2Query))
                for q in queries)
 
 
@@ -84,6 +105,13 @@ class GpuEngine:
         self._domains: dict[int, NTT.DeviceDomain] = {}
         self._sat_legs = None
         self._witness = None
+        #: what the last stage_params did: "source" ("memo": the tables
+        #: already on params, "cache": loaded from <pk>.gpucache,
+        #: "staged"), "cache" (None: no cache path, "hit", "miss" or
+        #: "stale": a cache that missed the key or failed to load),
+        #: "stage_s", and with a cache "cache_load_s" or
+        #: "cache_save_s" and "cache_bytes"
+        self.stage_info: dict = {}
 
     @staticmethod
     def tree_chunk(n: int) -> int:
@@ -112,7 +140,7 @@ class GpuEngine:
         card checks the last.  FormatError with the reference's text
         unless it holds."""
         if ok is not None and not bool(ok):
-            raise CV.FormatError(
+            raise FMT.FormatError(
                 f"pk {'g2' if is_g2 else 'g1'} query point not on curve")
 
     def _stage(self, coords, queries, n: int, is_g2: bool, S: int,
@@ -213,32 +241,143 @@ class GpuEngine:
         one engine is restaged, not reused, by an engine that routes
         otherwise).  Tree (padded a/b1/l length >= TREE_MIN, default
         style): a/b_g1/l share one G1 table group, h gets its own, b_g2
-        its G2 tables.  Dense: the four G1 queries padded to one power
-        of two and stacked as "g1x4", b_g2 as a stacked "b_g2x"."""
+        its G2 tables; with ``params._gpucache_path`` set they come
+        from, or go to, the staged-table cache.  Dense: the four G1
+        queries padded to one power of two and stacked as "g1x4", b_g2
+        as a stacked "b_g2x"."""
         cached = getattr(params, "_staged_cache", None)
         key = ("gpu", str(self.device), self.msm_style, TREE_MIN)
         if cached is not None and cached[0] == key:
+            self.stage_info = {"source": "memo", "cache": None,
+                               "stage_s": 0.0}
             return cached[1]
-        params = expand_queries(params, r1cs)
-        n_abl = _pad_pow2(max(len(params.a), len(params.b_g1),
-                              len(params.l)))
+        t0 = time.monotonic()
+        info = {"source": "staged", "cache": None}
+        full = expand_queries(params, r1cs)
+        n_abl = _pad_pow2(max(len(full.a), len(full.b_g1), len(full.l)))
         if self.msm_style is None and n_abl >= TREE_MIN:  # tree
-            staged = {
-                "g1abl": self.stage_g1_affine(
-                    [params.a, params.b_g1, params.l]),
-                "g1h": self.stage_g1_affine([params.h]),
-                "b_g2x": self.stage_g2_affine([params.b_g2]),
-            }
+            path = getattr(params, "_gpucache_path", None)
+            meta = path and self._cache_meta(
+                getattr(params, "_gpucache_digest", ""), {
+                    "g1abl": (max(len(full.a), len(full.b_g1),
+                                  len(full.l)), 3),
+                    "g1h": (len(full.h), 1),
+                    "b_g2x": (len(full.b_g2), 1)})
+            staged = path and self._load_cache(path, meta, info)
+            if staged:
+                info["source"] = "cache"
+            else:
+                staged = {
+                    "g1abl": self.stage_g1_affine(
+                        [full.a, full.b_g1, full.l]),
+                    "g1h": self.stage_g1_affine([full.h]),
+                    "b_g2x": self.stage_g2_affine([full.b_g2]),
+                }
+                if path:
+                    self._sync()
+                    info["stage_s"] = time.monotonic() - t0
+                    self._save_cache(path, meta, staged, info)
         else:
-            n = _pad_pow2(max(n_abl, len(params.h)))
+            n = _pad_pow2(max(n_abl, len(full.h)))
             staged = {
                 "g1x4": self.stage_g1_stacked(
-                    [params.a, params.b_g1, params.l, params.h], n),
+                    [full.a, full.b_g1, full.l, full.h], n),
                 "b_g2x": self.stage_g2_stacked(
-                    [params.b_g2], _pad_pow2(len(params.b_g2))),
+                    [full.b_g2], _pad_pow2(len(full.b_g2))),
             }
+        self._sync()
+        info.setdefault("stage_s", time.monotonic() - t0)
+        self.stage_info = info
         params._staged_cache = (key, staged)
         return staged
+
+    # -- the staged-table cache --------------------------------------------------
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _cache_meta(self, digest: str, queries: dict) -> dict:
+        """The cache's key: {table: (points per query, queries)} ->
+        meta.json's contents, each table's chunk layout (S, C) in it."""
+        tables = {}
+        for name, (n, m) in queries.items():
+            S, C = self._layout(n, None)
+            tables[name] = {"n": n, "m": m, "chunk_cols": S, "chunks": C}
+        return {"version": GPUCACHE_VERSION, "engine": "gpu",
+                "digest": digest, "msm_style": self.msm_style,
+                "tree_min": TREE_MIN, "tables": tables}
+
+    def _load_cache(self, path: str, meta: dict, info: dict):
+        """<pk>.gpucache -> the staged tables on the device, or None
+        (info["cache"]: "miss" without a cache, "stale" for one that
+        misses the key or fails to load)."""
+        meta_path = os.path.join(path, "meta.json")
+        if not os.path.exists(meta_path):
+            info["cache"] = "miss"
+            return None
+        t0 = time.monotonic()
+        try:
+            with open(meta_path, encoding="utf-8") as f:
+                if json.load(f) != meta:
+                    raise ValueError("key differs")
+            staged, nbytes = {}, 0
+            for name in TREE_TABLES:
+                tab = meta["tables"][name]
+                E = (8, 2) if name == "b_g2x" else (8,)
+                want = (tab["chunks"], MT.HALF) + E + (tab["m"],
+                                                       tab["chunk_cols"])
+                arrs = {}
+                for part, shape, dtype in (
+                        ("tx", want, np.int32), ("ty", want, np.int32),
+                        ("id", want[:1] + want[-2:], np.bool_)):
+                    a = np.load(os.path.join(path, f"{name}_{part}.npy"),
+                                allow_pickle=False)
+                    if a.shape != shape or a.dtype != dtype:
+                        raise ValueError(f"{name}_{part}: {a.shape} "
+                                         f"{a.dtype}, want {shape}")
+                    nbytes += a.nbytes
+                    arrs[part] = torch.from_numpy(a).to(self.device)
+                staged[name] = MT.AffineTables(
+                    tx=arrs["tx"], ty=arrs["ty"], ident=arrs["id"],
+                    n=tab["n"], is_g2=name == "b_g2x")
+            self._sync()
+        except Exception as exc:  # noqa: BLE001 -- the cache is best-effort
+            log.info("gpucache %s not loaded (%s); restaging", path, exc)
+            info["cache"] = "stale"
+            return None
+        info.update(cache="hit", cache_load_s=time.monotonic() - t0,
+                    cache_bytes=nbytes)
+        return staged
+
+    def _save_cache(self, path: str, meta: dict, staged: dict,
+                    info: dict) -> None:
+        """The staged tables -> <pk>.gpucache, written beside it and
+        moved into place whole."""
+        t0 = time.monotonic()
+        tmp = path + ".tmp"
+        try:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            nbytes = 0
+            for name in TREE_TABLES:
+                t = staged[name]
+                for part, a in (("tx", t.tx), ("ty", t.ty),
+                                ("id", t.ident)):
+                    a = a.cpu().numpy()
+                    nbytes += a.nbytes
+                    np.save(os.path.join(tmp, f"{name}_{part}.npy"), a,
+                            allow_pickle=False)
+            with open(os.path.join(tmp, "meta.json"), "w",
+                      encoding="utf-8") as f:
+                json.dump(meta, f, sort_keys=True)
+            shutil.rmtree(path, ignore_errors=True)
+            os.replace(tmp, path)
+        except OSError as exc:  # read-only pk dir: no cache
+            log.info("gpucache %s not saved: %s", path, exc)
+            shutil.rmtree(tmp, ignore_errors=True)
+            return
+        info.update(cache_save_s=time.monotonic() - t0, cache_bytes=nbytes)
 
     # -- witness, R1CS, h(x) -------------------------------------------------------
 

@@ -1,10 +1,10 @@
 """Carry parameters and constraint systems across as plain arrays.
 
 ``params_from_arrays`` takes a proving key in the raw query layout the
-reference's pk parser produces (za_tpu/groth16/format.py RawG1Query /
-RawG2Query): per G1 query ``x``, ``y``, ``z`` as (16, n) 16-bit plain
-limbs with infinity as (0 : 1 : 0); per G2 query ``x0``, ``x1``,
-``y0``, ``y1``, ``z0``; the verifying key's points as ints (None for
+pk parser produces (``groth16.format`` RawG1Query / RawG2Query): per
+G1 query ``x``, ``y``, ``z`` as (16, n) 16-bit plain limbs with
+infinity as (0 : 1 : 0); per G2 query ``x0``, ``x1``, ``y0``, ``y1``,
+``z0``; the verifying key's points as ints (None for
 infinity); and ``domain_size``.  ``r1cs_from_arrays`` takes the A/B/C
 rows as CSR arrays (row pointer, column, coefficient as 16 limbs of 16
 bits) plus ``num_inputs``, ``num_aux`` and ``input_names``.
@@ -16,78 +16,9 @@ import numpy as np
 
 from ..curve import Fq2
 from ..engine.field import limbs_to_ints
+from .format import G1_KEYS, G2_KEYS, RawG1Query, RawG2Query
 from .r1cs import R1CS
 from .setup import Groth16Parameters, VerifyingKey
-
-G1_KEYS = ("x", "y", "z")
-G2_KEYS = ("x0", "x1", "y0", "y1", "z0")
-
-
-class FormatError(Exception):
-    """A proving key whose contents break its format: the reference's
-    za_tpu/groth16/format.py FormatError.  Raw queries are parsed
-    without per-point checks; staging checks them against the curve
-    (engine.GpuEngine)."""
-
-
-class RawG1Query:
-    """G1 query vector as projective limb arrays x, y, z (16, n)."""
-
-    def __init__(self, x, y, z):
-        self.x, self.y, self.z = (np.asarray(a, np.uint32) for a in (x, y, z))
-
-    def __len__(self):
-        return self.x.shape[1]
-
-    def expand(self, dense) -> "RawG1Query":
-        """Density-filtered query -> one column per variable."""
-        if len(self) == len(dense):
-            return self
-        idx = np.nonzero(np.asarray(dense, dtype=bool))[0]
-        if len(idx) != len(self):
-            raise ValueError("query length matches neither num_vars nor "
-                             "the density count")
-        out = {k: np.zeros((16, len(dense)), np.uint32) for k in G1_KEYS}
-        out["y"][0] = 1
-        for k in G1_KEYS:
-            out[k][:, idx] = getattr(self, k)
-        return RawG1Query(**out)
-
-    def to_points(self) -> list:
-        xs, ys = limbs_to_ints(self.x), limbs_to_ints(self.y)
-        inf = self.z[0] == 0
-        return [None if inf[j] else (xs[j], ys[j]) for j in range(len(self))]
-
-
-class RawG2Query:
-    """G2 query vector as limb arrays x0, x1, y0, y1, z0 (16, n)."""
-
-    def __init__(self, x0, x1, y0, y1, z0):
-        self.x0, self.x1, self.y0, self.y1, self.z0 = (
-            np.asarray(a, np.uint32) for a in (x0, x1, y0, y1, z0))
-
-    def __len__(self):
-        return self.x0.shape[1]
-
-    def expand(self, dense) -> "RawG2Query":
-        if len(self) == len(dense):
-            return self
-        idx = np.nonzero(np.asarray(dense, dtype=bool))[0]
-        if len(idx) != len(self):
-            raise ValueError("query length matches neither num_vars nor "
-                             "the density count")
-        out = {k: np.zeros((16, len(dense)), np.uint32) for k in G2_KEYS}
-        out["y0"][0] = 1
-        for k in G2_KEYS:
-            out[k][:, idx] = getattr(self, k)
-        return RawG2Query(**out)
-
-    def to_points(self) -> list:
-        x0, x1, y0, y1 = (limbs_to_ints(getattr(self, k))
-                          for k in G2_KEYS[:4])
-        inf = self.z0[0] == 0
-        return [None if inf[j] else (Fq2(x0[j], x1[j]), Fq2(y0[j], y1[j]))
-                for j in range(len(self))]
 
 
 def _g1(p):

@@ -19,6 +19,11 @@ from .r1cs import R1CS
 from .setup import Groth16Parameters, expand_queries
 
 
+#: below this many variables and domain points every stage stays on the
+#: host: device offload buys nothing there
+STAGED_MIN = 512
+
+
 @dataclass
 class Proof:
     a: G1Point
@@ -105,9 +110,7 @@ def prove(
     staged_path = (
         hasattr(engine, "stage_params")
         and getattr(engine, "use_grouped", False)
-        # tiny circuits keep the host-list path: device offload buys
-        # nothing below ~512 points
-        and max(r1cs.num_vars, params.domain_size - 1) >= 512
+        and max(r1cs.num_vars, params.domain_size - 1) >= STAGED_MIN
     )
     if not staged_path and hasattr(engine, "stage_params"):
         engine = HostEngine()  # a device engine serves staged sizes only

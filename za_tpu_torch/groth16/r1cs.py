@@ -1,16 +1,22 @@
 """Compiled R1CS: the bridge from the constraint system to the prover.
 
 Variable 0 is ONE, the public inputs follow, then every aux variable;
-row k states ``a_rows[k] . z * b_rows[k] . z = c_rows[k] . z``.  The
-circuit compiler that builds these rows from source is not part of
-this package: an R1CS arrives as rows (``groth16.convert``) or is
-built directly, as synthetic benchmark circuits are.
+row k states ``a_rows[k] . z * b_rows[k] . z = c_rows[k] . z``.  An
+R1CS comes from the circuit compiler (``from_constraints``: the main
+public inputs in signal-id order, then every other non-ignored signal;
+each QEQ row ``a*b + c = 0`` becomes ``a * b = -c``), arrives as rows
+(``groth16.convert``), or is built directly, as synthetic benchmark
+circuits are.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
+from ..algebra import FS, SignalId
+from ..compiler.constraints import Constraints
+from ..compiler.signals import Signals
 from ..curve import R
 
 #: sparse linear combination over variable indices: list of (var, coeff)
@@ -27,6 +33,9 @@ class R1CS:
     a_rows: list[Row]
     b_rows: list[Row]
     c_rows: list[Row]
+    #: map signal id -> variable index (None = ignored signal)
+    var_of_signal: list[Optional[int]] = field(repr=False,
+                                               default_factory=list)
 
     @property
     def num_constraints(self) -> int:
@@ -35,6 +44,74 @@ class R1CS:
     @property
     def num_vars(self) -> int:
         return self.num_inputs + self.num_aux
+
+    @staticmethod
+    def from_constraints(
+        signals: Signals,
+        constraints: Constraints,
+        ignore_signals: list[SignalId],
+    ) -> "R1CS":
+        ignore = set(ignore_signals)
+        var_of_signal: list[Optional[int]] = [None] * len(signals)
+        var_of_signal[0] = 0
+
+        input_names = []
+        next_input = 1
+        for n in range(1, len(signals)):
+            if n in ignore:
+                continue
+            s = signals.get_by_id(n)
+            if s.is_main_public_input():
+                var_of_signal[n] = next_input
+                input_names.append(s.full_name)
+                next_input += 1
+        num_inputs = next_input
+        next_aux = num_inputs
+        for n in range(1, len(signals)):
+            if n in ignore or var_of_signal[n] is not None:
+                continue
+            var_of_signal[n] = next_aux
+            next_aux += 1
+
+        def conv(lc, negate=False) -> Row:
+            out = []
+            for s, coeff in lc.t:
+                v = var_of_signal[s]
+                if v is None:
+                    raise ValueError(f"signal {s} not defined")
+                out.append((v, (R - coeff.v) % R if negate else coeff.v))
+            return out
+
+        a_rows, b_rows, c_rows = [], [], []
+        for k in range(len(constraints)):
+            qeq = constraints.get(k)
+            a_rows.append(conv(qeq.a))
+            b_rows.append(conv(qeq.b))
+            c_rows.append(conv(qeq.c, negate=True))  # a*b + c = 0 -> a*b = -c
+
+        return R1CS(
+            num_inputs=num_inputs,
+            num_aux=next_aux - num_inputs,
+            input_names=input_names,
+            a_rows=a_rows,
+            b_rows=b_rows,
+            c_rows=c_rows,
+            var_of_signal=var_of_signal,
+        )
+
+    def assignment_from_signals(self, signals: Signals) -> list[int]:
+        """Full variable assignment z (z[0] = 1) from witness signals."""
+        z = [0] * self.num_vars
+        z[0] = 1
+        for n in range(1, len(signals)):
+            v = self.var_of_signal[n] if n < len(self.var_of_signal) else None
+            if v is None:
+                continue
+            s = signals.get_by_id(n)
+            if s is None or s.value is None or not isinstance(s.value.v, FS):
+                raise ValueError(f"signal {n} has no scalar value")
+            z[v] = s.value.v.v
+        return z
 
     def eval_constraints(self, z: list[int]) -> tuple[list[int], list[int], list[int]]:
         """Az, Bz, Cz over the constraint rows (host reference of the

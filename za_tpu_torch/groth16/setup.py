@@ -33,7 +33,7 @@ class VerifyingKey:
 @dataclass
 class Groth16Parameters:
     """Query vectors are host point lists (None = infinity) or the raw
-    limb-array queries of ``groth16.convert``."""
+    limb-array queries of ``groth16.format``."""
 
     vk: VerifyingKey
     h: list[G1Point]       # (tau^i * Z(tau))/delta,     i in 0..m-2
