@@ -36,9 +36,12 @@ Phases:
      one stacked dense MSM; then the same prove through
      GpuEngine(msm_style="fused") (radix 4), checked against the same
      proof, and its MSMs checked and timed; one JSON line;
-  4. a real 510-constraint proof (host setup with fixed toxic waste,
-     GpuEngine prove, dense path, the four-step NTT at 32 x 16) that
-     the pairing check accepts; its launches count as a path; then the
+  4. a real 510-constraint proof: the setup with fixed toxic waste on
+     the host and on the card (GpuEngine's fixed-base kernels; equal
+     Parameters bytes, its launches a path, "setup510"), then a GpuEngine
+     prove from the card's parameters (dense path, the four-step NTT at
+     32 x 16) that the pairing check accepts; its launches count as a
+     path; then the
      2^13 pk with one raw G1 point off the curve, and with one raw G2
      point off the twist: staging must raise FormatError for each
      (the 2^13 line's "off_curve_refused");
@@ -54,10 +57,11 @@ Phases:
      Horner, the first and the last chunk's levels), "h_torch_ops" all
      zero, peak memory, the phase's seconds; one JSON line;
   4c. the user's path, the za CLI and a prove from a pk file: (a)
-     ``python3 -m za_tpu_torch.cli`` setup (host, random toxic waste),
-     prove twice on the card and verify, each a process of its own, on
-     bench.py's chain as circuit text at 600 constraints (past the
-     staged gate); (b) the chain's text at 2^17 constraints compiled by
+     ``python3 -m za_tpu_torch.cli`` setup (the card, by default; random
+     toxic waste), prove twice on the card and verify, then setup
+     --engine host, a prove from that pk and its verify, each a process
+     of its own, on bench.py's chain as circuit text at 600 constraints
+     (past the staged gate); (b) the chain's text at 2^17 constraints compiled by
      the port's Evaluator and optimizer, its pk (pool queries, the vk
      solved from their logs) written by format.write_pk, then
      helper.prove three times: interpreting and staging (writing
@@ -67,6 +71,18 @@ Phases:
      staging against the cache load, prove, self-verify and wall
      seconds, peak memory, and what a process pays outside
      helper.prove (imports, CUDA context) at both sizes; one JSON line;
+  4d. the trusted setup on the card at 2^17 constraints (4c's compiled
+     chain, fixed toxic waste): generate_parameters with GpuEngine(),
+     its launches a path ("setup_2^17"), timed step by step (the QAP's
+     values at tau, the scalars, each fixed-base batch: table, upload,
+     device, host points); every query held exactly by a random linear
+     combination (the port's msm_g1 / msm_g2 against the scalars
+     recomputed on the host), the vk by host scalar multiplication; the
+     pk written, a proof from it through helper.prove on the card,
+     exact against the host's A, B, C and accepted by the pairing check;
+     the host setup extrapolated from 1,024 scalar multiplications a
+     group; the h query of 2^20 constraints (2^21 - 1 scalars) through
+     fixed_base_g1 for its peak memory; one JSON line;
   5. each kernel against its plain PyTorch version on the shapes of the
      path that runs it, exact equality (integers mod p), timed beside
      its bound; the tree levels at every level of one 2^17 chunk
@@ -87,14 +103,18 @@ Phases:
      time with a chain floor (dependent adds x the Horner rows' time
      per add, "chain_floor_ms"); the tail kernel (ntt_stage_fr) at the
      2^20 proof's sub-NTT tails (a) 3 x 1024 x 2048, (b) 3 x 2048 x
-     1024, (c) 1 x 2048 x 1024 with the store mode; printed as one JSON
+     1024, (c) 1 x 2048 x 1024 with the store mode; the setup's tables
+     (c = 8, with the chain floor of the ladder's 254 doublings) and
+     fixed-base MSMs at the 2^17 setup's h (2^18 - 1 G1 scalars) and
+     b_g2 (2^17 + 2 G2 scalars); printed as one JSON
      line {"kernels": [...]}; then one NTT through the four-step at
      sizes from 2^9 to 2^21, held to the plain versions and up to 2^12
      to the host Domain.ntt, timed (the 2^17 line's "ntt_routes_ms");
   6. the card's name and power limit, then the result line.
-Launches are counted per path (each path's staging and first prove)
-and every kernel must launch on at least one path; the four-step's
-kernels on every path, the tail kernel on the 2^20 path alone.
+Launches are counted per path (each path's staging and first prove;
+the setups) and every kernel must launch on at least one path; the
+four-step's kernels on every path, the tail kernel on the 2^20 path
+alone, the fixed-base kernels on the setup paths alone.
 
 Exits non-zero without a CUDA card, without the package beside it, or
 when any phase fails.
@@ -125,6 +145,10 @@ MADS_PER_MUL = 4 * 8 * 8
 # kernel on point_add); in G2 it is a full Fq2 constant.  An Fq2
 # multiplication is 3 Fq ones.
 ADD_MULS = {False: 12, True: 3 * 14}
+# Fq multiplications of the least doubling (RCB algorithm 9, a = 0): 6
+# products, 2 squarings and one product by 3b (none in G1, as above);
+# a bound counts a doubling at this, whatever add the kernel doubles with
+DBL_MULS = {False: 8, True: 3 * 9}
 # to_affine (csrc/ec.cu to_affine_wave_kernel): Fq multiplications per
 # point with a nonzero Z, G1 5 (the prefix, two in the walk back, X/Z
 # and Y/Z), G2 13 (the norm's two squarings, the prefix, two in the walk
@@ -185,6 +209,14 @@ KERNEL_FN = {
     "ntt_twiddle_fr": "_ZN2za18ntt_twiddle_kernelILb1E",
     "ntt_stage_fr": "_ZN2za15ntt_tail_kernelILi",   # + stages, "E"
     "r1cs_matvec_fr": "_ZN2za18r1cs_matvec_kernelE",
+    "fixed_base_table_g1":
+        "_ZN2za23fixed_base_table_kernelINS_2FpINS_7QParamsEEENS_3OpsE",
+    "fixed_base_table_g2": "_ZN2za23fixed_base_table_kernelINS_3Fq2ENS_12"
+                           "OpsKaratsubaINS_5MulEoEEE",
+    "fixed_base_msm_g1":
+        "_ZN2za21fixed_base_msm_kernelINS_2FpINS_7QParamsEEENS_3OpsE",
+    "fixed_base_msm_g2": "_ZN2za21fixed_base_msm_kernelINS_3Fq2ENS_12"
+                         "OpsKaratsubaINS_5MulEoEEE",
 }
 
 SEED = 20261016
@@ -996,26 +1028,42 @@ def dense_steps(split, tabs, sc, tag):
 
 
 def real_proof():
-    """-> the prove's launches (its domain, 512, through the four-step:
-    32 x 16)."""
+    """The trusted setup on the card against the host's (fixed toxic
+    waste: equal Parameters bytes, with densities), then a proof on the
+    card from the card's parameters (its domain, 512, through the
+    four-step: 32 x 16) -> (the prove's launches, the setup's)."""
+    import io
+
     from za_tpu_torch.engine import _build
     from za_tpu_torch.engine.engine import GpuEngine
     from za_tpu_torch.groth16 import generate_parameters, prove, verify_proof
+    from za_tpu_torch.groth16.format import write_parameters
 
     t0 = time.time()
     r1cs, z = chain_r1cs(510)
-    params = generate_parameters(r1cs, tau=11, alpha=3, beta=5, gamma=7,
-                                 delta=9)
+    toxic = dict(tau=11, alpha=3, beta=5, gamma=7, delta=9)
+    host = generate_parameters(r1cs, **toxic)
     t1 = time.time()
+    _build.reset_launches()
+    params = generate_parameters(r1cs, **toxic, engine=GpuEngine())
+    setup_launches = launch_counts()
+    t2 = time.time()
+    pk = []
+    for p in (host, params):
+        buf = io.BytesIO()
+        write_parameters(buf, p, densities=r1cs.densities())
+        pk.append(buf.getvalue())
+    assert pk[0] == pk[1], "the card's setup differs from the host's"
     _build.reset_launches()
     proof = prove(params, r1cs, z, r=13, s=17, engine=GpuEngine())
     launches = launch_counts()
     assert "g1x4" in params._staged_cache[1], "dense staged branch not taken"
     ok = verify_proof(params.vk, proof, z[1:r1cs.num_inputs])
-    log(f"510-constraint proof: setup {t1 - t0:.1f}s, prove+verify "
-        f"{time.time() - t1:.1f}s, verifies={ok}")
+    log(f"510-constraint proof: setup on the host {t1 - t0:.1f}s, on the "
+        f"card {t2 - t1:.1f}s (equal pk bytes), prove+verify "
+        f"{time.time() - t2:.1f}s, verifies={ok}")
     assert ok, "the 510-constraint proof does not verify"
-    return launches
+    return launches, setup_launches
 
 
 # -- phase 4c: the za CLI and a prove from a pk file ---------------------------------
@@ -1067,8 +1115,9 @@ with open(out, "w") as f:
 
 
 def cli_round_trip(root: str, work: str) -> dict:
-    """python3 -m za_tpu_torch.cli setup (host, random toxic waste),
-    prove twice (the card, the default engine) and verify, each a
+    """python3 -m za_tpu_torch.cli setup (the card, the default engine;
+    random toxic waste), prove twice (the card) and verify, then setup
+    with --engine host, a prove from that pk and its verify, each a
     process of its own, on the chain at CLI_N constraints -> seconds a
     command.  The first prove interprets and writes <pk>.wtrace, the
     second replays it; both check the constraints on the device (the
@@ -1095,7 +1144,9 @@ def cli_round_trip(root: str, work: str) -> dict:
                                  f"\n{p.stdout}\n{p.stderr[-4000:]}")
         return p
 
-    za("setup_s", "setup", "--verifiertype", "json")
+    p = za("setup_s", "setup", "--verifiertype", "json")   # on the card
+    assert "Setup time" in p.stderr and "(device)" in p.stderr, \
+        "the CLI setup did not run on the card"
     first = za("prove1_s", "prove")
     assert os.path.exists(os.path.join(d, "proving.key.wtrace")), \
         "the first prove wrote no .wtrace"
@@ -1135,6 +1186,15 @@ def cli_round_trip(root: str, work: str) -> dict:
     p = za("verify_tampered", "verify", "--proof", "bad.json")
     assert p.returncode == 1 and p.stdout.strip() == "INVALID", p.stdout
     out.pop("verify_tampered")
+    # the host's setup: its pk proves on the card and verifies
+    p = za("setup_host_s", "setup", "--engine", "host", "--pk", "host.key",
+           "--verifier", "host.json", "--verifiertype", "json")
+    assert "(host)" in p.stderr, "setup --engine host"
+    za("prove_host_pk_s", "prove", "--pk", "host.key", "--proof",
+       "proof_host.json")
+    p = za("verify_s", "verify", "--verifier", "host.json", "--proof",
+           "proof_host.json")
+    assert p.stdout.strip() == "OK", f"verify proof_host.json: {p.stdout!r}"
     out["constraints"] = CLI_N
     log(f"CLI round trip at {CLI_N} constraints: {out}")
     return out
@@ -1259,6 +1319,9 @@ def cli_path(torch, root: str) -> tuple:
                          densities=(a_d, b_d))
         result["pk_write_s"] = time.time() - t0
         result["pk_bytes"] = os.path.getsize(pk)
+        # the compiled circuit, for the setup on the card
+        circuit = {"asts": ev.collected_asts, "cons": cons,
+                   "removed": removed, "r1cs": r1cs, "z": z}
         del ev, params, a_q, b1_q, l_q, h_q, b2_q
         log(f"2^{LOG2N} pk from circuit text: compile "
             f"{result['compile_s']:.1f}s, {result['pk_bytes']} bytes")
@@ -1339,7 +1402,213 @@ def cli_path(torch, root: str) -> tuple:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     result["phase_s"] = time.time() - t_phase
-    return result, launches
+    return result, launches, circuit
+
+
+# -- phase 4d: the trusted setup on the card --------------------------------------
+
+# fixed toxic waste of the 2^17 setup
+SETUP_TOXIC = dict(tau=0x5E7C0DE, alpha=3, beta=5, gamma=7, delta=9)
+# scalars of the host setup's timing sample, each group
+HOST_SAMPLE = 1024
+# the largest query the setup makes on bench.py's ladder: h at 2^20
+# constraints, 2^21 - 1 points (its peak memory is reported)
+H_2_20 = (1 << 21) - 1
+
+
+def rlc_check(eng, rng, points, scalars, is_g2: bool) -> None:
+    """sum_i rho_i P_i (the port's msm_g1 / msm_g2, dense route, complete
+    adds) equals (sum_i rho_i s_i mod r) G, for random rho_i: every P_i
+    = s_i G but with a chance of 1/r."""
+    from za_tpu_torch.curve import G1_GEN, G2_GEN, R, g1_mul, g2_mul
+
+    rho = [rng.randrange(R) for _ in points]
+    k = sum(a * b for a, b in zip(rho, scalars)) % R
+    if is_g2:
+        assert eng.msm_g2(points, rho) == g2_mul(G2_GEN, k)
+    else:
+        assert eng.msm_g1(points, rho) == g1_mul(G1_GEN, k)
+
+
+def setup_path(torch, circuit: dict) -> tuple:
+    """The setup on the card at 2^LOG2N constraints (the chain compiled
+    by cli_path, fixed toxic waste): generate_parameters with
+    GpuEngine(), timed step by step (qap_evals_at_tau, the scalars, each
+    fixed-base batch split into its table, upload, device and host-point
+    seconds); every query held exactly by a random linear combination
+    against the scalars recomputed on the host; the vk's points against
+    host scalar multiplication; the pk written, a proof through
+    helper.prove on the card, exact against the host's values of A, B,
+    C and accepted by the pairing check against the setup's vk; the host
+    setup's seconds extrapolated from HOST_SAMPLE scalar multiplications
+    per group; the h query of 2^20 constraints (H_2_20 scalars) through
+    fixed_base_g1 for its peak memory -> (the phase's line, the setup's
+    launches, the kernel rows' inputs)."""
+    import shutil
+    import tempfile
+
+    from za_tpu_torch.algebra import FS
+    from za_tpu_torch.curve import G1_GEN, G2_GEN, R, g1_mul, g2_mul
+    from za_tpu_torch.engine import _build
+    from za_tpu_torch.engine.engine import GpuEngine
+    from za_tpu_torch.groth16 import format as fmt, helper, verify_proof
+    from za_tpu_torch.groth16 import setup as S
+    from za_tpu_torch.groth16.domain import Domain, batch_inverse
+
+    t_phase = time.time()
+    r1cs, z = circuit["r1cs"], circuit["z"]
+    ni, nv = r1cs.num_inputs, r1cs.num_vars
+    tox = SETUP_TOXIC
+    result = {"metric": f"groth16_setup_device_{1 << LOG2N}c",
+              "constraints": r1cs.num_constraints, "vars": nv}
+
+    # the setup, timed step by step by generate_parameters itself
+    eng = GpuEngine()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # the earlier paths' tensors
+    _build.reset_launches()
+    t0 = time.time()
+    st = {}
+    params = S.generate_parameters(r1cs, **tox, engine=eng, timings=st)
+    wall = time.time() - t0
+    launches = launch_counts()
+    calls = st["batches"]
+    result.update({
+        "setup_s": wall, "qap_evals_s": st["qap_evals_s"],
+        "scalars_s": st["scalars_s"], "fixed_base": calls,
+        **{k: sum(c[k] for c in calls.values())
+           for k in ("table_s", "upload_s", "device_s", "points_s")},
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() - held,
+        "held_mem_bytes": held,
+        "launches": {k: v for k, v in launches.items() if v}})
+    m = params.domain_size
+    want = {"fixed_base_table_g1": 1, "fixed_base_table_g2": 1,
+            "fixed_base_msm_g1": 6, "fixed_base_msm_g2": 2,
+            "to_affine_g1": 6, "to_affine_g2": 2}
+    assert result["launches"] == want, result["launches"]
+    log(f"setup at 2^{LOG2N} on the card: {wall:.2f}s (qap "
+        f"{st['qap_evals_s']:.2f}s), peak {result['peak_mem_bytes']} B over "
+        f"{held} B held; "
+        f"{ {k: round(c['wall_s'], 3) for k, c in calls.items()} }")
+
+    # every query exact: the scalars again, from the QAP's values
+    t0 = time.time()
+    u, v, w = S.qap_evals_at_tau(
+        r1cs, tox["tau"], Domain.for_constraints(r1cs.num_constraints + ni))
+    gamma_inv, delta_inv = batch_inverse([tox["gamma"], tox["delta"]])
+    ic_s = [(tox["beta"] * u[i] + tox["alpha"] * v[i] + w[i]) * gamma_inv
+            % R for i in range(ni)]
+    l_s = [(tox["beta"] * u[i] + tox["alpha"] * v[i] + w[i]) * delta_inv
+           % R for i in range(ni, nv)]
+    h_s, p = [], (pow(tox["tau"], m, R) - 1) * delta_inv % R
+    for _ in range(m - 1):
+        h_s.append(p)
+        p = p * tox["tau"] % R
+    rng = random.Random(SEED + 2)
+    for name, pts, scs in (("ic", params.vk.ic, ic_s), ("l", params.l, l_s),
+                           ("a", params.a, u), ("b_g1", params.b_g1, v),
+                           ("h", params.h, h_s)):
+        assert len(pts) == len(scs), name
+        rlc_check(eng, rng, pts, scs, False)
+    rlc_check(eng, rng, params.b_g2, v, True)
+    vk = params.vk
+    assert [vk.alpha_g1, vk.beta_g1, vk.delta_g1] == [
+        g1_mul(G1_GEN, tox[k]) for k in ("alpha", "beta", "delta")]
+    assert [vk.beta_g2, vk.gamma_g2, vk.delta_g2] == [
+        g2_mul(G2_GEN, tox[k]) for k in ("beta", "gamma", "delta")]
+    nulls = {k: sum(p is None for p in getattr(params, k))
+             for k in ("a", "b_g1", "l", "h", "b_g2")}
+    assert nulls == {"a": sum(x == 0 for x in u),
+                     "b_g1": sum(x == 0 for x in v), "l": 0, "h": 0,
+                     "b_g2": sum(x == 0 for x in v)}, nulls
+    result["rlc_check_s"] = time.time() - t0
+    result["infinity_points"] = nulls
+
+    # the pk, and a proof from it on the card
+    work = tempfile.mkdtemp(prefix="za_setup_")
+    env = {k: os.environ.get(k) for k in ("ZA_WTRACE", "ZA_DEVCACHE")}
+    try:
+        pk = os.path.join(work, "proving.key")
+        t0 = time.time()
+        with open(pk, "wb") as f:
+            fmt.write_pk(f, circuit["asts"], circuit["cons"],
+                         circuit["removed"], params,
+                         densities=r1cs.densities())
+        result["pk_write_s"] = time.time() - t0
+        result["pk_bytes"] = os.path.getsize(pk)
+        # one prove: no trace or table cache kept beside the pk
+        os.environ.update(ZA_WTRACE="0", ZA_DEVCACHE="0")
+        rs, t = (13, 17), {}
+        pj = helper.prove(pk, [("main.x", FS(CLI_X))], engine=GpuEngine(),
+                          deterministic_rs=rs, timings=t)
+        result["prove_wall_s"] = t["wall_s"]
+        assert os.listdir(work) == ["proving.key"]
+    finally:
+        for k, val in env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        shutil.rmtree(work, ignore_errors=True)
+    proof, pub = fmt.proof_from_json(pj)
+    assert pub == z[1:ni], "public inputs"
+    # A, B, C from the toxic waste: A(tau) = sum z_i u_i(tau) (with the
+    # input rows), h(tau) Z(tau) = A(tau) B(tau) - C(tau)
+    r_, s_ = rs
+    At, Bt, Ct = (sum(a * b for a, b in zip(z, q)) % R for q in (u, v, w))
+    pa = (tox["alpha"] + At + r_ * tox["delta"]) % R
+    pb = (tox["beta"] + Bt + s_ * tox["delta"]) % R
+    lsum = sum(zi * (tox["beta"] * u[i] + tox["alpha"] * v[i] + w[i])
+               for i, zi in enumerate(z) if i >= ni)
+    pc = ((lsum + At * Bt - Ct) * delta_inv + s_ * pa + r_ * pb
+          - r_ * s_ * tox["delta"]) % R
+    assert proof.a == g1_mul(G1_GEN, pa), "proof A"
+    assert proof.b == g2_mul(G2_GEN, pb), "proof B"
+    assert proof.c == g1_mul(G1_GEN, pc), "proof C"
+    assert verify_proof(params.vk, proof, z[1:ni]), "pairing check"
+    log(f"proof from the card's 2^{LOG2N} pk verifies "
+        f"(helper wall {t['wall_s']:.1f}s)")
+
+    # the host setup, extrapolated from a sample of each group
+    sample = [rng.randrange(R) for _ in range(HOST_SAMPLE)]
+    t0 = time.time()
+    for sc in sample:
+        g1_mul(G1_GEN, sc)
+    g1_s = (time.time() - t0) / HOST_SAMPLE
+    t0 = time.time()
+    for sc in sample:
+        g2_mul(G2_GEN, sc)
+    g2_s = (time.time() - t0) / HOST_SAMPLE
+    n_g1 = sum(c["n"] for k, c in calls.items() if k != "b_g2"
+               and k != "vk_g2")
+    n_g2 = calls["b_g2"]["n"] + calls["vk_g2"]["n"]
+    result["host_setup_extrapolated"] = {
+        "g1_mul_s": g1_s, "g2_mul_s": g2_s, "g1_points": n_g1,
+        "g2_points": n_g2, "sample": HOST_SAMPLE,
+        "setup_s": g1_s * n_g1 + g2_s * n_g2 + st["qap_evals_s"]
+        + st["scalars_s"]}
+
+    # the h query of 2^20 constraints: its peak, a few points checked
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    big = [rng.randrange(R) for _ in range(H_2_20)]
+    t0 = time.time()
+    pts = eng.fixed_base_g1(big)
+    result["h_2^20"] = {
+        "n": H_2_20, "wall_s": time.time() - t0, **eng.fixed_base_info,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() - held}
+    for i in (0, H_2_20 // 2, H_2_20 - 1):
+        assert pts[i] == g1_mul(G1_GEN, big[i]), f"h at 2^20, point {i}"
+    del pts, big
+    result["phase_s"] = time.time() - t_phase
+    log(f"setup phase: {result['phase_s']:.1f}s, host setup extrapolated "
+        f"{result['host_setup_extrapolated']['setup_s']:.1f}s; h at 2^20: "
+        f"{result['h_2^20']}")
+    return result, launches, {"h_s": h_s, "v": v, "launches": launches}
 
 
 # -- phase 5: kernels against their plain versions ----------------------------------
@@ -1597,10 +1866,11 @@ def staging_edge_checks(torch, gen) -> None:
     log("staging kernels exact at ragged n with zero Z")
 
 
-def kernels_vs_plain(torch, tctx, dctx, bctx, launches):
+def kernels_vs_plain(torch, tctx, dctx, bctx, launches, sctx):
     """tctx: the tree path's engine and staged tables (2^17); dctx: the
     dense path's, default and fused style (2^13); bctx: the 2^20 path's
-    domain and launches."""
+    domain and launches; sctx: the 2^17 setup's h and b_g2 scalars and
+    launches."""
     from za_tpu_torch.engine import _build, cuda_tree as CT, ec, msm as MSM
     from za_tpu_torch.engine import field as F, msm_dense as MD
     from za_tpu_torch.engine import msm_tree as MT, ntt as NTT, r1cs as RC
@@ -1859,6 +2129,7 @@ def kernels_vs_plain(torch, tctx, dctx, bctx, launches):
             AFFINE_MULS[is_g2] * nz + blocks * INV_GCD_MULS)
         rows[-1].update(ptxas_usage(ec_log, KERNEL_FN[f"to_affine_{g}"]))
         rows[-1]["blocks"] = blocks
+    rows.extend(fixed_base_rows(torch, sctx, launches, warp_us))
     staging_edge_checks(torch, gen)
     # launches of one prove at each rung, staging excluded
     for r in rows:
@@ -1869,6 +2140,78 @@ def kernels_vs_plain(torch, tctx, dctx, bctx, launches):
         for log2n, ctx in ((LOG2N_DENSE, dctx), (LOG2N_BIG, bctx)):
             r[f"launches_per_proof_2^{log2n}"] = ctx["per_proof"].get(
                 key, 0)
+    return rows
+
+
+def fixed_base_rows(torch, sctx, launches, warp_us) -> list:
+    """The setup's kernels at the 2^17 setup's widths, exact against
+    their plain versions: the c = 8 tables of G1 and G2, the MSM on the
+    h query's 2^18 - 1 G1 scalars and on b_g2's 2^17 + 2 G2 scalars (the
+    setup's own).  Bounds count the least work of the same result,
+    bytes each input (base or table, scalars) read once and each output
+    written once.  A table: the ladder's 254 doublings (DBL_MULS), and
+    one add an entry whose digit has two set bits or more (each is one
+    add from an entry of one bit fewer; an entry of one bit is a ladder
+    point), an entry of the top window that repeats a lower one (a bit
+    past D_254) none; its "chain_floor_ms" is the 254 dependent
+    doublings times the staged add's latency measured by the Horner
+    rows.  The MSM: the nonzero digits less one a nonzero scalar."""
+    from za_tpu_torch.curve import G1_GEN, G2_GEN
+    from za_tpu_torch.engine import _build, ec, field as F
+    from za_tpu_torch.engine import fixed_base as FB
+
+    src = "za_tpu_torch/csrc/fixed_base.cu"
+    fb_log = (_build.build_dir() / "fixed_base.log").read_text()
+    c, W = 8, FB.windows(8)
+    doublings = FB.LADDER - 1
+    table_adds = sum(
+        bin(d).count("1") >= 2 and d < 1 << min(c, FB.LADDER - c * w)
+        for w in range(W) for d in range(1 << c))
+    rows = []
+
+    def add(name, replaces, shape, ms, pms, err, bmoved, adds, is_g2,
+            dbls=0):
+        b_ms, by = bound(bmoved, ADD_MULS[is_g2] * adds
+                         + DBL_MULS[is_g2] * dbls)
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": float(ms), "device_ms": float(ms),
+            "issue_ms": ms.issue, "plain_ms": pms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None, "shape": shape,
+            "adds": adds,
+            "launches_per_setup_2^17": sctx["launches"][name],
+            **ptxas_usage(fb_log, KERNEL_FN[name])})
+        if dbls:
+            rows[-1].update(doublings=dbls, chain_floor_ms=dbls
+                            * warp_us["g2" if is_g2 else "g1"] / 1e3)
+        log(f"{name} [{shape}]: {ms:.3f} ms (plain {pms:.1f} ms, bound "
+            f"{b_ms:.4f} ms by {by}"
+            + (f", chain floor {rows[-1]['chain_floor_ms']:.4f} ms"
+               if dbls else "") + f"), launches {launches[name]}")
+
+    for is_g2, scs in ((False, sctx["h_s"]), (True, sctx["v"])):
+        g = "g2" if is_g2 else "g1"
+        base = ec.points_to_device([G2_GEN if is_g2 else G1_GEN], is_g2,
+                                   "cuda")
+        tab, ms, pms, err = compare(
+            torch, f"fixed_base_table_{g}",
+            lambda *b: FB.fixed_base_table(b, c, is_g2),
+            lambda *b: FB.fixed_base_table_plain(b, c, is_g2), base, reps=3)
+        add(f"fixed_base_table_{g}", "za_tpu/engine/msm.py:308",
+            f"c = {c}, {W} x {1 << c} entries", ms, pms, err,
+            nbytes(*base, *tab), table_adds, is_g2, doublings)
+        sc = torch.from_numpy(F.ints_to_limbs(scs).astype("int32")).cuda()
+        outs, ms, pms, err = compare(
+            torch, f"fixed_base_msm_{g}",
+            lambda *a: FB.fixed_base_msm(a[:3], a[3], c, is_g2),
+            lambda *a: FB.fixed_base_msm_plain(a[:3], a[3], c, is_g2),
+            (*tab, sc), reps=3)
+        nz = FB.digits(sc, c) != 0
+        adds = int(nz.sum()) - int(nz.any(0).sum())
+        add(f"fixed_base_msm_{g}", "za_tpu/engine/msm.py:379",
+            f"{len(scs)} scalars ({'b_g2' if is_g2 else 'h'} at 2^{LOG2N}), "
+            f"c = {c}", ms, pms, err, nbytes(*tab, sc, *outs), adds, is_g2)
     return rows
 
 
@@ -2068,20 +2411,24 @@ def main() -> int:
     assert tree["route"] == "tree", "2^17 did not take the tree"
     dense, dense_launches, dctx = prove_path(torch, timer, LOG2N_DENSE)
     assert dense["route"] == "dense", "2^13 did not take the dense path"
-    check_launches = real_proof()
+    check_launches, setup510_launches = real_proof()
     dense["off_curve_refused"] = off_curve_refused(dctx["params"],
                                                    dctx["r1cs"])
     big, big_launches, bctx = prove_path(torch, timer, LOG2N_BIG, lean=True)
     assert big["route"] == "tree", f"2^{LOG2N_BIG} did not take the tree"
     bctx = {"per_proof": bctx["per_proof"],
             "dom": bctx["eng"]._domain(bctx["m"])}   # the tables go
-    cli, cli_launches = cli_path(torch, root)
+    cli, cli_launches, circuit = cli_path(torch, root)
+    setup, setup_launches, sctx = setup_path(torch, circuit)
+    del circuit
     per_path = {"tree": tree_launches["default"],
                 "dense": dense_launches["default"],
                 "fused": dense_launches["fused"],
                 "check510": check_launches,
                 f"tree_2^{LOG2N_BIG}": big_launches["default"],
-                f"cli_2^{LOG2N}": cli_launches}
+                f"cli_2^{LOG2N}": cli_launches,
+                "setup510": setup510_launches,
+                f"setup_2^{LOG2N}": setup_launches}
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in _build.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
@@ -2103,14 +2450,19 @@ def main() -> int:
         **{p: 0 for p in per_path}, f"tree_2^{LOG2N_BIG}": 6}, \
         f"ntt_stage_fr launches: {tails}, a 2^20 proof " \
         f"{bctx['per_proof']['ntt_stage_fr']}"
-    rows = kernels_vs_plain(torch, tctx, dctx, bctx, launches)
+    # the setup's kernels on the setup paths alone
+    fb = [k for k in launches if k.startswith("fixed_base_")]
+    stray = {p: {k: v[k] for k in fb if v[k]} for p, v in per_path.items()
+             if not p.startswith("setup") and any(v[k] for k in fb)}
+    assert not stray, f"fixed-base kernels off the setup paths: {stray}"
+    rows = kernels_vs_plain(torch, tctx, dctx, bctx, launches, sctx)
     tree["ntt_routes_ms"] = ntt_routes(torch, {
         d: ctx["eng"]._domain(d).fourstep
         for d, ctx in ((1 << (LOG2N + 1), tctx),
                        (1 << (LOG2N_DENSE + 1), dctx))}
         | {bctx["dom"].size: bctx["dom"].fourstep})
 
-    for result in (tree, dense, big, cli):
+    for result in (tree, dense, big, cli, setup):
         result.update({"device": torch.cuda.get_device_name(0),
                        "card": card})
     tree.update({"build_s": build_s, "smoke_s": time.time() - t_start,
@@ -2121,6 +2473,7 @@ def main() -> int:
     print(json.dumps(dense))
     print(json.dumps(big))
     print(json.dumps(cli))
+    print(json.dumps(setup))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """The port's ``za`` CLI and helper on the CPU against za_tpu's.
 
 The CLI round trip (setup -> prove -> verify) on example/ with
-``--engine host``; ``prove`` with its default engine, the card, exits
-with an error where there is none; ``compile`` and ``test`` print what
+``--engine host``; ``setup`` and ``prove`` with their default engine,
+the card, exit with an error where there is none and write nothing; ``compile`` and ``test`` print what
 za_tpu's CLI prints.  helper.prove on each route against za_tpu's
 proof.json string is tests/test_torch_gpucache.py's."""
 
@@ -30,7 +30,8 @@ def example(tmp_path, monkeypatch):
 
 
 def test_cli_round_trip_on_the_host(example, capsys):
-    assert cli.main(["setup", "--verifiertype", "json"]) == 0
+    assert cli.main(["setup", "--verifiertype", "json", "--engine",
+                     "host"]) == 0
     assert cli.main(["prove", "--engine", "host"]) == 0
     assert sorted(os.listdir(example)) == [
         "circuit.za", "input.json", "proof.json", "proving.key",
@@ -60,7 +61,8 @@ def test_cli_round_trip_on_the_host(example, capsys):
 def test_cli_prove_on_the_card_needs_one(example, capsys, monkeypatch):
     """The default engine is the card: without one, prove exits with an
     error and writes no proof; it does not prove on the host."""
-    assert cli.main(["setup", "--verifiertype", "json"]) == 0
+    assert cli.main(["setup", "--verifiertype", "json", "--engine",
+                     "host"]) == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     capsys.readouterr()
     for argv in (["prove"], ["prove", "--engine", "gpu"]):
@@ -71,7 +73,20 @@ def test_cli_prove_on_the_card_needs_one(example, capsys, monkeypatch):
     with pytest.raises(SystemExit):
         cli.main(["prove", "--engine", "tpu"])
     with pytest.raises(SystemExit):
-        cli.main(["setup", "--engine", "host"])
+        cli.main(["setup", "--engine", "tpu"])
+
+
+def test_cli_setup_on_the_card_needs_one(example, capsys, monkeypatch):
+    """setup's default engine is the card too: without one it exits with
+    the CUDA error before compiling and leaves no proving key and no
+    verifier; it does not set up on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["setup"], ["setup", "--engine", "gpu", "--verifiertype",
+                             "json"]):
+        assert cli.main(argv) == 1
+        err = capsys.readouterr().err
+        assert err.startswith("error:") and "CUDA" in err
+        assert sorted(os.listdir(example)) == ["circuit.za", "input.json"]
 
 
 @pytest.mark.parametrize("error", ["device_fault", "witness_rejected"])
@@ -80,7 +95,8 @@ def test_replay_retries_only_a_rejected_witness(example, monkeypatch, caplog,
     """After a replay only a witness that fails the constraint check is
     re-interpreted; any other error of the prove (the device's, the
     self-verification's) is raised as it is."""
-    assert cli.main(["setup", "--verifiertype", "json"]) == 0
+    assert cli.main(["setup", "--verifiertype", "json", "--engine",
+                     "host"]) == 0
     assert cli.main(["prove", "--engine", "host"]) == 0   # writes the trace
     calls = []
 

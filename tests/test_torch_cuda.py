@@ -8,8 +8,9 @@ import numpy as np
 import pytest
 import torch
 
-from za_tpu_torch.curve import Q, R
+from za_tpu_torch.curve import G1_GEN, G2_GEN, Q, R, g1_mul, g2_mul
 from za_tpu_torch.engine import cuda_tree as CT, ec, field as F
+from za_tpu_torch.engine import fixed_base as FB
 from za_tpu_torch.engine import msm as MSM, msm_dense as MD
 from za_tpu_torch.engine import msm_tree as MT, ntt as NTT, r1cs as RC
 
@@ -495,3 +496,47 @@ def test_chunk_carry_kernel_matches_plain(gen, is_g2, C):
         with pytest.raises(ValueError, match="chunk_carry"):
             CT.chunk_carry(*bad, is_g2)
     assert CT.CARRY[is_g2].launches == before
+
+
+@pytest.mark.parametrize("c", [4, 5, 8])
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_fixed_base_kernels_match_plain(gen, is_g2, c):
+    """The table and the fixed-base MSM against their plain versions
+    (bit for bit) and the host's scalar multiplication, on edge scalars
+    (0, 1, R - 1, the top window, zero windows) and random ones; one
+    launch a call."""
+    base = ec.points_to_device([G2_GEN if is_g2 else G1_GEN], is_g2, "cuda")
+    before = FB.TABLE[is_g2].launches, FB.MSM[is_g2].launches
+    tab = FB.fixed_base_table(base, c, is_g2)
+    assert _same(tab, FB.fixed_base_table_plain(base, c, is_g2))
+    rng = random.Random(c)
+    scs = [0, 1, 2, R - 1, (1 << 253) + 1, (5 << 200) | 7] + [
+        rng.randrange(R) for _ in range(1000)]
+    sc = torch.from_numpy(F.ints_to_limbs(scs).astype(np.int32)).cuda()
+    out = FB.fixed_base_msm(tab, sc, c, is_g2)
+    assert _same(out, FB.fixed_base_msm_plain(tab, sc, c, is_g2))
+    assert (FB.TABLE[is_g2].launches, FB.MSM[is_g2].launches) == (
+        before[0] + 1, before[1] + 1)
+    get = ec.g2_points_from_device if is_g2 else ec.g1_points_from_device
+    mul, g = (g2_mul, G2_GEN) if is_g2 else (g1_mul, G1_GEN)
+    got = get(*(o[..., :12].contiguous() for o in out))
+    assert got == [mul(g, s) for s in scs[:12]]
+
+
+def test_fixed_base_wrappers_refuse_bad_arguments(gen):
+    """Bad window, shapes, dtype or devices raise before any launch."""
+    base = ec.points_to_device([G1_GEN], False, "cuda")
+    tab = FB.fixed_base_table(base, 8, False)
+    sc = torch.ones((16, 4), dtype=torch.int32, device="cuda")
+    launches = FB.TABLE[False].launches, FB.MSM[False].launches
+    for bad in (lambda: FB.fixed_base_table(base, 17, False),
+                lambda: FB.fixed_base_table(base, 8, True),
+                lambda: FB.fixed_base_msm(tab, sc, 5, False),
+                lambda: FB.fixed_base_msm(tab, sc.long(), 8, False),
+                lambda: FB.fixed_base_msm(tab, sc[:8], 8, False),
+                lambda: FB.fixed_base_msm(tab, sc.cpu(), 8, False)):
+        with pytest.raises(ValueError):
+            bad()
+    assert (FB.TABLE[False].launches, FB.MSM[False].launches) == launches
+    empty = FB.fixed_base_msm(tab, sc[:, :0], 8, False)
+    assert empty[0].shape == (8, 0) and FB.MSM[False].launches == launches[1]

@@ -2,8 +2,10 @@
 za_tpu's proof.json, and the port's staged-table cache, <pk>.gpucache,
 on the CPU.
 
-One directory holds the 510-constraint chain's pk (tests/torch_chain_pk.py)
-and a reference-engine <pk>.devcache.  In it helper.prove runs, in
+One directory holds the 30-constraint chain's pk (tests/torch_chain_pk.py)
+and a reference-engine <pk>.devcache; every test lowers the staged gate
+to the chain's size (torch_chain_pk.STAGED_GATE), so the engine routes
+run at 32 points.  In it helper.prove runs, in
 order: with the exact host engine (interpreting the circuit, writing
 <pk>.wtrace), with GpuEngine(device="cpu") on the dense route
 (replaying the trace), and on the tree route (TREE_MIN lowered, as
@@ -14,6 +16,7 @@ ZA_WTRACE=0 and ZA_DEVCACHE=0 a tree-route prove writes neither file.
 A changed pk (another digest), another layout or a corrupt file
 restages."""
 
+import importlib
 import io
 import json
 import os
@@ -32,12 +35,22 @@ from za_tpu_torch.groth16 import format as fmt
 from za_tpu_torch.groth16 import helper
 
 import torch_chain_pk as CHAIN
+# the module (the package's name "prove" is its function)
+prove_mod = importlib.import_module("za_tpu_torch.groth16.prove")
 from test_torch_prove import _one_thread  # noqa: F401 -- autouse fixture
 
 # the dense plain version's lane split on the CPU: any split gives the
 # same MSM bit for bit (engine/msm_dense.py); a narrow one costs the CPU
 # less than the H100's, which tests/test_torch_prove.py runs
 NARROW_SLOTS = {False: 16, True: 16}
+
+
+@pytest.fixture(autouse=True)
+def _staged_gate(monkeypatch):
+    """The staged branch from the chain's size on: helper.prove's
+    constraint check and groth16.prove both read the gate."""
+    for mod in (prove_mod, helper):
+        monkeypatch.setattr(mod, "STAGED_MIN", CHAIN.STAGED_GATE)
 
 
 @pytest.fixture(scope="module")
@@ -179,7 +192,7 @@ def test_tree_route_writes_then_loads_the_cache(seq):
     assert meta["version"] == engine_mod.GPUCACHE_VERSION
     assert {k: (v["chunk_cols"], v["chunks"])
             for k, v in meta["tables"].items()} == {
-        "g1abl": (512, 1), "g1h": (512, 1), "b_g2x": (512, 1)}
+        "g1abl": (32, 1), "g1h": (32, 1), "b_g2x": (32, 1)}
     assert sorted(os.listdir(seq["dir"])) == [
         "proving.key", "proving.key.devcache", "proving.key.gpucache",
         "proving.key.wtrace"]
@@ -208,7 +221,7 @@ _SMALL: dict = {}
 
 
 def _stage(path, digest):
-    """Stage the chain at N = 64 (its pk written once, read raw) with the
+    """Stage the chain at N = 16 (its pk written once, read raw) with the
     cache at path under digest -> (tables, stage_info)."""
     if not _SMALL:
         from test_torch_frontend import CHAIN as TEXT
@@ -218,7 +231,7 @@ def _stage(path, digest):
         from za_tpu_torch.groth16.setup import generate_parameters
 
         ev = Evaluator(Mode.GEN_CONSTRAINTS)
-        ev.eval_inline(Scope(True, None, "root"), TEXT % 64)
+        ev.eval_inline(Scope(True, None, "root"), TEXT % 16)
         cons, removed = optimize(ev.constraints, ev.signals.main_input_ids())
         r1cs = R1CS.from_constraints(ev.signals, cons, removed)
         buf = io.BytesIO()

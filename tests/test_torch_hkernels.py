@@ -470,15 +470,16 @@ def test_mul_eo_users_and_to_affine_inversions():
     """mul_eo is the product of ntt_twiddle_fr, of the tail kernel
     (ntt_stage_fr: its butterflies and its store), of to_affine_g1/_g2's
     per-point products (Karatsuba over it in G2) and of ec_add_g2's
-    thread add (OpsEo: Karatsuba over mul_eo); every other kernel keeps
-    mul.  Both to_affine kernels are the one-wave
+    and the G2 fixed-base kernels' thread adds (OpsEo: Karatsuba over
+    mul_eo); every other kernel keeps mul.  Both to_affine kernels are
+    the one-wave
     to_affine_wave_kernel and invert each block's product with inv_gcd
     (Gcd), G2 through the norm: no Fermat and no multi-wave kernel is
     left in ec.cu; the matvec keeps mul."""
     users = {f.name: re.sub(r"//.*", "", f.read_text()).count("mul_eo")
              for f in sorted(CSRC.glob("*.cu"))}
-    assert users == {"dense.cu": 0, "ec.cu": 1, "ntt.cu": 2, "r1cs.cu": 0,
-                     "tree.cu": 0}, users
+    assert users == {"dense.cu": 0, "ec.cu": 1, "fixed_base.cu": 0,
+                     "ntt.cu": 2, "r1cs.cu": 0, "tree.cu": 0}, users
     ntt, ec = NTT, (CSRC / "ec.cu").read_text()
     code = re.sub(r"//.*", "", ec)
     assert "#define ZA_TW_MUL mul_eo" in ntt
@@ -498,6 +499,10 @@ def test_mul_eo_users_and_to_affine_inversions():
     assert "Fermat" not in code and "to_affine_kernel" not in code
     assert "za::launch_add<za::Fq, za::Ops>(" in ec
     assert "za::launch_add<za::Fq2, za::OpsEo>(" in ec
+    fb = (CSRC / "fixed_base.cu").read_text()
+    for launch in ("launch_table", "launch_msm"):
+        assert f"za::{launch}<za::Fq, za::Ops>(" in fb
+        assert f"za::{launch}<za::Fq2, za::OpsEo>(" in fb
     curve = (CSRC / "curve.cuh").read_text()
     assert "using OpsEo = OpsKaratsuba<MulEo>;" in curve
     assert re.search(r"struct MulEo \{\s+__device__ static __forceinline__ "

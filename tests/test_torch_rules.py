@@ -74,7 +74,9 @@ def test_kernel_wrappers_take_only_cuda_tensors():
              "dense_window_sums_g1", "dense_window_sums_g2",
              "dense4_window_sums_g1", "dense4_window_sums_g2",
              "ntt_prefix_fr", "ntt_twiddle_fr", "r1cs_matvec_fr",
-             "ec_fold_g1", "ec_fold_g2", "ec_carry_g1", "ec_carry_g2"}
+             "ec_fold_g1", "ec_fold_g2", "ec_carry_g1", "ec_carry_g2",
+             "fixed_base_table_g1", "fixed_base_table_g2",
+             "fixed_base_msm_g1", "fixed_base_msm_g2"}
     assert names <= set(_build.KERNELS)
     for name in names:
         k = _build.KERNELS[name]

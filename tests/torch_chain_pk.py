@@ -1,10 +1,13 @@
-"""A proving key for the 510-constraint chain written to disk by za_tpu,
+"""A proving key for a 30-constraint chain written to disk by za_tpu,
 and the proof.json za_tpu's helper.prove makes from it: the fixture of
-the port's helper and CLI tests.
+the port's helper tests.
 
-The circuit is bench.py's multiplier chain at N = 510 without its
-output signal: 510 constraints and 512 variables over a 512-point
-domain, the size where the staged branch starts.  The parameters come
+The circuit is bench.py's multiplier chain at N = 30 without its output
+signal: 30 constraints and 32 variables over a 32-point domain.  The
+staged branch starts at 512 (groth16/prove.py STAGED_MIN); the tests
+lower that gate to the chain's size (STAGED_GATE), so that every route
+of the prover runs at a few dozen points, the plain versions' cost on
+the CPU staying low.  The parameters come
 from za_tpu's setup with fixed toxic waste and the windowed fixed-base
 table of tests/test_torch_prove.py, which also records the discrete
 log of every point it makes; za_tpu's prover then runs its MSMs as one
@@ -26,7 +29,9 @@ from za_tpu.groth16.r1cs import R1CS as ZR1CS
 from za_tpu.groth16.setup import generate_parameters as z_generate_parameters
 from test_torch_prove import TOXIC, ZG1, ZG2, _FixedBase, z_g1_mul, z_g2_mul
 
-N = 510
+N = 30
+# the staged gate the tests set: the chain's variable count
+STAGED_GATE = N + 2
 CIRCUIT = (
     "template chain(N) {\n"
     " signal input x;\n signal t[N];\n"
@@ -95,7 +100,7 @@ def build(root) -> dict:
     assert (r1cs.num_constraints, r1cs.num_vars) == (N, N + 2)
     table = _LoggedFixedBase()
     params = z_generate_parameters(r1cs, **TOXIC, engine=table)
-    assert params.domain_size == 512
+    assert params.domain_size == 32
     pk_dir = os.path.join(root, "pk")
     os.makedirs(pk_dir)
     pk = os.path.join(pk_dir, "proving.key")

@@ -1,10 +1,10 @@
 """``za`` command-line interface: compile / setup / prove / test / verify.
 
 Mirrors the reference CLI surface and defaults (cli/src/main.rs:25-33,
-107-179), with a ``verify`` subcommand.  ``prove`` runs on the card by
-default (``--engine gpu``: ``GpuEngine`` on CUDA; without a card it
-exits with an error, it does not prove on the host) or, with ``--engine
-host``, on the exact host engine.  ``setup`` runs on the host.
+107-179), with a ``verify`` subcommand.  ``setup`` and ``prove`` run on
+the card by default (``--engine gpu``: ``GpuEngine`` on CUDA; without a
+card they exit with an error, they do not fall back to the host) or,
+with ``--engine host``, on the exact host code.
 
     python3 -m za_tpu_torch.cli setup --verifiertype json
     python3 -m za_tpu_torch.cli prove
@@ -68,7 +68,8 @@ def cmd_compile(args):
 def cmd_setup(args):
     from .groth16 import helper
 
-    verifier = helper.setup(args.circuit, args.pk, args.verifiertype)
+    verifier = helper.setup(args.circuit, args.pk, args.verifiertype,
+                            engine=_engine(args.engine))
     verifier_file = args.verifier or (
         DEFAULT_VERIFIER_SOLIDITY
         if args.verifiertype == "solidity"
@@ -134,14 +135,15 @@ def main(argv=None):
     p.add_argument("--print", action="store_true")
     p.set_defaults(fn=cmd_compile)
 
-    p = sub.add_parser(
-        "setup", help="Compile & generate trusted setup (on the host)",
-        description="Compile the circuit and run the trusted setup. The "
-        "setup runs on the host: it has no device engine yet.")
+    engine_help = ("gpu (default): the CUDA card, an error without one; "
+                   "host: the exact host code")
+    p = sub.add_parser("setup", help="Compile & generate trusted setup")
     p.add_argument("--circuit", default=DEFAULT_CIRCUIT)
     p.add_argument("--pk", default=DEFAULT_PROVING_KEY)
     p.add_argument("--verifier", default=None)
     p.add_argument("--verifiertype", default="solidity", choices=["solidity", "json"])
+    p.add_argument("--engine", default="gpu", choices=["gpu", "host"],
+                   help=engine_help)
     p.set_defaults(fn=cmd_setup)
 
     p = sub.add_parser("prove", help="Generate a proof")
@@ -149,8 +151,7 @@ def main(argv=None):
     p.add_argument("--input", default=DEFAULT_INPUT)
     p.add_argument("--proof", default=DEFAULT_PROOF)
     p.add_argument("--engine", default="gpu", choices=["gpu", "host"],
-                   help="gpu (default): the CUDA card, an error without "
-                   "one; host: the exact host engine")
+                   help=engine_help)
     p.set_defaults(fn=cmd_prove)
 
     p = sub.add_parser("test", help="Run embedded circuit tests")

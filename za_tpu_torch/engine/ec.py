@@ -209,6 +209,22 @@ def g1_points_from_device(X, Y, Z) -> list:
     return out
 
 
+def affine_points_from_device(x, y, inf, is_g2: bool) -> list:
+    """Affine Montgomery l32 (x, y), each (8[,2], n), and an infinity
+    mask (n,) -> n host affine points, None at infinity: the coordinates
+    leave Montgomery form on their device, so the host inverts nothing
+    (to_affine's output and the Z = 0 mask)."""
+    x, y = (F.FQ.from_mont(F.unpack(c)).cpu().numpy() for c in (x, y))
+    inf = inf.cpu().tolist()
+    if not is_g2:
+        pts = zip(F.limbs_to_ints(x), F.limbs_to_ints(y))
+    else:
+        x0, x1, y0, y1 = (F.limbs_to_ints(c[:, k]) for c in (x, y)
+                          for k in (0, 1))
+        pts = ((Fq2(a, b), Fq2(c, d)) for a, b, c, d in zip(x0, x1, y0, y1))
+    return [None if i else p for p, i in zip(pts, inf)]
+
+
 def g2_points_from_device(X, Y, Z) -> list:
     """(8, 2, M) projective Montgomery -> M host affine G2 points."""
     def fq2s(c):

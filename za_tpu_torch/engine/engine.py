@@ -5,7 +5,9 @@ Provides the surface ``groth16.prove`` calls: ``stage_params``,
 ``h_coeffs_limbs`` (and ``h_coeffs``), ``msm_g1_many``, ``msm_g2_many``,
 ``msm_g1``, ``msm_g2``, plus the staging calls ``stage_g1_affine`` /
 ``stage_g2_affine`` (tree) and ``stage_g1_stacked`` /
-``stage_g2_stacked`` (dense) for callers that stage queries themselves.
+``stage_g2_stacked`` (dense) for callers that stage queries themselves,
+and the setup's ``fixed_base_g1`` / ``fixed_base_g2`` (``[s_i G]`` by a
+window table and one fixed-base MSM launch, ``engine.fixed_base``).
 Raw limb-array queries (``groth16.format``) come without the host's
 per-point check, so staging checks their points against the curve on
 the device and raises ``FormatError`` (the reference's stage_params
@@ -44,12 +46,13 @@ import time
 import numpy as np
 import torch
 
-from ..curve import R
+from ..curve import G1_GEN, G2_GEN, R
 from ..groth16 import format as FMT
 from ..groth16.domain import Domain
 from ..groth16.r1cs import R1CS
 from ..groth16.setup import expand_queries
-from . import cuda_tree as CT, ec, field as F, msm_dense as MD
+from . import cuda_tree as CT, ec, field as F, fixed_base as FB
+from . import msm_dense as MD
 from . import msm_tree as MT, ntt as NTT
 from . import r1cs as RC
 
@@ -112,6 +115,13 @@ class GpuEngine:
         #: "stage_s", and with a cache "cache_load_s" or
         #: "cache_save_s" and "cache_bytes"
         self.stage_info: dict = {}
+        self._fb_tables: dict = {}
+        #: what the last fixed_base_g1/g2 did: "n" scalars, seconds of
+        #: "table_s" (0 when the (group, c) table was kept), "upload_s"
+        #: (ints to limbs, to the device), "device_s" (the MSM and affine
+        #: kernels, out of Montgomery form, up to a sync), "points_s" (to
+        #: the host, host points)
+        self.fixed_base_info: dict = {}
 
     @staticmethod
     def tree_chunk(n: int) -> int:
@@ -378,6 +388,47 @@ class GpuEngine:
             shutil.rmtree(tmp, ignore_errors=True)
             return
         info.update(cache_save_s=time.monotonic() - t0, cache_bytes=nbytes)
+
+    # -- fixed-base scalar multiplication (trusted setup) ------------------------
+
+    def _fixed_base(self, scalars, c: int, is_g2: bool) -> list:
+        """[s_i * G] as host affine points (None for s_i = 0 mod R): the
+        (group, c) window table built once and kept on the engine, then
+        one fixed-base MSM launch over all the scalars, to_affine and the
+        points read back, infinity from Z."""
+        if not len(scalars):    # to_affine takes no empty batch
+            self.fixed_base_info = {"n": 0, "table_s": 0.0, "upload_s": 0.0,
+                                    "device_s": 0.0, "points_s": 0.0}
+            return []
+        t0 = time.monotonic()
+        table = self._fb_tables.get((is_g2, c))
+        if table is None:
+            base = ec.points_to_device([G2_GEN if is_g2 else G1_GEN], is_g2,
+                                       self.device)
+            table = self._fb_tables[(is_g2, c)] = FB.fixed_base_table(
+                base, c, is_g2)
+            self._sync()
+        t1 = time.monotonic()
+        sc = self._put(F.ints_to_limbs([s % R for s in scalars]))
+        t2 = time.monotonic()
+        X, Y, Z = FB.fixed_base_msm(table, sc, c, is_g2)
+        x, y = ec.to_affine(X, Y, Z, is_g2)
+        inf = (Z == 0).flatten(0, ec.elem_axes(is_g2) - 1).all(0)
+        self._sync()
+        t3 = time.monotonic()
+        out = ec.affine_points_from_device(x, y, inf, is_g2)
+        self.fixed_base_info = {
+            "n": len(scalars), "table_s": t1 - t0, "upload_s": t2 - t1,
+            "device_s": t3 - t2, "points_s": time.monotonic() - t3}
+        return out
+
+    def fixed_base_g1(self, scalars, c: int = 8) -> list:
+        """[s_i * G1 for s_i]: the setup's pk-query builder (the
+        reference's fixed_base_g1)."""
+        return self._fixed_base(scalars, c, False)
+
+    def fixed_base_g2(self, scalars, c: int = 8) -> list:
+        return self._fixed_base(scalars, c, True)
 
     # -- witness, R1CS, h(x) -------------------------------------------------------
 

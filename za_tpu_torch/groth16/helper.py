@@ -7,7 +7,8 @@ host engine).  With ``GpuEngine`` the pk's query vectors are parsed as
 raw limb arrays and checked against the curve at staging, and the
 staged tables are kept beside the pk in ``<pk>.gpucache`` for the next
 process; the compiled witness program goes to ``<pk>.wtrace`` whatever
-the engine.  ``setup`` runs on the host.
+the engine.  ``setup`` takes an engine too: ``GpuEngine`` builds the
+pk's queries on the card, None on the host.
 """
 
 from __future__ import annotations
@@ -52,10 +53,12 @@ def setup(
     circuit_path: str,
     proving_key_path: str,
     verifier_type: str = VERIFIER_SOLIDITY,
+    engine=None,
 ) -> str:
     """Compile(GenConstraints) -> optimize -> trusted setup -> write pk;
-    returns the verifier artifact text (helper.rs:22-89).  The setup
-    runs on the host."""
+    returns the verifier artifact text (helper.rs:22-89).  The setup's
+    query points come from the engine (GpuEngine: the card) or, with
+    None, the host."""
     ev = Evaluator(Mode.GEN_CONSTRAINTS)
 
     log.info("Compiling circuit...")
@@ -83,8 +86,9 @@ def setup(
     log.info("Running setup")
     start = time.monotonic()
     r1cs = R1CS.from_constraints(signals, constraints, removed_signals)
-    params = generate_parameters(r1cs)
-    log.info("Setup time: %.3fs", time.monotonic() - start)
+    params = generate_parameters(r1cs, engine=engine)
+    log.info("Setup time: %.3fs (%s)", time.monotonic() - start,
+             "host" if engine is None else "device")
 
     start = time.monotonic()
     with open(proving_key_path, "wb") as f:

@@ -1,8 +1,10 @@
 """Groth16 trusted setup (generate_random_parameters equivalent).
 
 Builds the proving/verifying key for an R1CS: QAP polynomials evaluated
-at tau via Lagrange coefficients, then the G1/G2 query vectors by host
-scalar multiplication (fine for small circuits, exact).
+at tau via Lagrange coefficients, then the G1/G2 query vectors by an
+engine's fixed-base batch scalar multiplication (``GpuEngine``: kernels
+on the card) or, without one, by host scalar multiplication (fine for
+small circuits); exact either way.
 
 Domain layout matches bellman: one extra constraint row per public input
 (input i appears alone in A) to prevent input malleability; domain size
@@ -12,6 +14,7 @@ is the next power of two >= num_constraints + num_inputs.
 from __future__ import annotations
 
 import secrets
+import time
 from dataclasses import dataclass, replace
 
 from ..curve import G1_GEN, G2_GEN, G1Point, G2Point, R, g1_mul, g2_mul
@@ -105,9 +108,20 @@ def generate_parameters(
     beta: int | None = None,
     gamma: int | None = None,
     delta: int | None = None,
+    engine=None,
+    timings: dict | None = None,
 ) -> Groth16Parameters:
     """Random toxic waste unless explicitly provided (deterministic
-    tests); pk query points by host scalar multiplication."""
+    tests).  With an engine the pk query points come from its
+    fixed_base_g1 / fixed_base_g2, batch by batch in the reference's
+    order; without one, from host scalar multiplication.
+
+    ``timings``, when given, receives the seconds of each step:
+    ``qap_evals_s`` (the QAP's values at tau), ``scalars_s`` (the query
+    scalars), and under ``batches`` each batch's (ic, l, a, b_g1, h,
+    b_g2, vk_g1, vk_g2) ``wall_s`` beside the engine's
+    ``fixed_base_info`` split, if it has one."""
+    t = timings if timings is not None else {}
 
     def rand_fr() -> int:
         while True:
@@ -123,7 +137,10 @@ def generate_parameters(
 
     domain = Domain.for_constraints(r1cs.num_constraints + r1cs.num_inputs)
     m = domain.size
+    t0 = time.monotonic()
     u, v, w = qap_evals_at_tau(r1cs, tau, domain)
+    t["qap_evals_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
 
     gamma_inv, delta_inv = batch_inverse([gamma, delta])
     z_tau = (pow(tau, m, R) - 1) % R
@@ -141,15 +158,38 @@ def generate_parameters(
     for _ in range(m - 1):
         h_s.append(p)
         p = p * tau % R
+    t["scalars_s"] = time.monotonic() - t0
 
-    def g1_batch(scalars):
-        return [g1_mul(G1_GEN, s % R) for s in scalars]
+    if engine is not None:
+        g1_batch = engine.fixed_base_g1
+        g2_batch = engine.fixed_base_g2
+    else:
 
-    def g2_batch(scalars):
-        return [g2_mul(G2_GEN, s % R) for s in scalars]
+        def g1_batch(scalars):
+            return [g1_mul(G1_GEN, s % R) for s in scalars]
 
-    alpha_g1, beta_g1, delta_g1 = g1_batch([alpha, beta, delta])
-    beta_g2, gamma_g2, delta_g2 = g2_batch([beta, gamma, delta])
+        def g2_batch(scalars):
+            return [g2_mul(G2_GEN, s % R) for s in scalars]
+
+    batches = t["batches"] = {}
+
+    def timed(name, mul_all, scalars):
+        t0 = time.monotonic()
+        out = mul_all(scalars)
+        batches[name] = {"wall_s": time.monotonic() - t0,
+                         **getattr(engine, "fixed_base_info", {})}
+        return out
+
+    ic = timed("ic", g1_batch, ic_s)
+    l = timed("l", g1_batch, l_s)
+    a = timed("a", g1_batch, u)
+    b_g1 = timed("b_g1", g1_batch, v)
+    h = timed("h", g1_batch, h_s)
+    b_g2 = timed("b_g2", g2_batch, v)
+    alpha_g1, beta_g1, delta_g1 = timed("vk_g1", g1_batch,
+                                        [alpha, beta, delta])
+    beta_g2, gamma_g2, delta_g2 = timed("vk_g2", g2_batch,
+                                        [beta, gamma, delta])
     vk = VerifyingKey(
         alpha_g1=alpha_g1,
         beta_g1=beta_g1,
@@ -157,9 +197,8 @@ def generate_parameters(
         gamma_g2=gamma_g2,
         delta_g1=delta_g1,
         delta_g2=delta_g2,
-        ic=g1_batch(ic_s),
+        ic=ic,
     )
     return Groth16Parameters(
-        vk=vk, h=g1_batch(h_s), l=g1_batch(l_s), a=g1_batch(u),
-        b_g1=g1_batch(v), b_g2=g2_batch(v), domain_size=m,
+        vk=vk, h=h, l=l, a=a, b_g1=b_g1, b_g2=b_g2, domain_size=m,
     )
