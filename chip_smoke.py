@@ -30,7 +30,12 @@ Phases:
      window sums, nothing but allocations, views and its carries, fold
      and Horner ("msm_tail_torch_ops"); launches of the first prove alone
      ("launches_per_proof", staging excluded): a lane fold per MSM, a
-     carry per tree MSM, no elementwise ec_add;
+     carry per tree MSM, no elementwise ec_add; the engine's stage
+     timer (engine/metrics.py, off in this process but here): a prove
+     with it off makes no CUDA event, with it on gives the same proof,
+     and one run of the device compute with it on logs msm.* and h.*
+     stages whose device seconds sum within 10% of that run's device
+     compute ("stage_timer");
   3. the dense path at full width: the same at 2^13 constraints, where
      the padded queries stay below TREE_MIN and the four G1 MSMs run as
      one stacked dense MSM; then the same prove through
@@ -71,6 +76,17 @@ Phases:
      staging against the cache load, prove, self-verify and wall
      seconds, peak memory, and what a process pays outside
      helper.prove (imports, CUDA context) at both sizes; one JSON line;
+     the CLI's -v prove logs stage lines with device seconds; (c) the
+     port's bindings on the card: libza2c built by its Makefile with
+     this machine's g++ and python3-config, setup -> prove -> verify
+     through the C ABI (test_za2c, a process of its own) and the
+     Python binding at the round trip's 600 constraints (dense), and a
+     prove from the 2^17 pk (tree, the tables from <pk>.gpucache), each
+     proof verified by helper.verify and refused with a public input
+     changed (rc 2 through the C ABI), the GpuEngine's stage_info
+     read; (d) the own-process prove under ZA_METRICS=1, and a fourth
+     in a process of its own that stages (ZA_DEVCACHE=0): their stage
+     lines, one JSON line "stage_metrics_131072c";
   4d. the trusted setup on the card at 2^17 constraints (4c's compiled
      chain, fixed toxic waste): generate_parameters with GpuEngine(),
      its launches a path ("setup_2^17"), timed step by step (the QAP's
@@ -308,6 +324,134 @@ class Split:
         return out
 
 
+STAGE_LINE = re.compile(r"^\[stage\] (\S+): (.*)$")
+STAGE_PART = re.compile(r"^(\S+) ([0-9.]+)s(?: device ([0-9.]+)s)?$")
+
+
+def parse_stage_lines(messages) -> list:
+    """The engine's metrics lines -> [{"name", "wall_s", "device_s"}]
+    (device_s None on the CPU); a staging call's block totals carry
+    "parts": {part: {"wall_s", "device_s"}} in place of the seconds."""
+    out = []
+    for msg in messages:
+        m = STAGE_LINE.match(msg)
+        if not m:
+            continue
+        name, rest = m.groups()
+        one = STAGE_PART.match(f"_ {rest}")
+        if one:
+            out.append({"name": name, "wall_s": float(one.group(2)),
+                        "device_s": one.group(3) and float(one.group(3))})
+            continue
+        parts = {}
+        for field in rest.split(", "):
+            p = STAGE_PART.match(field)
+            assert p, f"stage line: {msg!r}"
+            parts[p.group(1)] = {"wall_s": float(p.group(2)),
+                                 "device_s": p.group(3) and float(p.group(3))}
+        out.append({"name": name, "parts": parts})
+    return out
+
+
+class KeepLines:
+    """Attached to the logger za_tpu_torch.metrics at INFO: keeps every
+    message in .lines."""
+
+    def __init__(self):
+        import logging
+
+        class Keep(logging.Handler):
+            def emit(inner, record):
+                self.lines.append(record.getMessage())
+
+        self.lines, self.handler = [], Keep()
+        self.log = logging.getLogger("za_tpu_torch.metrics")
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.log.level
+        self.log.setLevel(logging.INFO)
+        self.log.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self.handler)
+        self.log.setLevel(self.level)
+
+
+def with_stage_timer(fn):
+    """fn() with the engine's stage timer on -> (its result, its parsed
+    stage lines)."""
+    from za_tpu_torch.engine import metrics
+
+    with KeepLines() as keep:
+        metrics.StageTimer.enabled = True
+        try:
+            out = fn()
+        finally:
+            metrics.StageTimer.enabled = False
+    return out, parse_stage_lines(keep.lines)
+
+
+def metrics_on_off(torch, prove_compute, prove_once, proof, off_s) -> dict:
+    """The 2^17 proof with the engine's stage timer off and on: off, one
+    prove creates no CUDA event (torch.cuda.Event counted) and gives the
+    proof; on, the prove gives the same proof, and the device compute
+    (h and the MSMs, each call timed as prove_path times them; one
+    warm-up, median of 3) logs msm.* and h.* stages whose device seconds
+    sum within 10% of the device compute with the timer off (off_s).
+    With the timer on, each call's span also holds the host's time
+    between its stages, which the card waits out at each stage's sync
+    ("device_compute_on_s")."""
+    real = torch.cuda.Event
+    made, syncs = [], []
+    real_sync = torch.cuda.synchronize
+
+    def counted_event(*args, **kwargs):
+        made.append(1)
+        return real(*args, **kwargs)
+
+    def counted_sync(*args, **kwargs):
+        syncs.append(1)
+        return real_sync(*args, **kwargs)
+
+    torch.cuda.Event, torch.cuda.synchronize = counted_event, counted_sync
+    try:
+        off = prove_once()
+    finally:
+        torch.cuda.Event, torch.cuda.synchronize = real, real_sync
+    assert off == proof, "the timer-off proof differs"
+    assert not made, f"the timer off made {len(made)} CUDA events"
+    on, proof_lines = with_stage_timer(prove_once)
+    assert on == proof, "the timer-on proof differs"
+    runs = []
+    for _ in range(4):      # the first a warm-up
+        stages, lines = with_stage_timer(prove_compute)
+        dev = {k: 0.0 for k in ("msm", "h")}
+        for line in lines:
+            head = line["name"].split(".")[0]
+            if head in dev:
+                assert line["device_s"] is not None, line
+                dev[head] += line["device_s"]
+        runs.append((dev["msm"] + dev["h"], sum(stages.values()), dev,
+                     lines))
+    runs = sorted(runs[1:], key=lambda r: r[0])
+    total, compute_on, dev, lines = runs[1]
+    assert abs(total - off_s) <= 0.1 * off_s, \
+        f"stage device seconds {total} against device compute {off_s}"
+    names = {line["name"] for line in proof_lines}
+    assert any(n.startswith("msm.g1.tree") for n in names) and \
+        {"h.ntt.intt", "h.ntt.coset", "h.combine+intt"} <= names, names
+    return {"stage_device_s": total, "stage_device_runs_s":
+            [r[0] for r in runs], "stage_device_by": dev,
+            "device_compute_off_s": off_s, "ratio": total / off_s,
+            "device_compute_on_s": compute_on,
+            "device_compute_on_runs_s": [r[1] for r in runs],
+            "off_events": len(made), "off_syncs": len(syncs),
+            "proof_lines": proof_lines, "compute_lines": lines}
+
+
 # -- phases 2 and 3: the tree and dense paths at full width ----------------------
 
 
@@ -501,6 +645,13 @@ def prove_path(torch, timer, log2n: int, lean: bool = False):
         return st
 
     stages, totals, warm = median_runs(prove_compute)
+    if tree and not lean:   # the engine's stage timer, off and on
+        extra["stage_timer"] = metrics_on_off(
+            torch, prove_compute,
+            lambda: prove(params, r1cs, z, r=r_, s=s_, engine=eng), proof,
+            statistics.median(totals))
+        log(f"2^{log2n} stage timer: on {extra['stage_timer']['ratio']:.3f}"
+            f" of device compute; proofs equal on and off")
     torch_ops = h_torch_ops(eng, r1cs, z_l, domain)
     assert not any(torch_ops.values()), f"h(x) ran tensor code: {torch_ops}"
     h_in = h_inline(torch, eng, r1cs, z_l, domain)
@@ -1087,12 +1238,14 @@ STARTUP_CUDA = ("import time, torch; t = time.time(); "
                 "print(time.time() - t)")
 # the third 2^17 prove, a process of its own as a user's `za prove` is:
 # argv pk, x, r, s, out -> out holds the proof.json string, the
-# prove's timings, its stage_info, its launches and the process's import
-# and CUDA start-up seconds
+# prove's timings, its stage_info, its launches, the process's import
+# and CUDA start-up seconds and the engine's stage lines (ZA_METRICS=1
+# in its environment)
 PROVE_CHILD = """
 import json, sys, time
 t0 = time.time()
 import torch
+import chip_smoke as cs
 from za_tpu_torch.algebra import FS
 from za_tpu_torch.engine import _build
 from za_tpu_torch.engine.engine import GpuEngine
@@ -1104,13 +1257,37 @@ eng = GpuEngine()
 torch.zeros(1, device=eng.device)
 torch.cuda.synchronize()
 t = {"import_s": import_s, "cuda_init_s": time.time() - t0}
-pj = helper.prove(pk, [("main.x", FS(int(x)))], engine=eng,
-                  deterministic_rs=(int(r), int(s)), timings=t)
+with cs.KeepLines() as keep:
+    pj = helper.prove(pk, [("main.x", FS(int(x)))], engine=eng,
+                      deterministic_rs=(int(r), int(s)), timings=t)
 t.update(eng.stage_info)
 t["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
 t["launches"] = {k.name: k.launches for k in _build.KERNELS.values()}
 with open(out, "w") as f:
-    json.dump({"proof": pj, "timings": t}, f)
+    json.dump({"proof": pj, "timings": t, "stage_lines": keep.lines}, f)
+"""
+
+
+# a process's first staging with nothing run before it: the chain's
+# pool queries at 2^argv[1] (chain_inputs) staged by a new GpuEngine,
+# ZA_METRICS=1 in its environment -> JSON on stdout: stage_s, the
+# stage lines
+STAGE_CHILD = """
+import json, sys, time
+sys.setrecursionlimit(100000)
+import torch
+import chip_smoke as cs
+from za_tpu_torch.engine.engine import GpuEngine
+inp = cs.chain_inputs(int(sys.argv[1]))
+eng = GpuEngine()
+torch.zeros(1, device=eng.device)
+torch.cuda.synchronize()
+with cs.KeepLines() as keep:
+    t0 = time.time()
+    eng.stage_params(inp["params"], inp["r1cs"])
+    torch.cuda.synchronize()
+    stage_s = time.time() - t0
+print(json.dumps({"stage_s": stage_s, "lines": keep.lines}))
 """
 
 
@@ -1150,6 +1327,10 @@ def cli_round_trip(root: str, work: str) -> dict:
     first = za("prove1_s", "prove")
     assert os.path.exists(os.path.join(d, "proving.key.wtrace")), \
         "the first prove wrote no .wtrace"
+    # -v turns the engine's stage timer on: device seconds a stage
+    assert re.search(r"\[stage\] msm\.g1\.kernel\S*: [0-9.]+s device "
+                     r"[0-9.]+s", first.stderr), \
+        "za -v prove logged no stage line with device seconds"
     second = za("prove2_s", "prove", "--proof", "proof2.json")
     for tag, p in (("first", first), ("second", second)):
         assert "(device)" in p.stderr and "(host)" not in p.stderr, \
@@ -1197,6 +1378,125 @@ def cli_round_trip(root: str, work: str) -> dict:
     assert p.stdout.strip() == "OK", f"verify proof_host.json: {p.stdout!r}"
     out["constraints"] = CLI_N
     log(f"CLI round trip at {CLI_N} constraints: {out}")
+    return out
+
+
+# -- the port's bindings on the card (phase 4c) -------------------------------------
+
+ZA2C_DIR = os.path.join("za_tpu_torch", "bindings", "c")
+
+
+def build_za2c(root: str, out: str) -> float:
+    """The port's libza2c and its round trip test_za2c, built by its
+    Makefile with this machine's g++ and python3-config into out ->
+    seconds."""
+    t0 = time.time()
+    p = subprocess.run(["make", "-C", os.path.join(root, ZA2C_DIR),
+                        f"BUILD={out}", os.path.join(out, "test_za2c")],
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, f"libza2c build:\n{p.stdout}\n{p.stderr}"
+    return time.time() - t0
+
+
+def tampered(proof_json: str) -> str:
+    doc = json.loads(proof_json)
+    doc["public_inputs"][0] = str(int(doc["public_inputs"][0]) + 1)
+    return json.dumps(doc)
+
+
+def held(vk_json: str, proof_json: str, tag: str) -> None:
+    """The proof verifies under the port's helper.verify; with its first
+    public input changed it does not."""
+    from za_tpu_torch.groth16 import helper
+
+    assert helper.verify(vk_json, proof_json), f"{tag}: proof rejected"
+    assert not helper.verify(vk_json, tampered(proof_json)), \
+        f"{tag}: tampered proof accepted"
+
+
+def za2c_round_trip(root: str, build: str, work: str, inputs: str,
+                    pk: str | None = None) -> dict:
+    """test_za2c on the default engine, the card, in a process of its
+    own: setup of work/circuit.za (without pk), prove, verify, a
+    tampered proof rc 2 (else the program fails) -> each call's seconds,
+    the process's, and the stage_info of the GpuEngine the C ABI built;
+    the proof verifies under the port's helper.verify."""
+    env = dict(os.environ, ZA_TPU_ROOT=root, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in sys.path if p]))
+    t0 = time.time()
+    p = subprocess.run([os.path.join(build, "test_za2c"), work, "gpu",
+                        inputs] + ([pk] if pk else []),
+                       capture_output=True, text=True, timeout=900, env=env)
+    out = {"process_s": time.time() - t0}
+    lines = p.stdout.splitlines()
+    assert p.returncode == 0 and lines[-1:] == ["ALL C BINDING TESTS PASS"] \
+        and "tampered proof rejected ok" in lines, \
+        f"test_za2c: rc {p.returncode}\n{p.stdout}\n{p.stderr[-4000:]}"
+    for line in lines:
+        if line.startswith("za2c "):
+            _, call, sec = line.split()
+            out[f"{call}_s"] = float(sec)
+        elif line.startswith("engines "):
+            engines = json.loads(line[len("engines "):])
+    assert len(engines) == 1, f"the C ABI's GpuEngines: {engines}"
+    out["stage_info"] = engines[0]
+    if pk is None:
+        assert "Setup time" in p.stderr and "(device)" in p.stderr, \
+            "the C ABI's setup did not run on the card"
+    assert "(device)" in p.stderr.split("Proving key read time")[-1], \
+        "the C ABI's prove did not check the constraints on the card"
+    with open(os.path.join(work, "verifier.json")) as f:
+        vk_json = f.read()
+    with open(os.path.join(work, "proof.json")) as f:
+        held(vk_json, f.read(), "C ABI")
+    return out
+
+
+def load_za2py(root: str):
+    """The port's Python binding, from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "za2py_torch",
+        os.path.join(root, "za_tpu_torch", "bindings", "python3", "za2py.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bindings_dense(root: str, work: str, build: str, za2py) -> dict:
+    """setup -> prove -> verify on the default engine (the card) at the
+    round trip's CLI_N constraints, the dense route, through the C ABI
+    (test_za2c) and through the Python binding -> seconds a call and
+    each engine's stage_info."""
+    inputs = json.dumps({"x": str(CLI_X)})
+    out = {}
+    for tag in ("c", "python"):
+        d = os.path.join(work, f"za2{tag}_{CLI_N}")
+        os.makedirs(d)
+        circuit = os.path.join(d, "circuit.za")
+        with open(circuit, "w") as f:
+            f.write(CHAIN_ZA % CLI_N)
+        if tag == "c":
+            out[tag] = za2c_round_trip(root, build, d, inputs)
+        else:
+            pk, t = os.path.join(d, "proving.key"), {}
+            t0 = time.time()
+            vk = za2py.setup(circuit, pk, "json")
+            t["setup_s"] = time.time() - t0
+            t0 = time.time()
+            proof = za2py.prove(pk, inputs)
+            t["prove_s"] = time.time() - t0
+            t0 = time.time()
+            assert za2py.verify(vk, proof), "Python binding: verify"
+            t["verify_s"] = time.time() - t0
+            held(vk, proof, "Python binding")
+            t["stage_info"] = dict(za2py._gpu.stage_info)
+            out[tag] = t
+        info = out[tag]["stage_info"]
+        assert (info["source"], info["cache"]) == ("staged", None), \
+            f"{tag} binding at {CLI_N}: not staged on the dense route: {info}"
+    log(f"bindings at {CLI_N} constraints (dense, the card): {out}")
     return out
 
 
@@ -1251,6 +1551,11 @@ def cli_path(torch, root: str) -> tuple:
     try:
         result = {"metric": f"za_prove_from_pk_{1 << LOG2N}c",
                   "round_trip_s": cli_round_trip(root, work)}
+        build = os.path.join(work, "za2c")
+        za2py = load_za2py(root)
+        bindings = {"build_s": build_za2c(root, build),
+                    f"dense_{CLI_N}": bindings_dense(root, work, build,
+                                                     za2py)}
 
         n = 1 << LOG2N
         t0 = time.time()
@@ -1272,10 +1577,15 @@ def cli_path(torch, root: str) -> tuple:
         t0 = time.time()
         rng = random.Random(SEED + 1)
         a_q, sa = pool_points(rng, nv, 67)
-        b1_q, sb1 = pool_points(rng, nv, 67)
         l_q, sl = pool_points(rng, r1cs.num_aux, 67)
         h_q, sh = pool_points(rng, m - 1, 67)
         b2_q, sb2 = pool_points(rng, nv, 19, g2=True)
+        # b_g1 on b_g2's logs, as a setup makes them: then a proof of any
+        # r, s verifies (the bindings prove with random ones), not only
+        # the one of rs, which the vk's IC point is solved for
+        sb1 = sb2
+        b1_pool = [g1_mul(G1_GEN, v) for v in sb1]
+        b1_q = [b1_pool[i % len(sb1)] for i in range(nv)]
         alpha, beta, delta = (rng.randrange(1, R) for _ in range(3))
         rs = (rng.randrange(1, R), rng.randrange(1, R))
         h = limbs_to_ints(GpuEngine().h_coeffs_limbs(r1cs, z, domain).cpu())
@@ -1348,19 +1658,64 @@ def cli_path(torch, root: str) -> tuple:
         assert wtrace_lib() is not None, "the native replay did not build"
         del eng
         torch.cuda.empty_cache()
-        out = os.path.join(work, "child.json")
-        t0 = time.time()
-        subprocess.run([sys.executable, "-c", PROVE_CHILD, pk, str(CLI_X),
-                        str(rs[0]), str(rs[1]), out], cwd=root,
-                       env=dict(os.environ, PYTHONPATH=root), check=True,
-                       timeout=900)
-        process_s = time.time() - t0
-        with open(out) as f:
-            child = json.load(f)
+
+        def own_process(tag, **env):
+            """PROVE_CHILD under ZA_METRICS=1 -> (its output, seconds)."""
+            out = os.path.join(work, f"{tag}.json")
+            t0 = time.time()
+            subprocess.run([sys.executable, "-c", PROVE_CHILD, pk,
+                            str(CLI_X), str(rs[0]), str(rs[1]), out],
+                           cwd=root, env=dict(os.environ, PYTHONPATH=root,
+                                              ZA_METRICS="1", **env),
+                           check=True, timeout=900)
+            seconds = time.time() - t0
+            with open(out) as f:
+                return json.load(f), seconds
+
+        child, process_s = own_process("child")
         t = child["timings"]
         launches = {k: v + t["launches"].get(k, 0)
                     for k, v in launches.items()}
         proves.append((child["proof"], t))
+        # a fourth prove in a process of its own that stages the tables
+        # (no <pk>.gpucache read or written): a process's first staging
+        # and first constraint check, split by the stage timer
+        fresh, fresh_s = own_process("staging", ZA_DEVCACHE="0")
+        ft = fresh["timings"]
+        launches = {k: v + ft["launches"].get(k, 0)
+                    for k, v in launches.items()}
+        assert fresh["proof"] == proves[0][0], "the staging child's proof"
+        assert (ft["witness"], ft["source"], ft["cache"]) == (
+            "replay_native", "staged", None), ft
+        keys = ("sat_check_s", "prove_s", "wall_s", "pk_read_s",
+                "witness_s", "import_s", "cuda_init_s")
+        result["stage_metrics"] = {
+            "metric": f"stage_metrics_{1 << LOG2N}c",
+            "cache_load": {"lines": parse_stage_lines(child["stage_lines"]),
+                           "process_s": process_s, "cache_load_s":
+                           t["cache_load_s"],
+                           **{k: t[k] for k in keys}},
+            "staging": {"lines": parse_stage_lines(fresh["stage_lines"]),
+                        "process_s": fresh_s, "stage_s": ft["stage_s"],
+                        **{k: ft[k] for k in keys}}}
+        t0 = time.time()
+        p = subprocess.run([sys.executable, "-c", STAGE_CHILD, str(LOG2N)],
+                           cwd=root, env=dict(os.environ, PYTHONPATH=root,
+                                              ZA_METRICS="1"),
+                           check=True, capture_output=True, text=True,
+                           timeout=900)
+        first = json.loads(p.stdout.splitlines()[-1])
+        result["stage_metrics"]["first_staging"] = {
+            "lines": parse_stage_lines(first["lines"]),
+            "stage_s": first["stage_s"], "process_s": time.time() - t0}
+        for tag, lines in (("cache_load", child["stage_lines"]),
+                           ("staging", fresh["stage_lines"]),
+                           ("first_staging", first["lines"])):
+            assert lines and all(" device " in x for x in lines
+                                 if x.startswith("[stage]")), \
+                f"{tag}: stage lines without device seconds: {lines[:3]}"
+        log(f"2^{LOG2N} stage lines (own process, staging): "
+            f"{fresh['stage_lines']}")
         result["fresh_process"] = {
             "process_s": process_s, "import_s": t["import_s"],
             "cuda_init_s": t["cuda_init_s"],
@@ -1399,6 +1754,30 @@ def cli_path(torch, root: str) -> tuple:
             f"process of its own, {process_s:.1f}s); helper walls "
             f"{result['wall_s']}, stage {result['stage_s']:.2f}s against "
             f"cache loads {result['cache_load_s']}")
+
+        # the bindings from the 2^17 pk on the card (the tree route, its
+        # tables from <pk>.gpucache): the C ABI in a process of its own,
+        # the Python binding in this one
+        d = os.path.join(work, f"za2c_{n}")
+        os.makedirs(d)
+        vk_json = fmt.vk_to_json(vk, r1cs.input_names)
+        with open(os.path.join(d, "verifier.json"), "w") as f:
+            f.write(vk_json)
+        inputs_json = json.dumps({"x": str(CLI_X)})
+        tree = {"c": za2c_round_trip(root, build, d, inputs_json, pk)}
+        t0 = time.time()
+        pj = za2py.prove(pk, inputs_json)
+        tree["python"] = {"prove_s": time.time() - t0,
+                          "stage_info": dict(za2py._gpu.stage_info)}
+        held(vk_json, pj, "Python binding at 2^17")
+        for tag, info in ((k, v["stage_info"]) for k, v in tree.items()):
+            assert (info["source"], info["cache"]) == ("cache", "hit"), \
+                f"{tag} binding at 2^{LOG2N}: tables not from the cache: {info}"
+        bindings[f"tree_{n}"] = tree
+        result["bindings"] = bindings
+        za2py._gpu = None
+        torch.cuda.empty_cache()
+        log(f"bindings at 2^{LOG2N} (tree, the card): {tree}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     result["phase_s"] = time.time() - t_phase
@@ -2386,6 +2765,9 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    # the engine's stage timer stays off in this process but where a
+    # check turns it on (engine.metrics reads the variable at import)
+    os.environ.pop("ZA_METRICS", None)
     try:
         from za_tpu_torch.engine import _build
     except ImportError as exc:
@@ -2419,6 +2801,7 @@ def main() -> int:
     bctx = {"per_proof": bctx["per_proof"],
             "dom": bctx["eng"]._domain(bctx["m"])}   # the tables go
     cli, cli_launches, circuit = cli_path(torch, root)
+    stage_metrics = cli.pop("stage_metrics")
     setup, setup_launches, sctx = setup_path(torch, circuit)
     del circuit
     per_path = {"tree": tree_launches["default"],
@@ -2462,7 +2845,7 @@ def main() -> int:
                        (1 << (LOG2N_DENSE + 1), dctx))}
         | {bctx["dom"].size: bctx["dom"].fourstep})
 
-    for result in (tree, dense, big, cli, setup):
+    for result in (tree, dense, big, cli, stage_metrics, setup):
         result.update({"device": torch.cuda.get_device_name(0),
                        "card": card})
     tree.update({"build_s": build_s, "smoke_s": time.time() - t_start,
@@ -2473,6 +2856,7 @@ def main() -> int:
     print(json.dumps(dense))
     print(json.dumps(big))
     print(json.dumps(cli))
+    print(json.dumps(stage_metrics))
     print(json.dumps(setup))
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,5 +1,5 @@
 """Package rules of the port: it imports neither JAX nor anything of
-za_tpu; its engine needs CUDA unless a device is given; its kernel
+za_tpu, and its bindings name nothing of za_tpu; its engine needs CUDA unless a device is given; its kernel
 wrappers never take a CPU path for CUDA work; chip_smoke.py refuses to
 run without a card or without the package."""
 
@@ -57,6 +57,26 @@ def test_package_imports_no_jax_and_no_za_tpu():
         if f.endswith(".py")]
     bad = [f for f in files if _IMPORT.search(open(f).read())]
     assert not bad, bad
+
+
+def test_bindings_name_nothing_of_za_tpu():
+    """The port's bindings reach za_tpu_torch alone: no file of theirs
+    names a za_tpu module or path, not in a C string, not in a
+    comment."""
+    bind = os.path.join(ROOT, "za_tpu_torch", "bindings")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(bind) for f in fs]
+    names = {os.path.relpath(f, bind) for f in files}
+    assert {"python3/za2py.py", "c/za2c.cpp", "c/za2c.h", "c/Makefile",
+            "c/test_za2c.c", "go/lib.go", "js/za2node.cc",
+            "js/binding.gyp", "js/index.js", "js/test.js",
+            "js/ci_stub/node_api.h", "flutter/za2flutter.cpp",
+            "flutter/Makefile"} <= names
+    bad = [f for f in files
+           if re.search(r"\bza_tpu\b", open(f, errors="replace").read())]
+    assert not bad, bad
+    helper = re.compile(r"za_tpu_torch[.]groth16[.]helper")
+    for f in ("python3/za2py.py", "c/za2c.cpp"):
+        assert helper.search(open(os.path.join(bind, f)).read()), f
 
 
 def test_engine_needs_cuda(monkeypatch):

@@ -9,12 +9,17 @@ with ``--engine host``, on the exact host code.
     python3 -m za_tpu_torch.cli setup --verifiertype json
     python3 -m za_tpu_torch.cli prove
     python3 -m za_tpu_torch.cli verify
+
+``-v`` logs each step's seconds and, unless ``ZA_METRICS`` is already
+set, turns on the engine's per-stage lines (``[stage] <name>: <wall>s
+device <dev>s``, engine/metrics.py).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 
@@ -172,6 +177,10 @@ def main(argv=None):
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(asctime)s %(levelname)s %(message)s",
     )
+    if args.verbose and "ZA_METRICS" not in os.environ:
+        # the engine's per-stage lines (engine/metrics.py); the variable
+        # is read when the engine is imported, in _engine, after this
+        os.environ["ZA_METRICS"] = "1"
     sys.setrecursionlimit(100_000)
     try:
         return args.fn(args)

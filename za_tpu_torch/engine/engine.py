@@ -33,6 +33,20 @@ or stages and saves them.  The key is the engine ("gpu"), the pk
 digest, ``msm_style``, ``TREE_MIN``, each table's chunk layout and the
 cache's version; a cache that misses the key or fails to load is
 restaged.  ``stage_info`` says what the last ``stage_params`` did.
+
+Per-stage metrics (``ZA_METRICS=1``, ``za -v``): each step below logs
+``[stage] <name>: <wall>s device <dev>s`` (``engine.metrics``), under
+the reference's name where the step has a counterpart: staging
+``stage.expand_queries``, ``stage.gpucache.load`` / ``.save``,
+``stage.tree.g1abl`` / ``.g1h`` / ``.b_g2`` or ``stage.g1x4`` /
+``stage.b_g2``, each staging call's block totals
+``stage.blocks.g1`` / ``.g2`` (coords, upload, mont, on_curve, tables);
+the constraint check ``sat.csr``, ``sat.matvec``, ``sat.check``; h(x)
+``h.z_to_limbs`` (when the witness is uploaded), ``h.csr``,
+``h.matvec`` (both only without the check's legs), ``h.ntt.intt``,
+``h.ntt.coset``, ``h.combine+intt``, ``h.to_scalars``; each MSM
+``msm.<g1|g2>.scalars``, then ``msm.<g>.tree[C=..,S=..,M=..]`` or
+``msm.<g>.kernel[n=..,M=..]``, after ``msm.<g>.stage`` for host points.
 """
 
 from __future__ import annotations
@@ -55,6 +69,7 @@ from . import cuda_tree as CT, ec, field as F, fixed_base as FB
 from . import msm_dense as MD
 from . import msm_tree as MT, ntt as NTT
 from . import r1cs as RC
+from .metrics import StageParts, StageTimer
 
 
 # columns per staging block: bounds the working set of the {1P..8P} build
@@ -140,7 +155,10 @@ class GpuEngine:
 
     def _mont(self, limbs: np.ndarray) -> torch.Tensor:
         """(16, ...) plain host limbs -> (8, ...) l32 Montgomery."""
-        return F.pack(F.FQ.to_mont(self._put(limbs).to(F.I64)))
+        return _mont(self._put(limbs))
+
+    def _timer(self, name: str) -> StageTimer:
+        return StageTimer(name, self.device)
 
     @staticmethod
     def _assert_on_curve(ok: torch.Tensor | None, is_g2: bool) -> None:
@@ -166,21 +184,31 @@ class GpuEngine:
         ident = torch.empty((C, M, S), dtype=torch.bool, device=self.device)
         ok = (torch.ones((), dtype=torch.bool, device=self.device)
               if _raw(queries) else None)
-        for lo in range(0, C * S, block):
-            hi = min(lo + block, C * S)
-            k = (hi - lo) // S
-            pts = tuple(self._mont(c) for c in coords(lo, hi))
-            if ok is not None:
-                ok &= ec.on_curve(*pts, is_g2).all()
-            ax, ay, idm = MT.build_tables_block(pts, is_g2)
+        name = (f"stage.blocks.{'g2' if is_g2 else 'g1'}"
+                f"[M={M},blocks={-(-C * S // block)}]")
+        with StageParts(name, self.device) as parts:
+            for lo in range(0, C * S, block):
+                hi = min(lo + block, C * S)
+                k = (hi - lo) // S
+                with parts.part("coords"):
+                    host = coords(lo, hi)
+                with parts.part("upload"):
+                    dev = [self._put(c) for c in host]
+                with parts.part("mont"):
+                    pts = tuple(_mont(d) for d in dev)
+                if ok is not None:
+                    with parts.part("on_curve"):
+                        ok &= ec.on_curve(*pts, is_g2).all()
+                with parts.part("tables"):
+                    ax, ay, idm = MT.build_tables_block(pts, is_g2)
 
-            def chunks(a):  # (..., M*(hi-lo)) -> (k, ..., M, S)
-                a = a.reshape(tuple(a.shape[:-1]) + (M, k, S))
-                return a.movedim(-2, 0)
+                    def chunks(a):  # (..., M*(hi-lo)) -> (k, ..., M, S)
+                        a = a.reshape(tuple(a.shape[:-1]) + (M, k, S))
+                        return a.movedim(-2, 0)
 
-            tx[lo // S:lo // S + k] = chunks(ax)
-            ty[lo // S:lo // S + k] = chunks(ay)
-            ident[lo // S:lo // S + k] = chunks(idm)
+                    tx[lo // S:lo // S + k] = chunks(ax)
+                    ty[lo // S:lo // S + k] = chunks(ay)
+                    ident[lo // S:lo // S + k] = chunks(idm)
         self._assert_on_curve(ok, is_g2)
         return MT.AffineTables(tx=tx, ty=ty, ident=ident, n=n, is_g2=is_g2)
 
@@ -263,7 +291,8 @@ class GpuEngine:
             return cached[1]
         t0 = time.monotonic()
         info = {"source": "staged", "cache": None}
-        full = expand_queries(params, r1cs)
+        with self._timer("stage.expand_queries"):
+            full = expand_queries(params, r1cs)
         n_abl = _pad_pow2(max(len(full.a), len(full.b_g1), len(full.l)))
         if self.msm_style is None and n_abl >= TREE_MIN:  # tree
             path = getattr(params, "_gpucache_path", None)
@@ -273,28 +302,35 @@ class GpuEngine:
                                   len(full.l)), 3),
                     "g1h": (len(full.h), 1),
                     "b_g2x": (len(full.b_g2), 1)})
-            staged = path and self._load_cache(path, meta, info)
+            staged = None
+            if path:
+                with self._timer("stage.gpucache.load"):
+                    staged = self._load_cache(path, meta, info)
             if staged:
                 info["source"] = "cache"
             else:
-                staged = {
-                    "g1abl": self.stage_g1_affine(
-                        [full.a, full.b_g1, full.l]),
-                    "g1h": self.stage_g1_affine([full.h]),
-                    "b_g2x": self.stage_g2_affine([full.b_g2]),
-                }
+                staged = {}
+                with self._timer("stage.tree.g1abl"):
+                    staged["g1abl"] = self.stage_g1_affine(
+                        [full.a, full.b_g1, full.l])
+                with self._timer("stage.tree.g1h"):
+                    staged["g1h"] = self.stage_g1_affine([full.h])
+                with self._timer("stage.tree.b_g2"):
+                    staged["b_g2x"] = self.stage_g2_affine([full.b_g2])
                 if path:
                     self._sync()
                     info["stage_s"] = time.monotonic() - t0
-                    self._save_cache(path, meta, staged, info)
+                    with self._timer("stage.gpucache.save"):
+                        self._save_cache(path, meta, staged, info)
         else:
             n = _pad_pow2(max(n_abl, len(full.h)))
-            staged = {
-                "g1x4": self.stage_g1_stacked(
-                    [full.a, full.b_g1, full.l, full.h], n),
-                "b_g2x": self.stage_g2_stacked(
-                    [full.b_g2], _pad_pow2(len(full.b_g2))),
-            }
+            with self._timer("stage.g1x4"):
+                g1x4 = self.stage_g1_stacked(
+                    [full.a, full.b_g1, full.l, full.h], n)
+            with self._timer("stage.b_g2"):
+                b_g2x = self.stage_g2_stacked(
+                    [full.b_g2], _pad_pow2(len(full.b_g2)))
+            staged = {"g1x4": g1x4, "b_g2x": b_g2x}
         self._sync()
         info.setdefault("stage_s", time.monotonic() - t0)
         self.stage_info = info
@@ -438,28 +474,35 @@ class GpuEngine:
         if isinstance(z, torch.Tensor):
             return z.to(self.device)
         if isinstance(z, np.ndarray):
-            return self._put(z)
+            with self._timer("h.z_to_limbs"):
+                return self._put(z)
         if self._witness is not None and self._witness[0] is z:
             return self._witness[1]
-        dev = self._put(F.ints_to_limbs([v % R for v in z]))
+        with self._timer("h.z_to_limbs"):
+            dev = self._put(F.ints_to_limbs([v % R for v in z]))
         self._witness = (z, dev)  # holding z keeps its id valid
         return dev
 
-    def _legs(self, r1cs: R1CS, z, m: int) -> torch.Tensor:
+    def _legs(self, r1cs: R1CS, z, m: int, tag: str = "h") -> torch.Tensor:
         """The Az, Bz, Cz legs at domain size m, l32 (8, 3, m)
         Montgomery, Az with the input-preservation rows: the matvec on
-        the uploaded (16, nv) witness limbs, nothing run before it."""
-        return RC.matvec(RC.r1cs_csr(r1cs, m, self.device),
-                         self.witness_limbs_dev(z))
+        the uploaded (16, nv) witness limbs, nothing run before it.
+        tag: the metrics' prefix ("h", "sat")."""
+        z_l = self.witness_limbs_dev(z)
+        with self._timer(f"{tag}.csr"):
+            csr = RC.r1cs_csr(r1cs, m, self.device)
+        with self._timer(f"{tag}.matvec"):
+            return RC.matvec(csr, z_l)
 
     def r1cs_satisfied(self, r1cs: R1CS, z) -> bool:
         """Az o Bz == Cz on the device.  The Az/Bz/Cz legs are kept for
         an h(x) on the same r1cs and witness that follows."""
         m = Domain.for_constraints(r1cs.num_constraints
                                    + r1cs.num_inputs).size
-        legs = self._legs(r1cs, z, m)
+        legs = self._legs(r1cs, z, m, "sat")
         self._sat_legs = ((id(r1cs), id(z), m), legs)
-        return RC.satisfied(legs)
+        with self._timer("sat.check"):
+            return RC.satisfied(legs)
 
     def _domain(self, size: int) -> NTT.DeviceDomain:
         if size not in self._domains:
@@ -478,9 +521,11 @@ class GpuEngine:
         else:
             legs = self._legs(r1cs, z, m)
         h = NTT.h_transforms(self._domain(m), legs)
-        if bool(h[:, m - 1].any()):
-            raise ValueError("h(x) degree overflow: witness unsatisfied?")
-        return h[:, :m - 1]
+        with self._timer("h.to_scalars"):
+            if bool(h[:, m - 1].any()):
+                raise ValueError(
+                    "h(x) degree overflow: witness unsatisfied?")
+            return h[:, :m - 1]
 
     def h_coeffs(self, r1cs: R1CS, z, domain: Domain) -> list[int]:
         return F.limbs_to_ints(self.h_coeffs_limbs(r1cs, z, domain).cpu())
@@ -505,14 +550,22 @@ class GpuEngine:
         return torch.stack(cols, dim=1)                  # (16, M, n)
 
     def _msm_many(self, points, scalars_list, is_g2: bool) -> list:
-        if isinstance(points, MT.AffineTables):
-            out = CT.msm_tree(points, self._scalars(points, scalars_list))
-        else:
-            if not isinstance(points, MD.DenseTables):
-                stage = (self.stage_g2_stacked if is_g2
-                         else self.stage_g1_stacked)
+        kind = "g2" if is_g2 else "g1"
+        if not isinstance(points, (MT.AffineTables, MD.DenseTables)):
+            stage = (self.stage_g2_stacked if is_g2
+                     else self.stage_g1_stacked)
+            with self._timer(f"msm.{kind}.stage"):
                 points = stage(points)
-            out = MD.msm_dense(points, self._scalars(points, scalars_list))
+        with self._timer(f"msm.{kind}.scalars"):
+            sc = self._scalars(points, scalars_list)
+        M = points.m
+        if isinstance(points, MT.AffineTables):
+            C, S = points.chunks, points.chunk_cols
+            with self._timer(f"msm.{kind}.tree[C={C},S={S},M={M}]"):
+                out = CT.msm_tree(points, sc)
+        else:
+            with self._timer(f"msm.{kind}.kernel[n={points.n},M={M}]"):
+                out = MD.msm_dense(points, sc)
         if is_g2:
             return ec.g2_points_from_device(*out)
         return ec.g1_points_from_device(*out)
@@ -531,6 +584,11 @@ class GpuEngine:
 
     def msm_g2(self, points, scalars):
         return self.msm_g2_many([points], [scalars])[0]
+
+
+def _mont(t: torch.Tensor) -> torch.Tensor:
+    """(16, ...) plain limbs on the device -> (8, ...) l32 Montgomery."""
+    return F.pack(F.FQ.to_mont(t.to(F.I64)))
 
 
 def _pad_cols(a: np.ndarray, total: int, fill_y0: bool = False):

@@ -39,6 +39,7 @@ from ..curve import R
 from ..groth16.domain import Domain
 from . import field as F
 from ._build import kernel
+from .metrics import StageTimer
 
 FR = F.FR
 NTT_STAGE = kernel("ntt_stage_fr", "ntt", "ppppiiiiii")
@@ -436,8 +437,12 @@ def h_transforms(dom: DeviceDomain, legs: torch.Tensor) -> torch.Tensor:
     """h(x) from the l32 (8, 3, m) Az, Bz, Cz legs: iNTT, coset NTT (the
     coset powers on load), coset iNTT (a b - c on load; the inverse coset
     powers, 1/Z on the coset and from_mont on store) -> (16, m) int32
-    plain limbs of h_0 .. h_{m-1}."""
-    x = transform(dom, legs, True)
-    x = transform(dom, x, False, scale_in=dom.coset_pow)
-    h = transform(dom, x, True, combine=True, scale_out=dom.h_out)
+    plain limbs of h_0 .. h_{m-1}.  Each transform is a metrics stage
+    (``h.ntt.intt``, ``h.ntt.coset``, ``h.combine+intt``)."""
+    with StageTimer("h.ntt.intt", legs.device):
+        x = transform(dom, legs, True)
+    with StageTimer("h.ntt.coset", legs.device):
+        x = transform(dom, x, False, scale_in=dom.coset_pow)
+    with StageTimer("h.combine+intt", legs.device):
+        h = transform(dom, x, True, combine=True, scale_out=dom.h_out)
     return h.reshape(F.NLIMBS, dom.size)
