@@ -119,8 +119,10 @@ Phases:
      time with a chain floor (dependent adds x the Horner rows' time
      per add, "chain_floor_ms"); the tail kernel (ntt_stage_fr) at the
      2^20 proof's sub-NTT tails (a) 3 x 1024 x 2048, (b) 3 x 2048 x
-     1024, (c) 1 x 2048 x 1024 with the store mode; the setup's tables
-     (c = 8, with the chain floor of the ladder's 254 doublings) and
+     1024, (c) 1 x 2048 x 1024 with the store mode; the setup's c = 8
+     tables as their two kernels, the doubling ladder (with the chain
+     floor of its 254 doublings and the ratio to it) and the window
+     levels, the whole table timed beside the ladder ("table_ms"), and
      fixed-base MSMs at the 2^17 setup's h (2^18 - 1 G1 scalars) and
      b_g2 (2^17 + 2 G2 scalars); printed as one JSON
      line {"kernels": [...]}; then one NTT through the four-step at
@@ -191,7 +193,9 @@ INV_GCD_MULS = 16
 # <Fq2, true, ...> (signed radix 16), <Fq, false, ...>, <Fq2, false,
 # ...> (radix 4); ntt_prefix_kernel, ntt_twiddle_kernel<true> (vector
 # accesses: the proof's shapes), ntt_tail_kernel<stages>;
-# r1cs_matvec_kernel
+# r1cs_matvec_kernel; fixed_base_ladder_kernel and
+# fixed_base_levels_kernel <Fq>, <Fq2>, fixed_base_msm_kernel <Fq, Ops>,
+# <Fq2, OpsEo>
 KERNEL_FN = {
     "dense_window_sums_g1":
         "_ZN2za17dense_sums_kernelINS_2FpINS_7QParamsEEELb1E",
@@ -225,10 +229,12 @@ KERNEL_FN = {
     "ntt_twiddle_fr": "_ZN2za18ntt_twiddle_kernelILb1E",
     "ntt_stage_fr": "_ZN2za15ntt_tail_kernelILi",   # + stages, "E"
     "r1cs_matvec_fr": "_ZN2za18r1cs_matvec_kernelE",
-    "fixed_base_table_g1":
-        "_ZN2za23fixed_base_table_kernelINS_2FpINS_7QParamsEEENS_3OpsE",
-    "fixed_base_table_g2": "_ZN2za23fixed_base_table_kernelINS_3Fq2ENS_12"
-                           "OpsKaratsubaINS_5MulEoEEE",
+    "fixed_base_ladder_g1":
+        "_ZN2za24fixed_base_ladder_kernelINS_2FpINS_7QParamsEEEEE",
+    "fixed_base_ladder_g2": "_ZN2za24fixed_base_ladder_kernelINS_3Fq2EEE",
+    "fixed_base_levels_g1":
+        "_ZN2za24fixed_base_levels_kernelINS_2FpINS_7QParamsEEEEE",
+    "fixed_base_levels_g2": "_ZN2za24fixed_base_levels_kernelINS_3Fq2EEE",
     "fixed_base_msm_g1":
         "_ZN2za21fixed_base_msm_kernelINS_2FpINS_7QParamsEEENS_3OpsE",
     "fixed_base_msm_g2": "_ZN2za21fixed_base_msm_kernelINS_3Fq2ENS_12"
@@ -1862,7 +1868,9 @@ def setup_path(torch, circuit: dict) -> tuple:
         "held_mem_bytes": held,
         "launches": {k: v for k, v in launches.items() if v}})
     m = params.domain_size
-    want = {"fixed_base_table_g1": 1, "fixed_base_table_g2": 1,
+    # a table a group: its ladder and its levels launches (4 at c = 8)
+    want = {"fixed_base_ladder_g1": 1, "fixed_base_ladder_g2": 1,
+            "fixed_base_levels_g1": 4, "fixed_base_levels_g2": 4,
             "fixed_base_msm_g1": 6, "fixed_base_msm_g2": 2,
             "to_affine_g1": 6, "to_affine_g2": 2}
     assert result["launches"] == want, result["launches"]
@@ -2524,17 +2532,22 @@ def kernels_vs_plain(torch, tctx, dctx, bctx, launches, sctx):
 
 def fixed_base_rows(torch, sctx, launches, warp_us) -> list:
     """The setup's kernels at the 2^17 setup's widths, exact against
-    their plain versions: the c = 8 tables of G1 and G2, the MSM on the
-    h query's 2^18 - 1 G1 scalars and on b_g2's 2^17 + 2 G2 scalars (the
-    setup's own).  Bounds count the least work of the same result,
-    bytes each input (base or table, scalars) read once and each output
-    written once.  A table: the ladder's 254 doublings (DBL_MULS), and
-    one add an entry whose digit has two set bits or more (each is one
-    add from an entry of one bit fewer; an entry of one bit is a ladder
-    point), an entry of the top window that repeats a lower one (a bit
-    past D_254) none; its "chain_floor_ms" is the 254 dependent
-    doublings times the staged add's latency measured by the Horner
-    rows.  The MSM: the nonzero digits less one a nonzero scalar."""
+    their plain versions: the c = 8 table of G1 and of G2 as its two
+    kernels, the ladder (D_0 .. D_254 of the generator) and the window
+    levels (the table from that ladder, in its level_launches), the MSM
+    on the h query's 2^18 - 1 G1 scalars and on b_g2's 2^17 + 2 G2
+    scalars (the setup's own).  Bounds count the least work of the same
+    result, bytes each input (base, ladder or table, scalars) read once
+    and each output written once.  The ladder: its 254 doublings
+    (DBL_MULS); "chain_floor_ms" is those doublings times the staged
+    add's latency measured by the Horner rows, "floor_ratio" its ms over
+    that floor, and beside it the whole table, ladder then levels
+    ("table_ms", equal to the levels row's output) over the same floor
+    ("table_floor_ratio").  The levels: one add an entry whose digit has
+    two set bits or more (each is one add from an entry of one bit
+    fewer; an entry of one bit is a ladder point), an entry of the top
+    window that repeats a lower one (a bit past D_254) none.  The MSM:
+    the nonzero digits less one a nonzero scalar."""
     from za_tpu_torch.curve import G1_GEN, G2_GEN
     from za_tpu_torch.engine import _build, ec, field as F
     from za_tpu_torch.engine import fixed_base as FB
@@ -2561,25 +2574,44 @@ def fixed_base_rows(torch, sctx, launches, warp_us) -> list:
             "adds": adds,
             "launches_per_setup_2^17": sctx["launches"][name],
             **ptxas_usage(fb_log, KERNEL_FN[name])})
-        if dbls:
-            rows[-1].update(doublings=dbls, chain_floor_ms=dbls
-                            * warp_us["g2" if is_g2 else "g1"] / 1e3)
-        log(f"{name} [{shape}]: {ms:.3f} ms (plain {pms:.1f} ms, bound "
-            f"{b_ms:.4f} ms by {by}"
-            + (f", chain floor {rows[-1]['chain_floor_ms']:.4f} ms"
-               if dbls else "") + f"), launches {launches[name]}")
+        log(f"{name} [{shape}]: {ms:.4f} ms (plain {pms:.1f} ms, bound "
+            f"{b_ms:.4f} ms by {by}), launches {launches[name]}, "
+            f"{rows[-1]['regs']} regs, {rows[-1]['spill_bytes']} B spill")
+        return rows[-1]
 
     for is_g2, scs in ((False, sctx["h_s"]), (True, sctx["v"])):
         g = "g2" if is_g2 else "g1"
         base = ec.points_to_device([G2_GEN if is_g2 else G1_GEN], is_g2,
                                    "cuda")
+        lad, ms, pms, err = compare(
+            torch, f"fixed_base_ladder_{g}",
+            lambda *b: FB.fixed_base_ladder(b, c, is_g2),
+            lambda *b: FB.fixed_base_ladder_plain(b, c, is_g2), base, reps=3)
+        ladder = add(f"fixed_base_ladder_{g}", "za_tpu/engine/msm.py:295",
+                     f"D_0 .. D_{lad[0].shape[-1] - 1}", ms, pms, err,
+                     nbytes(*base, *lad), 0, is_g2, doublings)
         tab, ms, pms, err = compare(
-            torch, f"fixed_base_table_{g}",
-            lambda *b: FB.fixed_base_table(b, c, is_g2),
-            lambda *b: FB.fixed_base_table_plain(b, c, is_g2), base, reps=3)
-        add(f"fixed_base_table_{g}", "za_tpu/engine/msm.py:308",
-            f"c = {c}, {W} x {1 << c} entries", ms, pms, err,
-            nbytes(*base, *tab), table_adds, is_g2, doublings)
+            torch, f"fixed_base_levels_{g}",
+            lambda *d: FB.fixed_base_windows(d, c, is_g2),
+            lambda *d: FB.fixed_base_windows_plain(d, c, is_g2), lad,
+            reps=3)
+        add(f"fixed_base_levels_{g}", "za_tpu/engine/msm.py:308",
+            f"c = {c}, {W} x {1 << c} entries, "
+            f"{len(FB.level_launches(c))} launches", ms, pms, err,
+            nbytes(*lad, *tab), table_adds, is_g2)
+        whole = FB.fixed_base_table(base, c, is_g2)
+        assert all(torch.equal(x, y) for x, y in zip(whole, tab)), (
+            f"fixed_base_table_{g}: differs from its ladder's levels")
+        floor = doublings * warp_us[g] / 1e3
+        table_ms = device_ms(torch, lambda: FB.fixed_base_table(base, c,
+                                                                is_g2))
+        ladder.update(doublings=doublings, chain_floor_ms=floor,
+                      floor_ratio=ladder["ms"] / floor, table_ms=table_ms,
+                      table_floor_ratio=table_ms / floor)
+        log(f"fixed_base_table_{g}: {table_ms:.4f} ms, ladder "
+            f"{ladder['ms']:.4f} + levels {ms:.4f}; chain floor "
+            f"{floor:.4f} ms, ladder {ladder['floor_ratio']:.3f}x, table "
+            f"{ladder['table_floor_ratio']:.3f}x")
         sc = torch.from_numpy(F.ints_to_limbs(scs).astype("int32")).cuda()
         outs, ms, pms, err = compare(
             torch, f"fixed_base_msm_{g}",

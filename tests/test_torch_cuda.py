@@ -498,16 +498,22 @@ def test_chunk_carry_kernel_matches_plain(gen, is_g2, C):
     assert CT.CARRY[is_g2].launches == before
 
 
-@pytest.mark.parametrize("c", [4, 5, 8])
+@pytest.mark.parametrize("c", [1, 4, 5, 8, 13, 16])
 @pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
 def test_fixed_base_kernels_match_plain(gen, is_g2, c):
-    """The table and the fixed-base MSM against their plain versions
-    (bit for bit) and the host's scalar multiplication, on edge scalars
-    (0, 1, R - 1, the top window, zero windows) and random ones; one
-    launch a call."""
+    """The ladder, the table and the fixed-base MSM against their plain
+    versions (bit for bit) and the host's scalar multiplication, on edge
+    scalars (0, 1, R - 1, the top window, zero windows) and random ones;
+    one launch a ladder and an MSM, one a levels launch of the plan.
+    c = 1 is one bit a window (254 windows), 13 and 16 run the table's
+    levels above the first launch's block."""
     base = ec.points_to_device([G2_GEN if is_g2 else G1_GEN], is_g2, "cuda")
-    before = FB.TABLE[is_g2].launches, FB.MSM[is_g2].launches
-    tab = FB.fixed_base_table(base, c, is_g2)
+    kerns = (FB.LADDER_KERNEL[is_g2], FB.LEVELS_KERNEL[is_g2],
+             FB.MSM[is_g2])
+    before = [k.launches for k in kerns]
+    lad = FB.fixed_base_ladder(base, c, is_g2)
+    assert _same(lad, FB.fixed_base_ladder_plain(base, c, is_g2))
+    tab = FB.fixed_base_windows(lad, c, is_g2)
     assert _same(tab, FB.fixed_base_table_plain(base, c, is_g2))
     rng = random.Random(c)
     scs = [0, 1, 2, R - 1, (1 << 253) + 1, (5 << 200) | 7] + [
@@ -515,8 +521,8 @@ def test_fixed_base_kernels_match_plain(gen, is_g2, c):
     sc = torch.from_numpy(F.ints_to_limbs(scs).astype(np.int32)).cuda()
     out = FB.fixed_base_msm(tab, sc, c, is_g2)
     assert _same(out, FB.fixed_base_msm_plain(tab, sc, c, is_g2))
-    assert (FB.TABLE[is_g2].launches, FB.MSM[is_g2].launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [k.launches for k in kerns] == [
+        before[0] + 1, before[1] + len(FB.level_launches(c)), before[2] + 1]
     get = ec.g2_points_from_device if is_g2 else ec.g1_points_from_device
     mul, g = (g2_mul, G2_GEN) if is_g2 else (g1_mul, G1_GEN)
     got = get(*(o[..., :12].contiguous() for o in out))
@@ -526,17 +532,21 @@ def test_fixed_base_kernels_match_plain(gen, is_g2, c):
 def test_fixed_base_wrappers_refuse_bad_arguments(gen):
     """Bad window, shapes, dtype or devices raise before any launch."""
     base = ec.points_to_device([G1_GEN], False, "cuda")
-    tab = FB.fixed_base_table(base, 8, False)
+    lad = FB.fixed_base_ladder(base, 8, False)
+    tab = FB.fixed_base_windows(lad, 8, False)
     sc = torch.ones((16, 4), dtype=torch.int32, device="cuda")
-    launches = FB.TABLE[False].launches, FB.MSM[False].launches
+    kerns = (FB.LADDER_KERNEL[False], FB.LEVELS_KERNEL[False], FB.MSM[False])
+    launches = [k.launches for k in kerns]
     for bad in (lambda: FB.fixed_base_table(base, 17, False),
                 lambda: FB.fixed_base_table(base, 8, True),
+                lambda: FB.fixed_base_windows(lad, 1, False),
+                lambda: FB.fixed_base_windows(lad, 8, True),
                 lambda: FB.fixed_base_msm(tab, sc, 5, False),
                 lambda: FB.fixed_base_msm(tab, sc.long(), 8, False),
                 lambda: FB.fixed_base_msm(tab, sc[:8], 8, False),
                 lambda: FB.fixed_base_msm(tab, sc.cpu(), 8, False)):
         with pytest.raises(ValueError):
             bad()
-    assert (FB.TABLE[False].launches, FB.MSM[False].launches) == launches
+    assert [k.launches for k in kerns] == launches
     empty = FB.fixed_base_msm(tab, sc[:, :0], 8, False)
-    assert empty[0].shape == (8, 0) and FB.MSM[False].launches == launches[1]
+    assert empty[0].shape == (8, 0) and FB.MSM[False].launches == launches[2]

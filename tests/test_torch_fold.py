@@ -36,8 +36,9 @@ from za_tpu_torch.curve import G1_GEN, G2_GEN, R, Fq2, g1_mul, g2_mul
 from za_tpu_torch.engine import cuda_tree as CT, ec, msm as MSM
 from za_tpu_torch.engine import msm_tree as MT
 
-SRC = (Path(__file__).resolve().parent.parent / "za_tpu_torch" / "csrc"
-       / "ec.cu").read_text()
+# the staged adds live in csrc/warp_add.cuh, which ec.cu includes
+CSRC = Path(__file__).resolve().parent.parent / "za_tpu_torch" / "csrc"
+SRC = "".join((CSRC / f).read_text() for f in ("warp_add.cuh", "ec.cu"))
 POOL = np.random.default_rng(2026).integers(1, 1 << 12, 13)
 
 

@@ -470,8 +470,9 @@ def test_mul_eo_users_and_to_affine_inversions():
     """mul_eo is the product of ntt_twiddle_fr, of the tail kernel
     (ntt_stage_fr: its butterflies and its store), of to_affine_g1/_g2's
     per-point products (Karatsuba over it in G2) and of ec_add_g2's
-    and the G2 fixed-base kernels' thread adds (OpsEo: Karatsuba over
-    mul_eo); every other kernel keeps mul.  Both to_affine kernels are
+    and the G2 fixed-base MSM's thread adds (OpsEo: Karatsuba over
+    mul_eo); every other kernel keeps mul, the fixed-base table its
+    staged add (warp_add.cuh) on it.  Both to_affine kernels are
     the one-wave
     to_affine_wave_kernel and invert each block's product with inv_gcd
     (Gcd), G2 through the norm: no Fermat and no multi-wave kernel is
@@ -500,9 +501,13 @@ def test_mul_eo_users_and_to_affine_inversions():
     assert "za::launch_add<za::Fq, za::Ops>(" in ec
     assert "za::launch_add<za::Fq2, za::OpsEo>(" in ec
     fb = (CSRC / "fixed_base.cu").read_text()
-    for launch in ("launch_table", "launch_msm"):
-        assert f"za::{launch}<za::Fq, za::Ops>(" in fb
-        assert f"za::{launch}<za::Fq2, za::OpsEo>(" in fb
+    assert "za::launch_msm<za::Fq, za::Ops>(" in fb
+    assert "za::launch_msm<za::Fq2, za::OpsEo>(" in fb
+    # the table runs warp_add.cuh's staged add (on mul), no thread add
+    for launch in ("launch_ladder", "launch_levels"):
+        assert f"za::{launch}<za::Fq>(" in fb
+        assert f"za::{launch}<za::Fq2>(" in fb
+    assert "point_add<F, O>(" not in fb[:fb.index("fixed_base_msm_kernel(")]
     curve = (CSRC / "curve.cuh").read_text()
     assert "using OpsEo = OpsKaratsuba<MulEo>;" in curve
     assert re.search(r"struct MulEo \{\s+__device__ static __forceinline__ "

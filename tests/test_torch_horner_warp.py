@@ -1,8 +1,8 @@
 """The warp schedules of csrc/ec.cu's Horner kernels (namespace hw1 for
-G1, hw2 for G2): their slot layouts and stage tables, parsed from the
-source and run lane by lane in Python, give the coordinates of RCB
-algorithm 7 (curve.cuh point_add) and the window combine of the host
-curve."""
+G1, hw2 for G2, in csrc/warp_add.cuh): their slot layouts and stage
+tables, parsed from the source and run lane by lane in Python, give
+the coordinates of RCB algorithm 7 (curve.cuh point_add) and the
+window combine of the host curve."""
 
 import random
 import re
@@ -14,12 +14,13 @@ from za_tpu_torch.curve import (
     B2, G1_GEN, G2_GEN, Q, R, Fq2, g1_add, g1_mul, g2_add, g2_mul,
 )
 
-SRC = (Path(__file__).resolve().parent.parent / "za_tpu_torch" / "csrc"
-       / "ec.cu").read_text()
+# the staged adds live in csrc/warp_add.cuh, which ec.cu includes
+CSRC = Path(__file__).resolve().parent.parent / "za_tpu_torch" / "csrc"
+SRC = "".join((CSRC / f).read_text() for f in ("warp_add.cuh", "ec.cu"))
 
 
 class Schedule:
-    """One namespace of ec.cu: its constexpr slots and int8 tables."""
+    """One namespace of warp_add.cuh: its constexpr slots and int8 tables."""
 
     def __init__(self, ns: str, tables):
         self.src = SRC[SRC.index(f"namespace {ns} {{"):

@@ -9,8 +9,15 @@ launches the kernel or raises.
 
 * ``fixed_base_table(base, c, is_g2)``: T[w, d] = d 2^(c w) G for
   w < W = ceil(254 / c) and d < 2^c, entry w 2^c + d of (8[,2], W 2^c)
-  projective Montgomery l32 coordinates.  The doubling ladder D_i = 2^i G
-  has D_0 .. D_254, as the reference's; a bit of d past it adds nothing.
+  projective Montgomery l32 coordinates: ``fixed_base_windows`` of
+  ``fixed_base_ladder``.
+* ``fixed_base_ladder(base, c, is_g2)``: the doubling ladder D_i = 2^i G,
+  D_0 .. D_(n-1) with n = min(c W, 255), the reference's
+  generator_doubles (a bit of d past D_254 adds nothing); on the card
+  one warp walks it.
+* ``fixed_base_windows(ladder, c, is_g2)``: the table from the ladder;
+  on the card by levels of the top bit k of d (T[w, d] = T[w, d - 2^k]
+  + D_(c w + k)), the launches of ``level_launches(c)``.
 * ``fixed_base_msm(table, scalars, c, is_g2)``: scalars (16, n) int32
   plain 16-bit limbs below 2^254 -> projective (8[,2], n): the sum over
   windows of T[w, digit_w], the unsigned c-bit digits.
@@ -34,8 +41,16 @@ SCALAR_BITS = 254
 LADDER = SCALAR_BITS + 1     # D_0 .. D_254
 MAX_WINDOW = 16              # a digit spans at most two 16-bit limbs
 
-TABLE = {False: kernel("fixed_base_table_g1", "fixed_base", "ppppppii"),
-         True: kernel("fixed_base_table_g2", "fixed_base", "ppppppii")}
+# levels 0 .. BLOCK_LEVELS - 1 of a window run in one launch (csrc/
+# fixed_base.cu FB_BLOCK_LEVELS), each level above in one of its own
+BLOCK_LEVELS = 5
+
+LADDER_KERNEL = {
+    False: kernel("fixed_base_ladder_g1", "fixed_base", "ppppppi"),
+    True: kernel("fixed_base_ladder_g2", "fixed_base", "ppppppi")}
+LEVELS_KERNEL = {
+    False: kernel("fixed_base_levels_g1", "fixed_base", "ppppppiiii"),
+    True: kernel("fixed_base_levels_g2", "fixed_base", "ppppppiiii")}
 MSM = {False: kernel("fixed_base_msm_g1", "fixed_base", "pppppppiii"),
        True: kernel("fixed_base_msm_g2", "fixed_base", "pppppppiii")}
 
@@ -43,6 +58,18 @@ MSM = {False: kernel("fixed_base_msm_g1", "fixed_base", "pppppppiii"),
 def windows(c: int) -> int:
     """Windows of c bits that cover a scalar below 2^254."""
     return -(-SCALAR_BITS // c)
+
+
+def ladder_points(c: int) -> int:
+    """The ladder's points for windows of c bits, D_0 .. D_(n-1)."""
+    return min(windows(c) * c, LADDER)
+
+
+def level_launches(c: int) -> list:
+    """The window levels' launches, (k0, k1) each: levels 0 ..
+    BLOCK_LEVELS - 1 in one, then each level above alone."""
+    return [(0, min(c, BLOCK_LEVELS))] + [
+        (k, k + 1) for k in range(BLOCK_LEVELS, c)]
 
 
 def _check_window(c: int) -> None:
@@ -86,25 +113,38 @@ def _accumulate(acc, empty, take, pick, fld):
     return acc, empty & ~take
 
 
-def fixed_base_table_plain(base, c: int, is_g2: bool):
+def fixed_base_ladder_plain(base, c: int, is_g2: bool):
+    fld = ec.field_of(is_g2)
+    pts = [tuple(F.unpack(x) for x in base)]
+    for _ in range(ladder_points(c) - 1):
+        pts.append(ec.point_add(pts[-1], pts[-1], fld))
+    return tuple(F.pack(torch.cat([p[k] for p in pts], -1))
+                 for k in range(3))
+
+
+def fixed_base_windows_plain(ladder, c: int, is_g2: bool):
+    """Each entry's bits, low first, into its sum: the first copied."""
     fld = ec.field_of(is_g2)
     W, B = windows(c), 1 << c
-    ladder = [tuple(F.unpack(x) for x in base)]
-    for _ in range(min(W * c, LADDER) - 1):
-        ladder.append(ec.point_add(ladder[-1], ladder[-1], fld))
-    lad = tuple(torch.cat([p[k] for p in ladder], -1) for k in range(3))
-    d = torch.arange(B, device=base[0].device).repeat(W)
+    lad = tuple(F.unpack(x) for x in ladder)
+    n = lad[0].shape[-1]
+    d = torch.arange(B, device=lad[0].device).repeat(W)
     first = c * torch.arange(W, device=d.device).repeat_interleave(B)
     acc = _identity(torch.zeros_like(lad[0][..., :1]).expand(
         tuple(lad[0].shape[:-1]) + (W * B,)), fld)
     empty = torch.ones(W * B, dtype=torch.bool, device=d.device)
     for j in range(c):
         idx = first + j
-        bit = (((d >> j) & 1) == 1) & (idx < len(ladder))
+        bit = (((d >> j) & 1) == 1) & (idx < n)
         acc, empty = _accumulate(
             acc, empty, bit, lambda i: tuple(p[..., idx[i]] for p in lad),
             fld)
     return tuple(F.pack(x) for x in acc)
+
+
+def fixed_base_table_plain(base, c: int, is_g2: bool):
+    return fixed_base_windows_plain(fixed_base_ladder_plain(base, c, is_g2),
+                                    c, is_g2)
 
 
 def fixed_base_msm_plain(table, scalars: torch.Tensor, c: int,
@@ -142,19 +182,40 @@ def _coords(pts, is_g2: bool, n: int | None, what: str):
     return out
 
 
-def fixed_base_table(base, c: int, is_g2: bool):
-    """base: G as projective (X, Y, Z), each (8[,2], 1) -> the table
-    (X, Y, Z), each (8[,2], W 2^c)."""
+def fixed_base_ladder(base, c: int, is_g2: bool):
+    """base: G as projective (X, Y, Z), each (8[,2], 1) -> the ladder
+    (X, Y, Z), each (8[,2], ladder_points(c))."""
     _check_window(c)
     ins = _coords(base, is_g2, 1, "the base point")
     if ins[0].device.type == "cpu":
-        return fixed_base_table_plain(ins, c, is_g2)
-    W = windows(c)
-    outs = [torch.empty(tuple(ins[0].shape[:-1]) + (W << c,),
-                        dtype=torch.int32, device=ins[0].device)
-            for _ in range(3)]
-    TABLE[is_g2](*ins, *outs, c, W)
+        return fixed_base_ladder_plain(ins, c, is_g2)
+    n = ladder_points(c)
+    outs = [torch.empty(tuple(ins[0].shape[:-1]) + (n,), dtype=torch.int32,
+                        device=ins[0].device) for _ in range(3)]
+    LADDER_KERNEL[is_g2](*ins, *outs, n)
     return tuple(outs)
+
+
+def fixed_base_windows(ladder, c: int, is_g2: bool):
+    """ladder: fixed_base_ladder's for the same c -> the table (X, Y, Z),
+    each (8[,2], W 2^c)."""
+    _check_window(c)
+    lad = _coords(ladder, is_g2, ladder_points(c), "the ladder")
+    if lad[0].device.type == "cpu":
+        return fixed_base_windows_plain(lad, c, is_g2)
+    W = windows(c)
+    outs = [torch.empty(tuple(lad[0].shape[:-1]) + (W << c,),
+                        dtype=torch.int32, device=lad[0].device)
+            for _ in range(3)]
+    for k0, k1 in level_launches(c):
+        LEVELS_KERNEL[is_g2](*lad, *outs, c, W, k0, k1)
+    return tuple(outs)
+
+
+def fixed_base_table(base, c: int, is_g2: bool):
+    """base: G as projective (X, Y, Z), each (8[,2], 1) -> the table
+    (X, Y, Z), each (8[,2], W 2^c)."""
+    return fixed_base_windows(fixed_base_ladder(base, c, is_g2), c, is_g2)
 
 
 def fixed_base_msm(table, scalars: torch.Tensor, c: int, is_g2: bool):
