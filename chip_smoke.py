@@ -99,6 +99,23 @@ Phases:
      the host setup extrapolated from 1,024 scalar multiplications a
      group; the h query of 2^20 constraints (2^21 - 1 scalars) through
      fixed_base_g1 for its peak memory; one JSON line;
+  4e. several ranks (engine/mesh.py over torch.distributed): the 2^17
+     chain (tree) proved by 4 ranks and the 2^13 chain (dense) by 2,
+     spawned processes sharing the one card over gloo (each collective
+     through the host), and the 2^17 chain by a one-rank NCCL group (by
+     2 ranks over NCCL where the machine has two cards); the inputs
+     written once by this process for the ranks; every rank's proof
+     equal to the one-card proof of the same inputs and r, s, the
+     pairing check, every rank's MSM points equal, each rank's launches
+     a path of their own ("mesh4_2^17.rank0", ...: the route's kernels,
+     h(x)'s, log2 D ec_add a MSM for the cross-rank reduce) and its h(x)
+     free of torch field products; then `za setup --mesh 2` at 510
+     constraints, fixed toxic waste, writing the same pk bytes as the
+     setup without --mesh, and `za prove --mesh 2` from that pk (2
+     ranks over NCCL on two cards; refused on one); per phase and rank the staging, the first
+     prove, its collectives (calls, bytes, seconds), the device compute
+     and the wall, one JSON line "mesh_phases" with the card's name and
+     power limit: shared-card runs, no scaling number;
   5. each kernel against its plain PyTorch version on the shapes of the
      path that runs it, exact equality (integers mod p), timed beside
      its bound; the tree levels at every level of one 2^17 chunk
@@ -141,13 +158,18 @@ when any phase fails.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
+import pickle
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from datetime import timedelta
 
 # H100 SXM peaks used for the bounds (NVIDIA data sheet and Hopper
 # white paper): HBM3 at 3.35 TB/s; 32-bit integer multiply-adds on the
@@ -750,7 +772,8 @@ def prove_path(torch, timer, log2n: int, lean: bool = False):
             "curve_checks": checks, "stage_check_on_off_s": check_ab})
     ctx = {"eng": eng, "staged": staged, "z_l": z_l, "h": out["h"],
            "params": params, "r1cs": r1cs, "m": m,
-           "per_proof": per_proof}
+           "per_proof": per_proof, "inp": inp, "proof": proof,
+           "pabc": (pa, pb, pc)}
     if not tree:
         # the same prove at radix 4, staged anew by a fused-style engine
         feng = GpuEngine(msm_style="fused")
@@ -1998,6 +2021,347 @@ def setup_path(torch, circuit: dict) -> tuple:
     return result, launches, {"h_s": h_s, "v": v, "launches": launches}
 
 
+# -- phase 4e: several ranks (engine/mesh.py, engine/dist.py) ------------------------
+
+#: seconds a mesh phase may take before its ranks are stopped
+MESH_TIMEOUT = 420
+#: the kernels every rank of a sharded prove launches, by route
+MESH_KERNELS = {
+    "tree": ("tree_level0_g1", "tree_level_g1", "tree_level0_g2",
+             "tree_level_g2", "ec_carry_g1", "ec_carry_g2"),
+    "dense": ("dense_window_sums_g1", "dense_window_sums_g2"),
+    "all": ("ec_fold_g1", "ec_fold_g2", "horner_g1", "horner_g2",
+            "r1cs_matvec_fr", "ntt_prefix_fr", "ntt_twiddle_fr",
+            "ntt_prefix_fr.scale_in", "ntt_prefix_fr.combine",
+            "ntt_prefix_fr.scale_out")}
+SETUP_MESH_N = 510     # the setup --mesh check's chain
+
+
+def mesh_rank(rank: int, D: int, backend: str, root: str, job: str,
+              out: str, rdv: str) -> None:
+    """One rank of a mesh phase (a spawned process): joins the group,
+    proves the job's inputs with GpuEngine(mesh=...) and writes what
+    mesh_prove returns to out."""
+    sys.path.insert(0, root)
+    import torch
+
+    torch.set_num_threads(2)
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    torch.distributed.init_process_group(
+        backend, init_method=rdv, world_size=D, rank=rank,
+        timeout=timedelta(seconds=MESH_TIMEOUT))
+    try:
+        res = mesh_prove(torch, job)
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def mesh_prove(torch, job: str) -> dict:
+    """This rank's sharded prove of the job's inputs: staging and the
+    first prove with every launch counted (and the prove's launches
+    alone), the collectives of that prove, then the device compute (h(x)
+    and the MSMs, CUDA events, one warm-up, median of 3), h(x) checked to
+    run no torch field product, each MSM's points."""
+    from za_tpu_torch.engine import _build, mesh as MESH, ntt as NTT
+    from za_tpu_torch.engine.engine import GpuEngine
+    from za_tpu_torch.groth16.domain import Domain
+    from za_tpu_torch.groth16.prove import prove
+
+    t_wall = time.time()
+    with open(job, "rb") as f:
+        j = pickle.load(f)
+    load_s = time.time() - t_wall
+    params, r1cs, z = j["params"], j["r1cs"], j["z"]
+    mesh = MESH.make_mesh(torch.distributed.get_world_size())
+    mesh.timed = True
+    eng = GpuEngine(mesh=mesh)
+    timer = Timer(torch)
+    _build.reset_launches()
+    modes0 = dict(NTT.PREFIX_LAUNCHES)
+    staged, stage_s = timer(lambda: eng.stage_params(params, r1cs))
+    staging = launch_counts()
+    _build.reset_launches()
+    mesh.stats = {}
+    proof, prove_s = timer(lambda: prove(params, r1cs, z, r=j["r"],
+                                         s=j["s"], engine=eng))
+    in_prove = launch_counts()
+    launches = {k: v + staging[k] for k, v in in_prove.items()}
+    launches.update({f"ntt_prefix_fr.{k}": v - modes0.get(k, 0)
+                     for k, v in NTT.PREFIX_LAUNCHES.items()})
+    collectives = {k: {"calls": c, "bytes": b, "s": sec}
+                   for k, (c, b, sec) in mesh.stats.items()}
+    z_l = eng.witness_limbs_dev(z)
+    domain = Domain(params.domain_size)
+    out = {}
+
+    def compute():
+        st = {}
+        out["h"], st["h"] = timer(lambda: eng.h_coeffs_limbs(r1cs, z_l,
+                                                             domain))
+        for tag, tabs, scs in msm_queries(staged, z_l, out["h"],
+                                          r1cs.num_inputs):
+            fn = eng.msm_g2_many if tag == "b2" else eng.msm_g1_many
+            out[tag], st[f"msm_{tag}"] = timer(lambda: fn(tabs, scs))
+        return st
+
+    stages, totals, warm = median_runs(compute)
+    torch_ops = h_torch_ops(eng, r1cs, z_l, domain)
+    return {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+            "route": "tree" if "g1abl" in staged else "dense",
+            "proof": proof, "msms": {k: v for k, v in out.items()
+                                     if k != "h"},
+            "launches": launches, "launches_in_prove": in_prove,
+            "h_torch_ops": torch_ops, "load_s": load_s, "stage_s": stage_s,
+            "prove_s": prove_s, "collectives_prove": collectives,
+            "device_compute_s": statistics.median(totals),
+            "stages_s": stages, "runs_s": totals, "warmup_s": warm,
+            "layout": {k: ([t.chunk_cols, t.chunks] if hasattr(t, "chunks")
+                           else [t.n]) for k, t in staged.items()},
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "wall_s": time.time() - t_wall}
+
+
+def run_ranks(target, D: int, args_of) -> float:
+    """Spawn D ranks of target(rank, *args_of(rank)); wait up to
+    MESH_TIMEOUT, stopping every rank when one fails -> seconds."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args_of(r)))
+             for r in range(D)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=max(MESH_TIMEOUT - (time.time() - t0), 1))
+            if p.exitcode != 0:
+                raise AssertionError(
+                    f"rank {procs.index(p)} of {D} ended with "
+                    f"{p.exitcode} (None: still running at "
+                    f"{MESH_TIMEOUT} s)")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return time.time() - t0
+
+
+def mesh_phase(tag: str, ctx: dict, D: int, backend: str, root: str,
+               tmp: str) -> tuple:
+    """A path's prove by D ranks: its inputs written once for them, the
+    ranks spawned, each rank's proof held equal to the one-card proof of
+    the same inputs and r, s and to the pairing check, every rank's MSM
+    points equal, each rank's launches checked (the route's kernels,
+    h(x)'s, the cross-rank reduce's ec_add: log2 D a MSM) and its h(x)
+    free of torch field products -> (the phase's line, per-rank
+    launches)."""
+    import copy
+    import dataclasses
+
+    t0 = time.time()
+    inp = ctx["inp"]
+    r1cs = copy.copy(inp["r1cs"])
+    r1cs.__dict__.pop("_torch_csr", None)   # the parent's device CSRs
+    job = os.path.join(tmp, f"{tag}.pkl")
+    with open(job, "wb") as f:
+        pickle.dump({"params": dataclasses.replace(inp["params"]),
+                     "r1cs": r1cs, "z": inp["z"], "r": inp["r"],
+                     "s": inp["s"]}, f, protocol=pickle.HIGHEST_PROTOCOL)
+    job_s = time.time() - t0
+    outs = [os.path.join(tmp, f"{tag}.{r}.pkl") for r in range(D)]
+    rdv = "file://" + os.path.join(tmp, f"{tag}.rdv")
+    ranks_s = run_ranks(mesh_rank, D, lambda r: (D, backend, root, job,
+                                                 outs[r], rdv))
+    res = []
+    for o in outs:
+        with open(o, "rb") as f:
+            res.append(pickle.load(f))
+    os.remove(job)
+    route = res[0]["route"]
+    for r in res:
+        assert r["proof"] == ctx["proof"], f"{tag} rank {r['rank']}: proof"
+        assert r["msms"] == res[0]["msms"], f"{tag} rank {r['rank']}: MSMs"
+        want = MESH_KERNELS[route] + MESH_KERNELS["all"]
+        idle = [k for k in want if r["launches"].get(k, 0) == 0]
+        assert not idle, f"{tag} rank {r['rank']} launched none of {idle}"
+        adds = {"ec_add_g1": (2 if route == "tree" else 1),
+                "ec_add_g2": 1}
+        got = {k: r["launches_in_prove"][k] for k in adds}
+        levels = D.bit_length() - 1
+        assert got == {k: v * levels for k, v in adds.items()}, \
+            f"{tag} rank {r['rank']}: the reduce's ec_add launches {got}"
+        assert not any(r["h_torch_ops"].values()), \
+            f"{tag} rank {r['rank']}: h(x) ran tensor code {r['h_torch_ops']}"
+    assert pairing_accepts(inp, res[0]["proof"], *ctx["pabc"]), \
+        f"{tag}: pairing check"
+    line = {"ranks": D, "backend": backend, "route": route,
+            "inputs_write_s": job_s, "ranks_s": ranks_s,
+            "wall_s": time.time() - t0, "pairing_ok": True,
+            "per_rank": [{k: r[k] for k in (
+                "rank", "load_s", "stage_s", "prove_s", "device_compute_s",
+                "stages_s", "runs_s", "warmup_s", "collectives_prove",
+                "h_torch_ops", "launches_in_prove", "layout",
+                "peak_mem_bytes", "wall_s")} for r in res]}
+    log(f"{tag}: {D} ranks over {backend}, proofs equal the one-card "
+        f"proof, pairing ok; ranks {ranks_s:.1f}s, device compute "
+        f"{[round(r['device_compute_s'], 4) for r in res]}, collectives "
+        f"{res[0]['collectives_prove']}")
+    return line, [r["launches"] for r in res]
+
+
+def mesh_setup_rank(rank: int, D: int, root: str, work: str, out: str,
+                    port: int) -> None:
+    """One rank of `za setup --mesh D` (a spawned process): joins a gloo
+    group at 127.0.0.1:port (ranks sharing one card ask for gloo), sets
+    ZA_DIST to that group, and runs the CLI in work with fixed toxic
+    waste; writes its exit code and launches to out."""
+    sys.path.insert(0, root)
+    import functools
+
+    import torch
+
+    torch.set_num_threads(2)
+    addr = f"127.0.0.1:{port}"
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://{addr}", world_size=D, rank=rank,
+        timeout=timedelta(seconds=MESH_TIMEOUT))
+    os.environ["ZA_DIST"] = f"{addr},{D},{rank}"
+    from za_tpu_torch import cli
+    from za_tpu_torch.engine import _build
+    from za_tpu_torch.groth16 import helper
+
+    helper.generate_parameters = functools.partial(
+        helper.generate_parameters, **SETUP_TOXIC)
+    os.chdir(work)
+    _build.reset_launches()
+    try:
+        rc = cli.main(["setup", "--mesh", str(D), "--verifiertype", "json"])
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump({"rc": rc, "launches": launch_counts()}, f)
+
+
+def mesh_setup(torch, root: str, tmp: str, D: int = 2) -> tuple:
+    """`za setup --mesh D` at SETUP_MESH_N constraints (rank 0 sets up on
+    its card, the other ranks wait) against `za setup` in this process,
+    both with fixed toxic waste: the same pk bytes and verifier; then
+    `za prove --mesh D` from that pk in a process of its own: D ranks
+    over NCCL where the machine has D cards (the proof verifies), else
+    refused -> (the check's line, rank 0's launches)."""
+    import functools
+
+    from za_tpu_torch import cli
+    from za_tpu_torch.engine.dist import free_port
+    from za_tpu_torch.groth16 import helper
+
+    t0 = time.time()
+    dirs = {k: os.path.join(tmp, f"setup_{k}") for k in ("one", "mesh")}
+    for d in dirs.values():
+        os.makedirs(d)
+        with open(os.path.join(d, "circuit.za"), "w") as f:
+            f.write(CHAIN_ZA % SETUP_MESH_N)
+    outs = [os.path.join(tmp, f"setup_mesh.{r}.json") for r in range(D)]
+    port = free_port()
+    ranks_s = run_ranks(mesh_setup_rank, D, lambda r: (
+        D, root, dirs["mesh"], outs[r], port))
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    assert [r["rc"] for r in res] == [0] * D, f"setup --mesh: {res}"
+    orig, cwd = helper.generate_parameters, os.getcwd()
+    helper.generate_parameters = functools.partial(orig, **SETUP_TOXIC)
+    try:
+        os.chdir(dirs["one"])
+        t1 = time.time()
+        assert cli.main(["setup", "--verifiertype", "json"]) == 0
+        one_s = time.time() - t1
+    finally:
+        helper.generate_parameters = orig
+        os.chdir(cwd)
+    read = {k: {f: open(os.path.join(d, f), "rb").read()
+                for f in ("proving.key", "verifier.json")}
+            for k, d in dirs.items()}
+    assert read["mesh"] == read["one"], \
+        "setup --mesh wrote another pk or verifier than the setup without"
+    assert not any(res[r]["launches"][k] for r in range(1, D)
+                   for k in res[r]["launches"]), \
+        "a rank other than 0 launched kernels in the setup"
+    # `za prove --mesh D` from that pk starts D local ranks, one a card
+    # over NCCL: with fewer cards it must refuse, and write no proof
+    with open(os.path.join(dirs["mesh"], "input.json"), "w") as f:
+        json.dump({"x": str(CLI_X)}, f)
+    t1 = time.time()
+    p = subprocess.run([sys.executable, "-m", "za_tpu_torch.cli", "prove",
+                        "--mesh", str(D)], cwd=dirs["mesh"],
+                       env=dict(os.environ, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=MESH_TIMEOUT)
+    cards = torch.cuda.device_count()
+    proof = os.path.join(dirs["mesh"], "proof.json")
+    if cards >= D:
+        assert p.returncode == 0, f"za prove --mesh {D}:\n{p.stderr[-4000:]}"
+        v = subprocess.run([sys.executable, "-m", "za_tpu_torch.cli",
+                            "verify"], cwd=dirs["mesh"],
+                           env=dict(os.environ, PYTHONPATH=root),
+                           capture_output=True, text=True, timeout=600)
+        assert v.stdout.strip() == "OK", f"za verify: {v.stdout!r}"
+    else:
+        assert p.returncode == 1 and not os.path.exists(proof) and \
+            f"mesh needs {D} devices, have {cards}" in p.stderr, \
+            f"za prove --mesh {D} on {cards} card(s): rc {p.returncode}" \
+            f"\n{p.stderr[-4000:]}"
+    line = {"ranks": D, "backend": "gloo", "constraints": SETUP_MESH_N,
+            "pk_bytes": len(read["one"]["proving.key"]),
+            "pk_equal": True, "ranks_s": ranks_s, "one_card_s": one_s,
+            "cli_prove_mesh": ("proved" if cards >= D else
+                               "refused: one rank a card"),
+            "cli_prove_mesh_s": time.time() - t1,
+            "wall_s": time.time() - t0}
+    log(f"setup --mesh {D} at {SETUP_MESH_N} constraints: the same "
+        f"{line['pk_bytes']} pk bytes as the setup without ({ranks_s:.1f}s "
+        f"with the ranks' start, {one_s:.1f}s in this process)")
+    return line, res[0]["launches"]
+
+
+def mesh_phases(torch, root: str, tctx: dict, dctx: dict, card: str):
+    """The several-rank phases: the 2^17 chain (tree) by 4 ranks and the
+    2^13 chain (dense) by 2, sharing the one card over gloo; the 2^17
+    chain by a one-rank NCCL group (and by 2 ranks over NCCL on two cards
+    where there are two); `za setup --mesh 2` -> (the phases' line,
+    {path: launches})."""
+    tmp = tempfile.mkdtemp(prefix="za_mesh_")
+    t0 = time.time()
+    phases, per_path = {}, {}
+    runs = [(f"mesh4_2^{LOG2N}", tctx, 4, "gloo"),
+            (f"mesh2_2^{LOG2N_DENSE}", dctx, 2, "gloo"),
+            (f"nccl1_2^{LOG2N}", tctx, 1, "nccl")]
+    if torch.cuda.device_count() >= 2:
+        runs.append((f"nccl2_2^{LOG2N}", tctx, 2, "nccl"))
+    try:
+        for tag, ctx, D, backend in runs:
+            phases[tag], launches = mesh_phase(tag, ctx, D, backend, root,
+                                               tmp)
+            per_path.update({f"{tag}.rank{r}": v
+                             for r, v in enumerate(launches)})
+        phases["setup_mesh2_510"], per_path["setup_mesh2_510"] = \
+            mesh_setup(torch, root, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = {"metric": "mesh_phases", "phases": phases,
+            "shared_card": torch.cuda.device_count() < 2,
+            "note": ("ranks over gloo share one card and copy each "
+                     "collective through the host; a one-rank NCCL group "
+                     "moves device tensors on one card: none of these "
+                     "runs is a scaling number"),
+            "phases_s": time.time() - t0,
+            "device": torch.cuda.get_device_name(0), "card": card}
+    return line, per_path
+
+
 # -- phase 5: kernels against their plain versions ----------------------------------
 
 
@@ -2836,6 +3200,7 @@ def main() -> int:
     stage_metrics = cli.pop("stage_metrics")
     setup, setup_launches, sctx = setup_path(torch, circuit)
     del circuit
+    mesh, mesh_paths = mesh_phases(torch, root, tctx, dctx, card)
     per_path = {"tree": tree_launches["default"],
                 "dense": dense_launches["default"],
                 "fused": dense_launches["fused"],
@@ -2843,7 +3208,7 @@ def main() -> int:
                 f"tree_2^{LOG2N_BIG}": big_launches["default"],
                 f"cli_2^{LOG2N}": cli_launches,
                 "setup510": setup510_launches,
-                f"setup_2^{LOG2N}": setup_launches}
+                f"setup_2^{LOG2N}": setup_launches, **mesh_paths}
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in _build.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
@@ -2890,6 +3255,7 @@ def main() -> int:
     print(json.dumps(cli))
     print(json.dumps(stage_metrics))
     print(json.dumps(setup))
+    print(json.dumps(mesh))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -550,3 +550,38 @@ def test_fixed_base_wrappers_refuse_bad_arguments(gen):
     assert [k.launches for k in kerns] == launches
     empty = FB.fixed_base_msm(tab, sc[:, :0], 8, False)
     assert empty[0].shape == (8, 0) and FB.MSM[False].launches == launches[2]
+
+
+def test_mesh_two_ranks_sharing_the_card_match_one_card(gen):
+    """Two ranks on this card over gloo (engine/mesh.py): the sharded tree
+    MSM (G1 two queries, G2 one; 2^10-point chunks, 5 padded to 6) and
+    the sharded NTT, iNTT and h(x) at 2^12 equal one card's."""
+    import torch_mesh_ranks as RANKS
+    from za_tpu_torch.engine.engine import GpuEngine
+
+    rng = random.Random(11)
+    n, chunk, m = 5 * 1024 - 3, 1024, 1 << 12
+    pools = {k: [mul(g, rng.randrange(1, R)) for _ in range(p)]
+             for k, mul, g, p in (("g1", g1_mul, G1_GEN, 67),
+                                  ("g2", g2_mul, G2_GEN, 19))}
+    data = {"chunk": chunk, "m": m,
+            "legs": [[rng.randrange(R) for _ in range(m)] for _ in range(3)]}
+    for k, M in (("g1", 2), ("g2", 1)):
+        pts = [pools[k][i % len(pools[k])] for i in range(n)]
+        data[k] = {"points": [pts] * M, "scalars": [
+            [rng.randrange(R) for _ in range(n)] for _ in range(M)]}
+    ranks = RANKS.collect(RANKS.start(RANKS.cuda_checks, 2, data))
+    assert ranks[0] == ranks[1]
+    got = ranks[0]
+    assert got["layout"] == [[3, chunk], [3, chunk]]
+    eng = GpuEngine()
+    for k, stage, msm in (("g1", eng.stage_g1_affine, eng.msm_g1_many),
+                          ("g2", eng.stage_g2_affine, eng.msm_g2_many)):
+        tabs = stage(data[k]["points"], chunk=chunk)
+        assert got[k] == msm(tabs, data[k]["scalars"]), k
+    dom = NTT.DeviceDomain(m, "cuda")
+    x = torch.stack([RANKS._mont32(v) for v in data["legs"]], dim=1).cuda()
+    for key, inv in (("ntt", False), ("intt", True)):
+        one = NTT.transform(dom, x, inv).cpu()
+        assert got[key] == [RANKS._ints_mont32(r) for r in one.unbind(1)]
+    assert got["h"] == F.limbs_to_ints(NTT.h_transforms(dom, x).cpu().numpy())

@@ -31,14 +31,17 @@ print(" ".join(sorted(m for m in sys.modules if m.startswith("za_tpu_torch"))))
 assert not bad, bad
 """
 
-# the subpackages and modules of the CLI path, which must be among them
+# the subpackages and modules of the CLI path and of several cards, which
+# must be among them
 CLI_PATH = ("za_tpu_torch.algebra", "za_tpu_torch.lang",
             "za_tpu_torch.lang.parser", "za_tpu_torch.compiler",
             "za_tpu_torch.compiler.evaluator", "za_tpu_torch.compiler.wtrace",
             "za_tpu_torch.compiler.tester", "za_tpu_torch.native",
             "za_tpu_torch.groth16.bincode", "za_tpu_torch.groth16.format",
             "za_tpu_torch.groth16.ethereum", "za_tpu_torch.groth16.helper",
-            "za_tpu_torch.cli")
+            "za_tpu_torch.cli",
+            # several cards: the process group and the sharded prove
+            "za_tpu_torch.engine.dist", "za_tpu_torch.engine.mesh")
 _IMPORT = re.compile(r"^\s*(from|import) (za_tpu|jax)\b", re.M)
 
 

@@ -13,6 +13,17 @@ with ``--engine host``, on the exact host code.
 ``-v`` logs each step's seconds and, unless ``ZA_METRICS`` is already
 set, turns on the engine's per-stage lines (``[stage] <name>: <wall>s
 device <dev>s``, engine/metrics.py).
+
+Several cards (``--mesh N`` on setup and prove, default ``$ZA_MESH``):
+with ``ZA_DIST="host:port,nprocs,procid"`` or torchrun's variables set
+the process is one rank of that group (N, if given, must be its size);
+without them ``--mesh N`` starts N local ranks itself (spawned, one a
+card, each running the same command).  Every rank proves; rank 0
+writes the proof.  The setup is not sharded: rank 0 runs it on its
+card and writes the pk, the other ranks wait for it.
+
+    python3 -m za_tpu_torch.cli prove --mesh 2
+    ZA_DIST=10.0.0.1:29500,2,0 python3 -m za_tpu_torch.cli prove
 """
 
 from __future__ import annotations
@@ -34,12 +45,94 @@ DEFAULT_VERIFIER_SOLIDITY = "verifier.sol"
 DEFAULT_VERIFIER_JSON = "verifier.json"
 
 
-def _engine(name: str):
+def _mesh_default() -> int:
+    """$ZA_MESH parsed defensively: the default is evaluated at parser
+    build time, so a malformed value must not crash unrelated
+    subcommands with a traceback."""
+    raw = os.environ.get("ZA_MESH", "0")
+    try:
+        return int(raw)
+    except ValueError:
+        print(f"warning: ignoring non-integer ZA_MESH={raw!r}",
+              file=sys.stderr)
+        return 0
+
+
+def _engine(name: str, mesh: int = 0):
+    """The engine of --engine and --mesh: None for the host; GpuEngine
+    (raises without a CUDA card), over the group of ZA_DIST or
+    torchrun's variables where they are set."""
     if name == "host":
+        if mesh:
+            raise SystemExit("--mesh requires --engine gpu")
         return None
+    from .engine import dist
+
+    spec = dist.dist_spec()
+    if spec is not None:
+        if mesh and mesh != spec[1]:
+            raise SystemExit(f"--mesh {mesh}: the group of this process "
+                             f"has {spec[1]} ranks")
+        dist.init_distributed()
+        mesh = spec[1]
     from .engine.engine import GpuEngine
 
-    return GpuEngine()  # raises without a CUDA card
+    return GpuEngine(mesh=mesh if mesh > 1 else None)
+
+
+def _in_group() -> bool:
+    from .engine.dist import dist_spec
+
+    return dist_spec() is not None
+
+
+def _rank_main(argv: list, n: int, rank: int, port: int) -> None:
+    """One of the local ranks of ``--mesh N``: the same command, as rank
+    `rank` of a group of n on this host, on card `rank`."""
+    os.environ.update(ZA_DIST=f"127.0.0.1:{port},{n},{rank}",
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n))
+    sys.exit(main(argv))
+
+
+def _run_ranks(argv: list, n: int) -> int:
+    """--mesh N without a group: on a card (one a rank), the kernels
+    built here, then N local ranks, spawned, each running argv; when one
+    fails the others are stopped.  -> the first failing rank's exit
+    code, or 0."""
+    import multiprocessing.connection
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from .engine import dist
+
+    if torch.cuda.is_available():
+        from .engine import _build
+
+        dist.need_cards(n)      # one rank a card
+        _build.build_all()      # once, here: the ranks only load
+    ctx = mp.get_context("spawn")
+    port = dist.free_port()
+    procs = [ctx.Process(target=_rank_main, args=(argv, n, r, port))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    rc, live = 0, list(procs)
+    try:
+        while live:
+            multiprocessing.connection.wait([p.sentinel for p in live])
+            for p in [p for p in live if p.exitcode is not None]:
+                live.remove(p)
+                if p.exitcode and not rc:
+                    rc = p.exitcode if p.exitcode > 0 else 1
+                    for q in live:
+                        q.terminate()
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    return rc
 
 
 def cmd_compile(args):
@@ -73,8 +166,22 @@ def cmd_compile(args):
 def cmd_setup(args):
     from .groth16 import helper
 
-    verifier = helper.setup(args.circuit, args.pk, args.verifiertype,
-                            engine=_engine(args.engine))
+    engine = _engine(args.engine, args.mesh)
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None and mesh.rank:
+        # the setup is not sharded: wait for rank 0's
+        if not mesh.all_true(True):
+            raise RuntimeError("rank 0's setup failed")
+        return 0
+    try:
+        verifier = helper.setup(args.circuit, args.pk, args.verifiertype,
+                                engine=engine)
+    except BaseException:
+        if mesh is not None:
+            mesh.all_true(False)
+        raise
+    if mesh is not None:
+        mesh.all_true(True)
     verifier_file = args.verifier or (
         DEFAULT_VERIFIER_SOLIDITY
         if args.verifiertype == "solidity"
@@ -93,10 +200,12 @@ def cmd_prove(args):
 
     with open(args.input) as f:
         inputs = fmt.flatten_json("main", f.read())
-    proof = helper.prove(args.pk, inputs, engine=_engine(args.engine))
-    with open(args.proof, "w") as f:
-        f.write(proof)
-    print(f"proof written to {args.proof}")
+    engine = _engine(args.engine, args.mesh)
+    proof = helper.prove(args.pk, inputs, engine=engine)
+    if getattr(engine, "rank", 0) == 0:
+        with open(args.proof, "w") as f:
+            f.write(proof)
+        print(f"proof written to {args.proof}")
     return 0
 
 
@@ -142,6 +251,9 @@ def main(argv=None):
 
     engine_help = ("gpu (default): the CUDA card, an error without one; "
                    "host: the exact host code")
+    mesh_help = ("shard the prove over N ranks, one a card (gpu engine; "
+                 "default $ZA_MESH): the ranks of ZA_DIST or torchrun's "
+                 "group, or N local ranks started here")
     p = sub.add_parser("setup", help="Compile & generate trusted setup")
     p.add_argument("--circuit", default=DEFAULT_CIRCUIT)
     p.add_argument("--pk", default=DEFAULT_PROVING_KEY)
@@ -149,6 +261,8 @@ def main(argv=None):
     p.add_argument("--verifiertype", default="solidity", choices=["solidity", "json"])
     p.add_argument("--engine", default="gpu", choices=["gpu", "host"],
                    help=engine_help)
+    p.add_argument("--mesh", type=int, metavar="N", default=_mesh_default(),
+                   help=mesh_help)
     p.set_defaults(fn=cmd_setup)
 
     p = sub.add_parser("prove", help="Generate a proof")
@@ -157,6 +271,8 @@ def main(argv=None):
     p.add_argument("--proof", default=DEFAULT_PROOF)
     p.add_argument("--engine", default="gpu", choices=["gpu", "host"],
                    help=engine_help)
+    p.add_argument("--mesh", type=int, metavar="N", default=_mesh_default(),
+                   help=mesh_help)
     p.set_defaults(fn=cmd_prove)
 
     p = sub.add_parser("test", help="Run embedded circuit tests")
@@ -172,6 +288,7 @@ def main(argv=None):
     p.add_argument("--proof", default=DEFAULT_PROOF)
     p.set_defaults(fn=cmd_verify)
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
@@ -183,6 +300,9 @@ def main(argv=None):
         os.environ["ZA_METRICS"] = "1"
     sys.setrecursionlimit(100_000)
     try:
+        if (args.command in ("setup", "prove") and args.engine == "gpu"
+                and args.mesh > 1 and not _in_group()):
+            return _run_ranks(argv, args.mesh)
         return args.fn(args)
     except FileNotFoundError as err:
         print(f"error: {err.filename}: no such file", file=sys.stderr)

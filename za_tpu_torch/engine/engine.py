@@ -34,6 +34,19 @@ digest, ``msm_style``, ``TREE_MIN``, each table's chunk layout and the
 cache's version; a cache that misses the key or fails to load is
 restaged.  ``stage_info`` says what the last ``stage_params`` did.
 
+Several cards (``mesh``, the reference's mesh_devices): every rank of a
+torch.distributed group builds its own engine over one ``engine.mesh.Mesh``
+and runs the same calls on the same host data.  Each rank then stages
+only its shard of the pk (tree: C/D of the chunks, C padded to a
+multiple of D as in the reference; dense: n/D of the points), checks
+and multiplies its block of the R1CS rows, transforms h(x) on its
+domain shard (D^2 | m; a smaller domain, and the setup's fixed-base
+MSM, run whole on every rank) and sums its share of each MSM; the
+collectives of ``engine.mesh`` give every rank the whole h and the same
+MSM results.  Routing by ``TREE_MIN`` reads the global n.  Each rank
+keeps its own staged-table cache, ``<pk>.gpucache-mesh<D>-rank<d>``,
+whose key holds D and the rank.
+
 Per-stage metrics (``ZA_METRICS=1``, ``za -v``): each step below logs
 ``[stage] <name>: <wall>s device <dev>s`` (``engine.metrics``), under
 the reference's name where the step has a counterpart: staging
@@ -65,8 +78,8 @@ from ..groth16 import format as FMT
 from ..groth16.domain import Domain
 from ..groth16.r1cs import R1CS
 from ..groth16.setup import expand_queries
-from . import cuda_tree as CT, ec, field as F, fixed_base as FB
-from . import msm_dense as MD
+from . import cuda_tree as CT, dist as DIST, ec, field as F
+from . import fixed_base as FB, mesh as MESH, msm_dense as MD
 from . import msm_tree as MT, ntt as NTT
 from . import r1cs as RC
 from .metrics import StageParts, StageTimer
@@ -107,7 +120,8 @@ def _pad_pow2(n: int, floor: int = 8) -> int:
 class GpuEngine:
     use_grouped = True
 
-    def __init__(self, device=None, msm_style: str | None = None):
+    def __init__(self, device=None, msm_style: str | None = None,
+                 mesh=None):
         if msm_style not in STYLES:
             raise ValueError(
                 f"GpuEngine: msm_style {msm_style!r} is not ported: None "
@@ -117,10 +131,22 @@ class GpuEngine:
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("GpuEngine: CUDA is not available")
+        if isinstance(mesh, int) and mesh <= 1:
+            mesh = None
+        if mesh is not None and msm_style is not None:
+            raise ValueError(
+                "GpuEngine: a mesh requires msm_style=None: only the "
+                "default MSMs have a sharded path (another style would "
+                "silently run single-device MSMs)")
+        if isinstance(mesh, int):
+            mesh = MESH.make_mesh(mesh)
+        #: the engine.mesh.Mesh this rank shards over, or None
+        self.mesh = mesh
         self.device = device
         self.msm_style = msm_style
         self.radix = STYLES[msm_style]
         self._domains: dict[int, NTT.DeviceDomain] = {}
+        self._sharded_domains: dict[int, MESH.ShardedDomain] = {}
         self._sat_legs = None
         self._witness = None
         #: what the last stage_params did: "source" ("memo": the tables
@@ -138,6 +164,21 @@ class GpuEngine:
         #: the host, host points)
         self.fixed_base_info: dict = {}
 
+    @property
+    def rank(self) -> int:
+        """This engine's rank in its mesh (0 without one)."""
+        return 0 if self.mesh is None else self.mesh.rank
+
+    def _mesh_d(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def shared_randomness(self, r: int, s: int) -> tuple[int, int]:
+        """The proof's r and s: rank 0's on every rank of a mesh, so that
+        every rank makes the same proof."""
+        if self.mesh is None:
+            return r, s
+        return tuple(self.mesh.broadcast([r, s]))
+
     @staticmethod
     def tree_chunk(n: int) -> int:
         return 1 << 14 if n >= (1 << 19) else 1 << 15
@@ -149,9 +190,11 @@ class GpuEngine:
             np.ascontiguousarray(arr).astype(np.int32)).to(self.device)
 
     def _layout(self, n: int, chunk: int | None) -> tuple[int, int]:
-        """Chunk width S and chunk count C for n points per query."""
+        """Chunk width S and chunk count C for n points per query, C a
+        multiple of the mesh's ranks (whole chunks of identity pad it)."""
         S = min(chunk or self.tree_chunk(n), _pad_pow2(n))
-        return S, -(-n // S)
+        D = self._mesh_d()
+        return S, -(-n // (S * D)) * D
 
     def _mont(self, limbs: np.ndarray) -> torch.Tensor:
         """(16, ...) plain host limbs -> (8, ...) l32 Montgomery."""
@@ -160,24 +203,31 @@ class GpuEngine:
     def _timer(self, name: str) -> StageTimer:
         return StageTimer(name, self.device)
 
-    @staticmethod
-    def _assert_on_curve(ok: torch.Tensor | None, is_g2: bool) -> None:
+    def _assert_on_curve(self, ok: torch.Tensor | None, is_g2: bool) -> None:
         """ok: a device flag, whether every checked point of one staging
         call lies on the curve (None: nothing checked); read once, after
         the call's last block, so the host prepares each block while the
-        card checks the last.  FormatError with the reference's text
-        unless it holds."""
-        if ok is not None and not bool(ok):
+        card checks the last; under a mesh, whether it holds on every
+        rank.  FormatError with the reference's text unless it holds."""
+        if ok is None:
+            return
+        ok = bool(ok)
+        if self.mesh is not None:
+            ok = self.mesh.all_true(ok)
+        if not ok:
             raise FMT.FormatError(
                 f"pk {'g2' if is_g2 else 'g1'} query point not on curve")
 
     def _stage(self, coords, queries, n: int, is_g2: bool, S: int,
                C: int) -> MT.AffineTables:
         """coords(lo, hi) -> host (X, Y, Z) blocks (16, [2,] M*(hi-lo))
-        of plain limbs -> chunked affine tables, block by block."""
+        of plain limbs -> chunked affine tables, block by block: this
+        rank's C/D chunks under a mesh."""
         M = len(queries)
         block = S * max(STAGE_BLOCK[is_g2] // S, 1)
         E = (8, 2) if is_g2 else (8,)
+        C //= self._mesh_d()
+        first = self.rank * C * S       # the rank's first column
         tx = torch.empty((C, MT.HALF) + E + (M, S), dtype=torch.int32,
                          device=self.device)
         ty = torch.empty_like(tx)
@@ -191,7 +241,7 @@ class GpuEngine:
                 hi = min(lo + block, C * S)
                 k = (hi - lo) // S
                 with parts.part("coords"):
-                    host = coords(lo, hi)
+                    host = coords(first + lo, first + hi)
                 with parts.part("upload"):
                     dev = [self._put(c) for c in host]
                 with parts.part("mont"):
@@ -241,13 +291,24 @@ class GpuEngine:
 
         return self._stage(coords, queries, n, True, S, C)
 
+    def _dense_cols(self, queries, n_pad, coords):
+        """-> (n, each query's identity-padded coordinates): n points a
+        query, this rank's n/D of them under a mesh."""
+        D = self._mesh_d()
+        n = -(-(n_pad or max(1, *(len(q) for q in queries))) // D) * D
+        cols = [coords(q, n) for q in queries]
+        if D > 1:
+            cols = [tuple(DIST.shard_of(a, 1, self.rank, D) for a in c)
+                    for c in cols]
+        return n // D, cols
+
     def stage_g1_stacked(self, queries,
                          n_pad: int | None = None) -> MD.DenseTables:
         """M G1 queries (point lists or raw limb-array queries),
         identity-padded to n_pad (default: the longest) -> their
-        multiples for the engine's dense radix, (K, 8, M, n)."""
-        n = n_pad or max(1, *(len(q) for q in queries))
-        cols = [_g1_coords(q, n) for q in queries]
+        multiples for the engine's dense radix, (K, 8, M, n); under a
+        mesh this rank's n/D points (n padded to a multiple of D)."""
+        n, cols = self._dense_cols(queries, n_pad, _g1_coords)
         pts = [self._mont(np.concatenate([c[i] for c in cols], 1))
                .reshape(F.NL32, len(queries), n) for i in range(3)]
         ok = ec.on_curve(*pts, False).all() if _raw(queries) else None
@@ -258,8 +319,7 @@ class GpuEngine:
     def stage_g2_stacked(self, queries,
                          n_pad: int | None = None) -> MD.DenseTables:
         """-> (K, 8, 2, M, n): component axis after the limbs."""
-        n = n_pad or max(1, *(len(q) for q in queries))
-        cols = [_g2_coords(q, n) for q in queries]
+        n, cols = self._dense_cols(queries, n_pad, _g2_coords)
 
         def coord(i):
             def cat(j):
@@ -284,7 +344,8 @@ class GpuEngine:
         queries padded to one power of two and stacked as "g1x4", b_g2
         as a stacked "b_g2x"."""
         cached = getattr(params, "_staged_cache", None)
-        key = ("gpu", str(self.device), self.msm_style, TREE_MIN)
+        key = ("gpu", str(self.device), self.msm_style, TREE_MIN,
+               self._mesh_d(), self.rank)
         if cached is not None and cached[0] == key:
             self.stage_info = {"source": "memo", "cache": None,
                                "stage_s": 0.0}
@@ -295,7 +356,7 @@ class GpuEngine:
             full = expand_queries(params, r1cs)
         n_abl = _pad_pow2(max(len(full.a), len(full.b_g1), len(full.l)))
         if self.msm_style is None and n_abl >= TREE_MIN:  # tree
-            path = getattr(params, "_gpucache_path", None)
+            path = self._cache_path(getattr(params, "_gpucache_path", None))
             meta = path and self._cache_meta(
                 getattr(params, "_gpucache_digest", ""), {
                     "g1abl": (max(len(full.a), len(full.b_g1),
@@ -343,16 +404,26 @@ class GpuEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _cache_path(self, path: str | None) -> str | None:
+        """The cache directory of this rank: <pk>.gpucache on one card,
+        <pk>.gpucache-mesh<D>-rank<d> under a mesh."""
+        if path is None or self.mesh is None:
+            return path
+        return f"{path}-mesh{self.mesh.size}-rank{self.rank}"
+
     def _cache_meta(self, digest: str, queries: dict) -> dict:
         """The cache's key: {table: (points per query, queries)} ->
-        meta.json's contents, each table's chunk layout (S, C) in it."""
+        meta.json's contents, each table's chunk layout (S, and C the
+        chunks this rank holds) in it, and the mesh's size and rank."""
         tables = {}
         for name, (n, m) in queries.items():
             S, C = self._layout(n, None)
-            tables[name] = {"n": n, "m": m, "chunk_cols": S, "chunks": C}
+            tables[name] = {"n": n, "m": m, "chunk_cols": S,
+                            "chunks": C // self._mesh_d()}
         return {"version": GPUCACHE_VERSION, "engine": "gpu",
                 "digest": digest, "msm_style": self.msm_style,
-                "tree_min": TREE_MIN, "tables": tables}
+                "tree_min": TREE_MIN, "mesh_d": self._mesh_d(),
+                "rank": self.rank, "tables": tables}
 
     def _load_cache(self, path: str, meta: dict, info: dict):
         """<pk>.gpucache -> the staged tables on the device, or None
@@ -487,40 +558,65 @@ class GpuEngine:
         """The Az, Bz, Cz legs at domain size m, l32 (8, 3, m)
         Montgomery, Az with the input-preservation rows: the matvec on
         the uploaded (16, nv) witness limbs, nothing run before it.
-        tag: the metrics' prefix ("h", "sat")."""
+        tag: the metrics' prefix ("h", "sat").  Sharded (``_sharded``):
+        this rank's rows, (8, 3, m/D)."""
         z_l = self.witness_limbs_dev(z)
         with self._timer(f"{tag}.csr"):
-            csr = RC.r1cs_csr(r1cs, m, self.device)
+            csr = (MESH.shard_csr(r1cs, m, self.mesh, self.device)
+                   if self._sharded(m) else
+                   RC.r1cs_csr(r1cs, m, self.device))
         with self._timer(f"{tag}.matvec"):
             return RC.matvec(csr, z_l)
 
+    def _sharded(self, m: int) -> bool:
+        """Whether a domain of m points runs sharded over the mesh: the
+        four-step layout needs D^2 | m (the reference's condition); a
+        smaller domain runs whole on every rank."""
+        return self.mesh is not None and m % (self.mesh.size ** 2) == 0
+
     def r1cs_satisfied(self, r1cs: R1CS, z) -> bool:
-        """Az o Bz == Cz on the device.  The Az/Bz/Cz legs are kept for
+        """Az o Bz == Cz on the device; sharded, each rank checks its
+        rows and the flags are combined.  The Az/Bz/Cz legs are kept for
         an h(x) on the same r1cs and witness that follows."""
         m = Domain.for_constraints(r1cs.num_constraints
                                    + r1cs.num_inputs).size
         legs = self._legs(r1cs, z, m, "sat")
         self._sat_legs = ((id(r1cs), id(z), m), legs)
         with self._timer("sat.check"):
-            return RC.satisfied(legs)
+            ok = RC.satisfied(legs)
+            return self.mesh.all_true(ok) if self._sharded(m) else ok
 
     def _domain(self, size: int) -> NTT.DeviceDomain:
         if size not in self._domains:
             self._domains[size] = NTT.DeviceDomain(size, self.device)
         return self._domains[size]
 
+    def _sharded_domain(self, size: int) -> MESH.ShardedDomain:
+        if size not in self._sharded_domains:
+            self._sharded_domains[size] = MESH.ShardedDomain(
+                size, self.mesh, self.device)
+        return self._sharded_domains[size]
+
     def h_coeffs_limbs(self, r1cs: R1CS, z, domain: Domain) -> torch.Tensor:
         """h_0..h_{m-2} as (16, m-1) int32 plain limbs on the device:
         matvec (r1cs_matvec_fr), then iNTT, coset NTT and coset iNTT
         (NTT.h_transforms: the scalings, the combine and from_mont in the
-        prefix kernel's modes)."""
+        prefix kernel's modes).  Sharded, each rank transforms its
+        domain shard (mesh.h_transforms) and one all_gather gives every
+        rank the whole h, which each rank's MSMs cut as their tables are."""
         m = domain.size
         stash, self._sat_legs = self._sat_legs, None
         if stash is not None and stash[0] == (id(r1cs), id(z), m):
             legs = stash[1]
         else:
             legs = self._legs(r1cs, z, m)
-        h = NTT.h_transforms(self._domain(m), legs)
+        if self._sharded(m):
+            h = MESH.h_transforms(self.mesh, self._sharded_domain(m), legs)
+            with self._timer("h.gather"):
+                h = self.mesh.all_gather(h).movedim(0, 1).reshape(
+                    F.NLIMBS, m)
+        else:
+            h = NTT.h_transforms(self._domain(m), legs)
         with self._timer("h.to_scalars"):
             if bool(h[:, m - 1].any()):
                 raise ValueError(
@@ -534,11 +630,14 @@ class GpuEngine:
 
     def _scalars(self, tabs, scalars_list) -> torch.Tensor:
         """One scalar vector per staged query -> (16, M, n) plain limbs,
-        zero-padded to the staged width n."""
+        zero-padded to the staged width n; under a mesh this rank's
+        columns of the D n staged over the ranks."""
         if isinstance(tabs, MT.AffineTables):
             n = tabs.chunks * tabs.chunk_cols
         else:
             n = tabs.n
+        D = self._mesh_d()
+        n *= D
         if len(scalars_list) != tabs.m:
             raise ValueError("one scalar vector per staged query")
         cols = []
@@ -547,7 +646,8 @@ class GpuEngine:
             if s.shape[1] > n:
                 raise ValueError("more scalars than points")
             cols.append(torch.nn.functional.pad(s, (0, n - s.shape[1])))
-        return torch.stack(cols, dim=1)                  # (16, M, n)
+        sc = torch.stack(cols, dim=1)                    # (16, M, n)
+        return DIST.shard_of(sc, 2, self.rank, D) if D > 1 else sc
 
     def _msm_many(self, points, scalars_list, is_g2: bool) -> list:
         kind = "g2" if is_g2 else "g1"
@@ -558,14 +658,16 @@ class GpuEngine:
                 points = stage(points)
         with self._timer(f"msm.{kind}.scalars"):
             sc = self._scalars(points, scalars_list)
-        M = points.m
+        M, mesh = points.m, self.mesh
         if isinstance(points, MT.AffineTables):
             C, S = points.chunks, points.chunk_cols
             with self._timer(f"msm.{kind}.tree[C={C},S={S},M={M}]"):
-                out = CT.msm_tree(points, sc)
+                out = (CT.msm_tree(points, sc) if mesh is None
+                       else MESH.tree_msm(mesh, points, sc))
         else:
             with self._timer(f"msm.{kind}.kernel[n={points.n},M={M}]"):
-                out = MD.msm_dense(points, sc)
+                out = (MD.msm_dense(points, sc) if mesh is None
+                       else MESH.dense_msm(mesh, points, sc))
         if is_g2:
             return ec.g2_points_from_device(*out)
         return ec.g1_points_from_device(*out)

@@ -7,7 +7,9 @@ host engine).  With ``GpuEngine`` the pk's query vectors are parsed as
 raw limb arrays and checked against the curve at staging, and the
 staged tables are kept beside the pk in ``<pk>.gpucache`` for the next
 process; the compiled witness program goes to ``<pk>.wtrace`` whatever
-the engine.  ``setup`` takes an engine too: ``GpuEngine`` builds the
+the engine.  Under a mesh (``GpuEngine(mesh=...)``) every rank proves
+and keeps its own table cache; rank 0 alone writes the trace, and the
+CLI has it alone write the proof.  ``setup`` takes an engine too: ``GpuEngine`` builds the
 pk's queries on the card, None on the host.
 """
 
@@ -222,10 +224,11 @@ def prove(
                 f"signal '{signal.full_name}' value is not defined"
             )
 
-    if use_wtrace and prog is None:
+    if use_wtrace and prog is None and getattr(engine, "rank", 0) == 0:
         # keep an existing valid cache on guard divergence: a workload
         # alternating between input-dependent paths would otherwise
-        # re-record and rewrite the cache on every prove
+        # re-record and rewrite the cache on every prove; under a mesh
+        # rank 0 writes it, the other ranks read it in later proves
         start = time.monotonic()
         try:
             ev.wtrace.finish(ev.signals).dump(wtrace_path, digest)

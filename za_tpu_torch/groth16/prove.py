@@ -5,7 +5,8 @@ h = (a*b - c)/Z on coset -> coset iNTT -> five MSMs -> (A, B, C).
 
 All heavy stages route through a compute engine (the exact host engine
 below, or ``engine.engine.GpuEngine``); randomness r, s can be pinned
-for deterministic replay.
+for deterministic replay.  Under a mesh every rank proves, with rank 0's
+r and s, and makes the same proof.
 """
 
 from __future__ import annotations
@@ -103,6 +104,9 @@ def prove(
     engine = engine if engine is not None else HostEngine()
     r = r if r is not None else secrets.randbelow(R)
     s = s if s is not None else secrets.randbelow(R)
+    if hasattr(engine, "shared_randomness"):
+        # the ranks of a mesh prove together: rank 0's r and s on each
+        r, s = engine.shared_randomness(r, s)
 
     domain = Domain(params.domain_size)
     ni = r1cs.num_inputs
