@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..curve import B2, Q, Fq2
-from . import field as F
+from . import field as F, metrics as MET
 from ._build import kernel
 
 _B3_G1 = 9          # 3 * b, b = 3
@@ -183,7 +183,7 @@ def points_to_device(points, is_g2: bool, device="cpu"):
     """Host affine points -> projective Montgomery l32 (X, Y, Z):
     (8, n) for G1, (8, 2, n) for G2."""
     def mont(a):
-        t = torch.from_numpy(a.astype(np.int64)).to(device)
+        t = MET.to_device(torch.from_numpy(a.astype(np.int64)), device)
         return F.pack(F.FQ.to_mont(t))
 
     if not is_g2:
@@ -194,7 +194,8 @@ def points_to_device(points, is_g2: bool, device="cpu"):
 
 def _fq_ints(c) -> list[int]:
     """(8, n) l32 Montgomery tensor -> plain ints."""
-    return [F.FQ.from_mont_int(v) for v in F.l32_to_ints(c.cpu().numpy())]
+    return [F.FQ.from_mont_int(v)
+            for v in F.l32_to_ints(MET.to_host(c).numpy())]
 
 
 def g1_points_from_device(X, Y, Z) -> list:
@@ -214,8 +215,9 @@ def affine_points_from_device(x, y, inf, is_g2: bool) -> list:
     mask (n,) -> n host affine points, None at infinity: the coordinates
     leave Montgomery form on their device, so the host inverts nothing
     (to_affine's output and the Z = 0 mask)."""
-    x, y = (F.FQ.from_mont(F.unpack(c)).cpu().numpy() for c in (x, y))
-    inf = inf.cpu().tolist()
+    x, y = (MET.to_host(F.FQ.from_mont(F.unpack(c))).numpy()
+            for c in (x, y))
+    inf = MET.to_host(inf).tolist()
     if not is_g2:
         pts = zip(F.limbs_to_ints(x), F.limbs_to_ints(y))
     else:

@@ -60,6 +60,15 @@ the constraint check ``sat.csr``, ``sat.matvec``, ``sat.check``; h(x)
 ``h.ntt.coset``, ``h.combine+intt``, ``h.to_scalars``; each MSM
 ``msm.<g1|g2>.scalars``, then ``msm.<g>.tree[C=..,S=..,M=..]`` or
 ``msm.<g>.kernel[n=..,M=..]``, after ``msm.<g>.stage`` for host points.
+Each stage is also a span (``engine.metrics``: a ``za.<name>`` range
+under a profiler, a span of the proof's record while tracing is on), and
+so are, with no stage line and no wait of their own: ``witness.convert``
+(``v % R`` and ``ints_to_limbs`` on the host) and ``witness.h2d`` (the
+copy) inside ``h.z_to_limbs``, ``msm.<g>.readback`` (the results to the
+host, made affine there) after each MSM, and ``domain.tables`` (a
+domain's ``ntt.DeviceDomain``, built once).  Each copy, read and wait of
+the prove counts in its record (``syncs``, ``h2d_copies``,
+``h2d_bytes``, ``d2h_bytes``).
 """
 
 from __future__ import annotations
@@ -82,7 +91,8 @@ from . import cuda_tree as CT, dist as DIST, ec, field as F
 from . import fixed_base as FB, mesh as MESH, msm_dense as MD
 from . import msm_tree as MT, ntt as NTT
 from . import r1cs as RC
-from .metrics import StageParts, StageTimer
+from . import metrics as MET
+from .metrics import Span, StageParts, StageTimer
 
 
 # columns per staging block: bounds the working set of the {1P..8P} build
@@ -186,8 +196,8 @@ class GpuEngine:
     # -- staging ---------------------------------------------------------------
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(
-            np.ascontiguousarray(arr).astype(np.int32)).to(self.device)
+        return MET.to_device(torch.from_numpy(
+            np.ascontiguousarray(arr).astype(np.int32)), self.device)
 
     def _layout(self, n: int, chunk: int | None) -> tuple[int, int]:
         """Chunk width S and chunk count C for n points per query, C a
@@ -211,7 +221,7 @@ class GpuEngine:
         rank.  FormatError with the reference's text unless it holds."""
         if ok is None:
             return
-        ok = bool(ok)
+        ok = MET.host_bool(ok)
         if self.mesh is not None:
             ok = self.mesh.all_true(ok)
         if not ok:
@@ -402,7 +412,7 @@ class GpuEngine:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            MET.synchronize(self.device)
 
     def _cache_path(self, path: str | None) -> str | None:
         """The cache directory of this rank: <pk>.gpucache on one card,
@@ -454,7 +464,8 @@ class GpuEngine:
                         raise ValueError(f"{name}_{part}: {a.shape} "
                                          f"{a.dtype}, want {shape}")
                     nbytes += a.nbytes
-                    arrs[part] = torch.from_numpy(a).to(self.device)
+                    arrs[part] = MET.to_device(torch.from_numpy(a),
+                                               self.device)
                 staged[name] = MT.AffineTables(
                     tx=arrs["tx"], ty=arrs["ty"], ident=arrs["id"],
                     n=tab["n"], is_g2=name == "b_g2x")
@@ -481,7 +492,7 @@ class GpuEngine:
                 t = staged[name]
                 for part, a in (("tx", t.tx), ("ty", t.ty),
                                 ("id", t.ident)):
-                    a = a.cpu().numpy()
+                    a = MET.to_host(a).numpy()
                     nbytes += a.nbytes
                     np.save(os.path.join(tmp, f"{name}_{part}.npy"), a,
                             allow_pickle=False)
@@ -543,14 +554,19 @@ class GpuEngine:
         """Witness (list[int], (16, nv) array or tensor) -> (16, nv)
         int32 plain limbs on the device; one upload per witness object."""
         if isinstance(z, torch.Tensor):
+            if z.device.type == "cpu" and self.device.type != "cpu":
+                return MET.to_device(z, self.device)
             return z.to(self.device)
         if isinstance(z, np.ndarray):
-            with self._timer("h.z_to_limbs"):
+            with self._timer("h.z_to_limbs"), Span("witness.h2d"):
                 return self._put(z)
         if self._witness is not None and self._witness[0] is z:
             return self._witness[1]
         with self._timer("h.z_to_limbs"):
-            dev = self._put(F.ints_to_limbs([v % R for v in z]))
+            with Span("witness.convert"):
+                limbs = F.ints_to_limbs([v % R for v in z])
+            with Span("witness.h2d"):
+                dev = self._put(limbs)
         self._witness = (z, dev)  # holding z keeps its id valid
         return dev
 
@@ -588,13 +604,15 @@ class GpuEngine:
 
     def _domain(self, size: int) -> NTT.DeviceDomain:
         if size not in self._domains:
-            self._domains[size] = NTT.DeviceDomain(size, self.device)
+            with Span("domain.tables"):
+                self._domains[size] = NTT.DeviceDomain(size, self.device)
         return self._domains[size]
 
     def _sharded_domain(self, size: int) -> MESH.ShardedDomain:
         if size not in self._sharded_domains:
-            self._sharded_domains[size] = MESH.ShardedDomain(
-                size, self.mesh, self.device)
+            with Span("domain.tables"):
+                self._sharded_domains[size] = MESH.ShardedDomain(
+                    size, self.mesh, self.device)
         return self._sharded_domains[size]
 
     def h_coeffs_limbs(self, r1cs: R1CS, z, domain: Domain) -> torch.Tensor:
@@ -618,13 +636,14 @@ class GpuEngine:
         else:
             h = NTT.h_transforms(self._domain(m), legs)
         with self._timer("h.to_scalars"):
-            if bool(h[:, m - 1].any()):
+            if MET.host_bool(h[:, m - 1].any()):
                 raise ValueError(
                     "h(x) degree overflow: witness unsatisfied?")
             return h[:, :m - 1]
 
     def h_coeffs(self, r1cs: R1CS, z, domain: Domain) -> list[int]:
-        return F.limbs_to_ints(self.h_coeffs_limbs(r1cs, z, domain).cpu())
+        return F.limbs_to_ints(
+            MET.to_host(self.h_coeffs_limbs(r1cs, z, domain)))
 
     # -- MSM -------------------------------------------------------------------
 
@@ -668,9 +687,10 @@ class GpuEngine:
             with self._timer(f"msm.{kind}.kernel[n={points.n},M={M}]"):
                 out = (MD.msm_dense(points, sc) if mesh is None
                        else MESH.dense_msm(mesh, points, sc))
-        if is_g2:
-            return ec.g2_points_from_device(*out)
-        return ec.g1_points_from_device(*out)
+        with Span(f"msm.{kind}.readback"):
+            if is_g2:
+                return ec.g2_points_from_device(*out)
+            return ec.g1_points_from_device(*out)
 
     def msm_g1_many(self, points, scalars_list) -> list:
         """M G1 MSMs, one scalar vector each, over staged tree tables

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..curve import Q, R
+from . import metrics as MET
 
 NLIMBS = 16        # 16-bit limbs of the host layout and the plain versions
 NL32 = 8           # 32-bit limbs at kernel boundaries
@@ -94,10 +95,8 @@ def pack(l16: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _const(v: int, device: str) -> torch.Tensor:
-    return torch.tensor(
-        [(v >> (16 * i)) & MASK for i in range(NLIMBS)], dtype=I64,
-        device=device,
-    )
+    return MET.to_device(torch.tensor(
+        [(v >> (16 * i)) & MASK for i in range(NLIMBS)], dtype=I64), device)
 
 
 def _col(c: torch.Tensor, ndim: int) -> torch.Tensor:

@@ -27,6 +27,7 @@ counted with its bytes and seconds in ``Mesh.stats``.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -35,7 +36,7 @@ import torch
 from . import cuda_tree as CT, ec, field as F, msm as MSM, msm_dense as MD
 from . import ntt as NTT, r1cs as RC
 from .dist import default_backend, need_cards
-from .metrics import StageTimer
+from . import metrics as MET
 
 
 class Mesh:
@@ -58,14 +59,16 @@ class Mesh:
     def _run(self, name: str, t: torch.Tensor, fn) -> torch.Tensor:
         sync = self.timed and t.is_cuda
         if sync:
-            torch.cuda.synchronize(t.device)
+            MET.synchronize(t.device)
         t0 = time.perf_counter()
         src = t.contiguous()
-        if self.backend != "nccl":
-            src = src.cpu()
-        out = fn(src).to(t.device)
+        if self.backend != "nccl" and src.is_cuda:   # gloo: via the host
+            src = MET.to_host(src)
+            out = MET.to_device(fn(src), t.device)
+        else:
+            out = fn(src)
         if sync:
-            torch.cuda.synchronize(t.device)
+            MET.synchronize(t.device)
         st = self.stats.setdefault(name, [0, 0, 0.0])
         st[0] += 1
         st[1] += src.numel() * src.element_size()
@@ -91,15 +94,17 @@ class Mesh:
     def all_true(self, flag) -> bool:
         """Whether flag holds on every rank: one all_reduce (min) of one
         int, so that every rank takes the same branch."""
-        dev = (torch.device("cuda", torch.cuda.current_device())
-               if self.backend == "nccl" else torch.device("cpu"))
-        t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=dev)
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+        if self.backend == "nccl":
+            t = MET.to_device(t, torch.device("cuda",
+                                              torch.cuda.current_device()))
 
         def fn(src):
             torch.distributed.all_reduce(src, torch.distributed.ReduceOp.MIN,
                                          group=self.group)
             return src
-        return bool(self._run("all_reduce", t, fn).item())
+        out = self._run("all_reduce", t, fn)
+        return MET.host_bool(out) if out.is_cuda else bool(out)
 
     def broadcast(self, values: list) -> list:
         """Rank 0's values (picklable) on every rank."""
@@ -238,13 +243,9 @@ def h_transforms(mesh: Mesh, sd: ShardedDomain,
                  legs: torch.Tensor) -> torch.Tensor:
     """``ntt.h_transforms`` on this rank's shard of the legs, l32 (8, 3,
     m/D) -> (16, m/D) int32 plain limbs of h's coefficients
-    [d m/D, (d + 1) m/D); the same stages and metrics names."""
-    with StageTimer("h.ntt.intt", legs.device):
-        x = transform(mesh, sd, legs, True)
-    with StageTimer("h.ntt.coset", legs.device):
-        x = transform(mesh, sd, x, False, scale_in=sd.coset_pow)
-    with StageTimer("h.combine+intt", legs.device):
-        h = transform(mesh, sd, x, True, combine=True, scale_out=sd.h_out)
+    [d m/D, (d + 1) m/D); the same stages (``ntt.h_stages``)."""
+    h = NTT.h_stages(functools.partial(transform, mesh, sd), legs,
+                     sd.coset_pow, sd.h_out)
     return h.reshape(F.NLIMBS, sd.size // sd.D)
 
 

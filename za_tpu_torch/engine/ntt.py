@@ -39,6 +39,7 @@ from ..curve import R
 from ..groth16.domain import Domain
 from . import field as F
 from ._build import kernel
+from . import metrics as MET
 from .metrics import StageTimer
 
 FR = F.FR
@@ -85,7 +86,7 @@ def _table32(vals, device, mont: bool = True) -> torch.Tensor:
     """Fr ints -> (8, n) l32 table, Montgomery or (mont=False) plain."""
     if mont:
         vals = [FR.to_mont_int(v) for v in vals]
-    return torch.from_numpy(F.ints_to_l32(vals).copy()).to(device)
+    return MET.to_device(torch.from_numpy(F.ints_to_l32(vals).copy()), device)
 
 
 def _twiddles(base: int, count: int, device) -> torch.Tensor:
@@ -97,8 +98,9 @@ def _twiddles(base: int, count: int, device) -> torch.Tensor:
 def _bitrev_index(n: int, device: torch.device) -> torch.Tensor:
     """The bit-reversal permutation of n rows, uploaded once per device."""
     k = n.bit_length() - 1
-    return torch.tensor([int(format(i, f"0{k}b")[::-1], 2) if k else 0
-                         for i in range(n)], device=device)
+    return MET.to_device(torch.tensor(
+        [int(format(i, f"0{k}b")[::-1], 2) if k else 0 for i in range(n)]),
+        device)
 
 
 class FourStepTables:
@@ -437,12 +439,21 @@ def h_transforms(dom: DeviceDomain, legs: torch.Tensor) -> torch.Tensor:
     """h(x) from the l32 (8, 3, m) Az, Bz, Cz legs: iNTT, coset NTT (the
     coset powers on load), coset iNTT (a b - c on load; the inverse coset
     powers, 1/Z on the coset and from_mont on store) -> (16, m) int32
-    plain limbs of h_0 .. h_{m-1}.  Each transform is a metrics stage
-    (``h.ntt.intt``, ``h.ntt.coset``, ``h.combine+intt``)."""
-    with StageTimer("h.ntt.intt", legs.device):
-        x = transform(dom, legs, True)
-    with StageTimer("h.ntt.coset", legs.device):
-        x = transform(dom, x, False, scale_in=dom.coset_pow)
-    with StageTimer("h.combine+intt", legs.device):
-        h = transform(dom, x, True, combine=True, scale_out=dom.h_out)
+    plain limbs of h_0 .. h_{m-1}."""
+    h = h_stages(functools.partial(transform, dom), legs, dom.coset_pow,
+                 dom.h_out)
     return h.reshape(F.NLIMBS, dom.size)
+
+
+def h_stages(transform, legs: torch.Tensor, coset_pow: torch.Tensor,
+             h_out: torch.Tensor) -> torch.Tensor:
+    """h(x)'s three transforms of the legs by ``transform(x, inverse,
+    **modes)`` (one card's, or a mesh rank's on its shard), each a
+    metrics stage: ``h.ntt.intt``, ``h.ntt.coset`` (coset_pow on load),
+    ``h.combine+intt`` (a b - c on load, h_out on store)."""
+    with StageTimer("h.ntt.intt", legs.device):
+        x = transform(legs, True)
+    with StageTimer("h.ntt.coset", legs.device):
+        x = transform(x, False, scale_in=coset_pow)
+    with StageTimer("h.combine+intt", legs.device):
+        return transform(x, True, combine=True, scale_out=h_out)

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import field as F
+from . import field as F, metrics as MET
 from ._build import kernel
 
 FR = F.FR
@@ -61,10 +61,11 @@ def pack_csr(legs, m: int, device) -> Csr:
     np.cumsum(lens, out=row_ptr[1:])
     if row_ptr[-1] >= 1 << 31:
         raise ValueError("more than 2^31 - 1 matrix entries")
-    return Csr(torch.from_numpy(row_ptr.astype(np.int32)).to(device),
-               torch.tensor(cols, dtype=torch.int32, device=device),
-               torch.from_numpy(F.ints_to_l32(coeffs).copy()).reshape(
-                   F.NL32, len(coeffs)).to(device), m)
+    return Csr(MET.to_device(torch.from_numpy(row_ptr.astype(np.int32)),
+                             device),
+               MET.to_device(torch.tensor(cols, dtype=torch.int32), device),
+               MET.to_device(torch.from_numpy(F.ints_to_l32(coeffs).copy())
+                             .reshape(F.NL32, len(coeffs)), device), m)
 
 
 def r1cs_csr(r1cs, m: int, device) -> Csr:
@@ -118,4 +119,6 @@ def matvec(csr: Csr, z: torch.Tensor) -> torch.Tensor:
 def satisfied(legs: torch.Tensor) -> bool:
     """Az o Bz == Cz on every row of the l32 (8, 3, m) legs."""
     az, bz, cz = F.unpack(legs).unbind(1)
-    return bool(torch.equal(FR.mul(az, bz), cz))
+    ok = torch.equal(FR.mul(az, bz), cz)
+    MET.count_sync(1)       # torch.equal reads its flag from the device
+    return ok

@@ -6,7 +6,9 @@ h = (a*b - c)/Z on coset -> coset iNTT -> five MSMs -> (A, B, C).
 All heavy stages route through a compute engine (the exact host engine
 below, or ``engine.engine.GpuEngine``); randomness r, s can be pinned
 for deterministic replay.  Under a mesh every rank proves, with rank 0's
-r and s, and makes the same proof.
+r and s, and makes the same proof.  Each call is the root span ``prove``
+of ``engine.metrics`` (a proof record while tracing is on), the host's
+combination of A, B and C its span ``combine``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import secrets
 from dataclasses import dataclass
 
 from ..curve import G1Point, G2Point, R, g1_add, g1_mul, g2_add, g2_mul
+from ..engine import metrics
 from .domain import Domain
 from .r1cs import R1CS
 from .setup import Groth16Parameters, expand_queries
@@ -101,6 +104,11 @@ def prove(
     s: int | None = None,
     engine=None,
 ) -> Proof:
+    with metrics.ProofSpan():
+        return _prove(params, r1cs, z, r, s, engine)
+
+
+def _prove(params, r1cs, z, r, s, engine) -> Proof:
     engine = engine if engine is not None else HostEngine()
     r = r if r is not None else secrets.randbelow(R)
     s = s if s is not None else secrets.randbelow(R)
@@ -145,17 +153,19 @@ def prove(
         l_acc = engine.msm_g1(params.l, z[ni:])
         h_acc = engine.msm_g1(params.h, h)
 
-    # A = alpha + sum z_i u_i(tau) + r*delta
-    proof_a = g1_add(g1_add(vk.alpha_g1, a_acc), g1_mul(vk.delta_g1, r))
+    with metrics.Span("combine"):
+        # A = alpha + sum z_i u_i(tau) + r*delta
+        proof_a = g1_add(g1_add(vk.alpha_g1, a_acc), g1_mul(vk.delta_g1, r))
 
-    # B = beta + sum z_i v_i(tau) + s*delta  (G2), B1 same in G1
-    proof_b = g2_add(g2_add(vk.beta_g2, b_acc_g2), g2_mul(vk.delta_g2, s))
-    b1 = g1_add(g1_add(vk.beta_g1, b_acc_g1), g1_mul(vk.delta_g1, s))
+        # B = beta + sum z_i v_i(tau) + s*delta  (G2), B1 same in G1
+        proof_b = g2_add(g2_add(vk.beta_g2, b_acc_g2),
+                         g2_mul(vk.delta_g2, s))
+        b1 = g1_add(g1_add(vk.beta_g1, b_acc_g1), g1_mul(vk.delta_g1, s))
 
-    # C = sum_aux z_i L_i + sum h_i H_i + s*A + r*B1 - r*s*delta
-    c = g1_add(l_acc, h_acc)
-    c = g1_add(c, g1_mul(proof_a, s))
-    c = g1_add(c, g1_mul(b1, r))
-    c = g1_add(c, g1_mul(vk.delta_g1, (R - r * s % R) % R))
+        # C = sum_aux z_i L_i + sum h_i H_i + s*A + r*B1 - r*s*delta
+        c = g1_add(l_acc, h_acc)
+        c = g1_add(c, g1_mul(proof_a, s))
+        c = g1_add(c, g1_mul(b1, r))
+        c = g1_add(c, g1_mul(vk.delta_g1, (R - r * s % R) % R))
 
     return Proof(a=proof_a, b=proof_b, c=c)
