@@ -31,7 +31,8 @@ NEW_SPANS = {"prove", "witness.convert", "witness.h2d", "msm.g1.readback",
 # a G2 coordinate has two components
 COORD_BYTES = 8 * 4
 PROOF_LINE = re.compile(r"^\[proof\] id=(\d+) wall=[0-9.]+s syncs=(\d+) "
-                        r"h2d=([0-9.]+)MB d2h=([0-9.]+)MB launches=(\d+)$")
+                        r"h2d=([0-9.]+)MB d2h=([0-9.]+)MB launches=(\d+) "
+                        r"witness_native=(\d+) witness_fallback=(\d+)$")
 
 
 @pytest.fixture(autouse=True)
@@ -79,14 +80,16 @@ def prover(chain, monkeypatch):
 
 def _steady_counts(chain, route) -> dict:
     """What a proof after the first moves: the witness uploaded once as
-    (16, nv) int32 limbs; read back, h's top coefficient's flag and each
+    (nv, 8) int32 rows, a copy the host does not wait for, every value
+    converted natively; read back, h's top coefficient's flag and each
     MSM call's X, Y, Z (tree: a, b1, l in one call, h in another; dense:
-    all four G1 in one), one sync a read and a copy."""
+    all four G1 in one), one sync a read."""
     nv = chain["r1cs"].num_vars
     g1_calls = [3, 1] if route == "tree" else [4]
     d2h = 1 + sum(3 * COORD_BYTES * m for m in g1_calls) + 6 * COORD_BYTES
-    return {"h2d_copies": 1, "h2d_bytes": 16 * 4 * nv, "d2h_bytes": d2h,
-            "syncs": 1 + 1 + 3 * len(g1_calls) + 6, "syncs_timer": 0}
+    return {"h2d_copies": 1, "h2d_bytes": 8 * 4 * nv, "d2h_bytes": d2h,
+            "syncs": 1 + 3 * len(g1_calls) + 6, "syncs_timer": 0,
+            "witness_native": nv, "witness_fallback": 0}
 
 
 @pytest.mark.parametrize("route", ["dense", "tree"])
@@ -129,6 +132,8 @@ def test_each_proof_records_a_tree_of_spans(chain, prover, monkeypatch,
     assert int(last[1]) == counts["syncs"]
     assert float(last[2]) == pytest.approx(counts["h2d_bytes"] / 1e6,
                                            abs=1e-6)
+    assert (int(last[5]), int(last[6])) == (counts["witness_native"],
+                                            counts["witness_fallback"])
 
 
 def test_launches_are_the_kernel_wrappers_deltas(prover, monkeypatch):

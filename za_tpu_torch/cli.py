@@ -13,9 +13,10 @@ with ``--engine host``, on the exact host code.
 ``-v`` logs each step's seconds and, unless ``ZA_METRICS`` is already
 set, turns on the engine's per-stage lines (``[stage] <name>: <wall>s
 device <dev>s``, engine/metrics.py) and a line a proof, ``[proof]
-id=<n> wall=<s>s syncs=<n> h2d=<MB>MB d2h=<MB>MB launches=<n>`` (the
-host's waits for the card, the bytes copied each way, the kernel
-launches).
+id=<n> wall=<s>s syncs=<n> h2d=<MB>MB d2h=<MB>MB launches=<n>
+witness_native=<n> witness_fallback=<n>`` (the host's waits for the
+card, the bytes copied each way, the kernel launches, the witness values
+converted natively or in Python).
 
 Several cards (``--mesh N`` on setup and prove, default ``$ZA_MESH``):
 with ``ZA_DIST="host:port,nprocs,procid"`` or torchrun's variables set

@@ -63,8 +63,14 @@ the constraint check ``sat.csr``, ``sat.matvec``, ``sat.check``; h(x)
 Each stage is also a span (``engine.metrics``: a ``za.<name>`` range
 under a profiler, a span of the proof's record while tracing is on), and
 so are, with no stage line and no wait of their own: ``witness.convert``
-(``v % R`` and ``ints_to_limbs`` on the host) and ``witness.h2d`` (the
-copy) inside ``h.z_to_limbs``, ``msm.<g>.readback`` (the results to the
+(the witness list to (nv, 8) int32 rows of z mod R in one native pass,
+``field.witness_rows``, written into a host buffer kept for the size,
+pinned on a card) and ``witness.h2d`` (one copy of the rows, 32 B a
+value, that the host does not wait for, then their widen to (16, nv) on
+the device, ``field.rows_to_limbs``) inside ``h.z_to_limbs``; without a
+compiler for the native pass, ``witness.convert`` is ``v % R`` and
+``ints_to_limbs`` in Python and ``witness.h2d`` a pageable copy of the
+(16, nv) limbs.  Also ``msm.<g>.readback`` (the results to the
 host, made affine there) after each MSM, and ``domain.tables`` (a
 domain's ``ntt.DeviceDomain``, built once).  Each copy, read and wait of
 the prove counts in its record (``syncs``, ``h2d_copies``,
@@ -87,6 +93,7 @@ from ..groth16 import format as FMT
 from ..groth16.domain import Domain
 from ..groth16.r1cs import R1CS
 from ..groth16.setup import expand_queries
+from ..native import witness_lib
 from . import cuda_tree as CT, dist as DIST, ec, field as F
 from . import fixed_base as FB, mesh as MESH, msm_dense as MD
 from . import msm_tree as MT, ntt as NTT
@@ -159,6 +166,10 @@ class GpuEngine:
         self._sharded_domains: dict[int, MESH.ShardedDomain] = {}
         self._sat_legs = None
         self._witness = None
+        # the host rows of the last witness uploaded, reused for the
+        # next of its size, and the event after their copy to the card
+        self._rows: torch.Tensor | None = None
+        self._rows_copied: torch.cuda.Event | None = None
         #: what the last stage_params did: "source" ("memo": the tables
         #: already on params, "cache": loaded from <pk>.gpucache,
         #: "staged"), "cache" (None: no cache path, "hit", "miss" or
@@ -563,12 +574,46 @@ class GpuEngine:
         if self._witness is not None and self._witness[0] is z:
             return self._witness[1]
         with self._timer("h.z_to_limbs"):
-            with Span("witness.convert"):
-                limbs = F.ints_to_limbs([v % R for v in z])
-            with Span("witness.h2d"):
-                dev = self._put(limbs)
+            dev = self._upload_witness(z)
         self._witness = (z, dev)  # holding z keeps its id valid
         return dev
+
+    def _upload_witness(self, z) -> torch.Tensor:
+        """A witness sequence -> (16, nv) int32 plain limbs on the device:
+        rows of z mod R, 32 B a value, converted natively into the kept
+        host buffer, one copy the host does not wait for, and the widen
+        on the device.  Without the native library: ``v % R`` and
+        ``ints_to_limbs`` in Python, and a pageable copy."""
+        if witness_lib() is None:
+            with Span("witness.convert"):
+                limbs = F.ints_to_limbs([v % R for v in z])
+            MET.count_witness(0, limbs.shape[1])
+            with Span("witness.h2d"):
+                return self._put(limbs)
+        if not isinstance(z, (list, tuple)):
+            z = list(z)
+        with Span("witness.convert"):
+            rows = self._rows_buffer(len(z))
+            fallback = F.witness_rows(z, rows)
+        MET.count_witness(len(z) - fallback, fallback)
+        with Span("witness.h2d"):
+            dev = MET.to_device_async(rows, self.device)
+            if self._rows_copied is not None:
+                self._rows_copied.record()
+            return F.rows_to_limbs(dev)
+
+    def _rows_buffer(self, n: int) -> torch.Tensor:
+        """The host buffer for n witness rows, (n, 8) int32: kept and
+        reused while n holds, pinned on a card, where the last copy out
+        of it is waited for (a sync) if it is still running."""
+        if self._rows is None or self._rows.shape[0] != n:
+            cuda = self.device.type == "cuda"
+            self._rows = torch.empty((n, F.NL32), dtype=torch.int32,
+                                     pin_memory=cuda)
+            self._rows_copied = torch.cuda.Event() if cuda else None
+        elif self._rows_copied is not None and not self._rows_copied.query():
+            MET.wait(self._rows_copied)
+        return self._rows
 
     def _legs(self, r1cs: R1CS, z, m: int, tag: str = "h") -> torch.Tensor:
         """The Az, Bz, Cz legs at domain size m, l32 (8, 3, m)

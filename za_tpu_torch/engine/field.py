@@ -13,7 +13,10 @@ Layouts:
   a 16x16 schoolbook product (< 2^37) fits.  Every op takes and returns
   canonical values.
 * Host <-> device: ``(16, n)`` 16-bit plain (non-Montgomery) limbs, the
-  layout of the reference's raw pk queries and witness arrays.
+  layout of the reference's raw pk queries and witness arrays.  A
+  witness list crosses as rows instead, ``(n, 8)`` int32, value j's
+  eight 32-bit limbs in row j (``witness_rows``, 32 B a value), widened
+  to ``(16, n)`` on the device (``rows_to_limbs``).
 
 The CUDA side of the same arithmetic is ``csrc/field.cuh``; the
 functions here are its plain versions and the tensor code of the paths
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..curve import Q, R
+from ..native import witness_lib
 from . import metrics as MET
 
 NLIMBS = 16        # 16-bit limbs of the host layout and the plain versions
@@ -44,6 +48,32 @@ def ints_to_limbs(vs) -> np.ndarray:
     buf = b"".join(int(v).to_bytes(32, "little") for v in vs)
     arr = np.frombuffer(buf, dtype="<u2").reshape(len(vs), NLIMBS)
     return np.ascontiguousarray(arr.T).astype(np.uint32)
+
+
+def witness_rows(z, rows: torch.Tensor) -> int:
+    """z (a list or tuple of n witness values) -> rows, an (n, 8) int32
+    host tensor: row j the eight little-endian 32-bit limbs of z[j] mod R,
+    in one native pass (``native/witness_limbs.c``; ``witness_lib()`` must
+    not be None).  Equal to ``ints_to_limbs([v % R for v in z])`` once
+    widened; raises what that raises.  -> the number of values that took
+    the native pass's Python fallback (not an exact int in [0, 2^256))."""
+    if (rows.device.type != "cpu" or rows.dtype != torch.int32
+            or tuple(rows.shape) != (len(z), NL32)
+            or not rows.is_contiguous()):
+        raise ValueError(f"rows must be a contiguous ({len(z)}, {NL32}) "
+                         f"int32 host tensor, not {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device}")
+    return witness_lib().za_witness_rows(z, rows.data_ptr(), len(z), R)
+
+
+def rows_to_limbs(rows: torch.Tensor) -> torch.Tensor:
+    """(n, 8) int32 rows of 32-bit limbs -> (16, n) int32 16-bit limbs, on
+    the rows' device: the int16 halves (limb 2k is word k's low half)
+    widened in a transposing copy, then masked to 16 bits."""
+    out = torch.empty((NLIMBS, rows.shape[0]), dtype=torch.int32,
+                      device=rows.device)
+    out.copy_(rows.view(torch.int16).t())
+    return out.bitwise_and_(MASK)
 
 
 def limbs_to_ints(a) -> list[int]:

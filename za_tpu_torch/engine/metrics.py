@@ -23,7 +23,8 @@ One span class (``Span``) has three outputs, each with its own switch:
   parts) are spans that also log, with the timer's switch on, one line to
   the logger ``za_tpu_torch.metrics`` at INFO; a plain ``Span`` logs
   none.  With the switch on, each proof also logs ``[proof] id=<n>
-  wall=<s>s syncs=<n> h2d=<MB>MB d2h=<MB>MB launches=<n>``.
+  wall=<s>s syncs=<n> h2d=<MB>MB d2h=<MB>MB launches=<n>
+  witness_native=<n> witness_fallback=<n>``.
 
 On a CUDA device a stage records a ``torch.cuda.Event`` pair on the
 current stream and, at its exit, waits for the end event and adds the
@@ -43,10 +44,13 @@ two stages, which no stage's device seconds hold.
 Counters of the open record, counted where the work happens by the
 helpers below: ``syncs`` (the host's waits for the card, as torch's sync
 debug mode counts them: a pageable copy either way, ``bool()`` of a
-device tensor, ``synchronize``), ``syncs_timer`` (the stage timer's own
-waits, apart), ``h2d_copies``, ``h2d_bytes``, ``d2h_bytes``, and
-``launches`` (the change over the proof in the kernel wrappers' own
-``_build.Kernel.launches``).  A copy, read or wait is counted where the
+device tensor, ``synchronize``, an event waited for), ``syncs_timer``
+(the stage timer's own waits, apart), ``h2d_copies``, ``h2d_bytes``
+(a copy from pinned memory, which the host does not wait for, too),
+``d2h_bytes``, ``launches`` (the change over the proof in the kernel
+wrappers' own ``_build.Kernel.launches``), and the witness values the
+upload converted in its native pass, ``witness_native``, or reduced in
+Python, ``witness_fallback``.  A copy, read or wait is counted where the
 program makes it, on every device, so an engine on the CPU counts what
 the same calls make on the card; ``synchronize`` and the timer's waits
 count only on a card, where they run.
@@ -75,7 +79,7 @@ log = logging.getLogger("za_tpu_torch.metrics")
 RING = 4096
 
 COUNTERS = ("syncs", "syncs_timer", "h2d_copies", "h2d_bytes", "d2h_bytes",
-            "launches")
+            "launches", "witness_native", "witness_fallback")
 
 #: whether a torch profiler records now
 _profiling = torch._C._autograd._profiler_enabled
@@ -197,9 +201,11 @@ class ProofSpan(Span):
         _REC.ring.append(rec)
         if StageTimer.enabled:
             log.info("[proof] id=%d wall=%.6fs syncs=%d h2d=%.6fMB "
-                     "d2h=%.6fMB launches=%d", rec["id"],
+                     "d2h=%.6fMB launches=%d witness_native=%d "
+                     "witness_fallback=%d", rec["id"],
                      (t1 - self.t0) / 1e9, c["syncs"], c["h2d_bytes"] / 1e6,
-                     c["d2h_bytes"] / 1e6, c["launches"])
+                     c["d2h_bytes"] / 1e6, c["launches"],
+                     c["witness_native"], c["witness_fallback"])
 
 
 class StageTimer(Span):
@@ -321,6 +327,18 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device)
 
 
+def to_device_async(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor -> its copy on ``device``, queued on the current
+    stream (``non_blocking``; from pinned memory the host goes on at
+    once): counted as a copy and its bytes, not as a sync."""
+    rec = _REC.proof
+    if rec is not None:
+        c = rec["counters"]
+        c["h2d_copies"] += 1
+        c["h2d_bytes"] += t.nbytes
+    return t.to(device, non_blocking=True)
+
+
 def to_host(t: torch.Tensor) -> torch.Tensor:
     """A device tensor -> its copy on the host (``.cpu()``): counted as
     its bytes and a sync."""
@@ -355,6 +373,24 @@ def synchronize(device) -> None:
     if rec is not None:
         rec["counters"]["syncs"] += 1
     torch.cuda.synchronize(device)
+
+
+def wait(event: torch.cuda.Event) -> None:
+    """``event.synchronize()``, counted as a sync."""
+    rec = _REC.proof
+    if rec is not None:
+        rec["counters"]["syncs"] += 1
+    event.synchronize()
+
+
+def count_witness(native: int, fallback: int) -> None:
+    """Witness values converted by the upload's native pass and reduced
+    in Python."""
+    rec = _REC.proof
+    if rec is not None:
+        c = rec["counters"]
+        c["witness_native"] += native
+        c["witness_fallback"] += fallback
 
 
 def count_timer_sync() -> None:

@@ -7,9 +7,13 @@ dependency-free).  Every user degrades gracefully to its pure-Python
 path when no compiler is available.
 
 Currently: wtrace_replay.c -- the witness-tape interpreter
-(compiler/wtrace.py replay at C speed).  The library is built from this
-package's copy of the source into ``za_tpu_torch/_build/native/`` at
-first use (``CC`` names the compiler to try first).
+(compiler/wtrace.py replay at C speed) -- and witness_limbs.c -- a
+witness list to limb rows (``engine.GpuEngine``'s witness upload), built
+against the running interpreter's headers and loaded with
+``ctypes.PyDLL`` so it holds the GIL and reads the ints themselves.
+Each library is built from this package's copy of the source into
+``za_tpu_torch/_build/native/`` at first use (``CC`` names the compiler
+to try first).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import hashlib
 import logging
 import os
 import subprocess
+import sysconfig
 import tempfile
 from typing import Optional
 
@@ -34,18 +39,21 @@ def _cache_dir() -> str:
     return d
 
 
-def _build(src_path: str, tag: str) -> Optional[str]:
+def _build(src_path: str, tag: str,
+           include_dirs: tuple = ()) -> Optional[str]:
     """Compile src to a cached shared library; None if no toolchain.
 
     -march=native is tried first (the library is built on the machine
     it runs on; BMI2/ADX carry chains ~1.5x the Montgomery loop) with
-    a portable -O3 fallback."""
+    a portable -O3 fallback.  ``include_dirs`` go on the command line
+    and into the cache key."""
     with open(src_path, "rb") as f:
         src = f.read()
     digest = hashlib.blake2b(src, digest_size=12).hexdigest()
+    incs = [f"-I{d}" for d in include_dirs]
     flag_sets = [
-        ["-O3", "-march=native", "-funroll-loops"],
-        ["-O3"],
+        ["-O3", "-march=native", "-funroll-loops", *incs],
+        ["-O3", *incs],
     ]
     for flags in flag_sets:
         fdig = hashlib.blake2b(
@@ -105,4 +113,30 @@ def wtrace_lib() -> Optional[ctypes.CDLL]:
         log.info("native wtrace unavailable (%s)", exc)
         lib = None
     _LIBS["wtrace"] = lib
+    return lib
+
+
+def witness_lib() -> Optional[ctypes.PyDLL]:
+    """The witness-limbs library (``za_witness_rows``), or None when
+    unbuildable (logged once; the caller takes its Python path)."""
+    if "witness" in _LIBS:
+        return _LIBS["witness"]
+    lib, why = None, "no compiler built it"
+    try:
+        path = _build(os.path.join(_DIR, "witness_limbs.c"),
+                      "witness_limbs",
+                      (sysconfig.get_paths()["include"],))
+        if path:
+            lib = ctypes.PyDLL(path)
+            lib.za_witness_rows.restype = ctypes.c_ssize_t
+            lib.za_witness_rows.argtypes = [
+                ctypes.py_object, ctypes.c_void_p, ctypes.c_ssize_t,
+                ctypes.py_object,
+            ]
+    except OSError as exc:  # load failure: fall back to Python
+        lib, why = None, str(exc)
+    if lib is None:
+        log.info("native witness limbs unavailable (%s): converting in "
+                 "Python", why)
+    _LIBS["witness"] = lib
     return lib
