@@ -205,6 +205,34 @@ def test_r1cs_matvec_kernel_matches_plain(gen):
         RC.matvec(csr, F.pack(z.to(torch.int64)))     # l32 is refused
 
 
+def test_r1cs_matvec_kernel_on_the_bits_rows_matches_plain(gen):
+    """The benchmark's ``bits`` rows (circomlib's Num2Bits(254)), 33
+    instances: a 255-entry C row each, at every lane position of a warp
+    (255 = 31 mod 32), empty A and B rows there and 254 empty C rows an
+    instance; then all 32 rows of one warp longer than WARP_ROW, in A
+    and in C.  The generator's witness and a full-width one."""
+    from prover_bench.circuits import bits
+
+    cfg = {"bits": 254, "instances": 33, "constraints": 33 * 255}
+    circ = bits.rows(cfg)
+    nv = circ["num_inputs"] + circ["num_aux"]
+    assert {(255 * k + 254) % 32 for k in range(33)} == set(range(32))
+    rng = random.Random(7)
+    wide = [[(rng.randrange(nv), rng.randrange(R))
+             for _ in range(RC.WARP_ROW + 1 + i)] for i in range(32)]
+    # pad each leg with empty rows so that `wide` fills one warp's rows
+    legs = (circ["a"] + [[]] + wide, circ["b"],
+            circ["c"] + [[]] * 33 + wide)
+    assert (len(legs[0]) - 32) % 32 == 0 and (len(legs[2]) - 32) % 32 == 0
+    m = 1 << 14
+    csr = RC.pack_csr(legs, m, "cuda")
+    plain = RC.pack_csr(legs, m, "cpu")
+    for z in (bits.witness(cfg, rng), [rng.randrange(R) for _ in range(nv)]):
+        zl = torch.from_numpy(F.ints_to_limbs(z).astype(np.int32))
+        got = RC.matvec(csr, zl.cuda())
+        assert torch.equal(got.cpu(), RC.matvec_plain(plain, zl))
+
+
 def test_ntt_twiddle_kernel_matches_plain(gen):
     """n2 = 64 rows, n1 = 128 columns (the 2^13 split) and a ragged
     shape that no tile divides."""
@@ -258,6 +286,42 @@ def test_tree_kernels_match_plain(gen, is_g2):
     out = CT.tree_level0(tx, ty, d, is_g2)
     assert _same(out, MT.tree_level0_plain(tx, ty, d, is_g2))
     assert _same(CT.tree_level(*out, is_g2), MT.tree_level_plain(*out, is_g2))
+
+
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_tree_kernels_equal_x_match_plain(gen, is_g2):
+    """Finite operands with equal x among random pairs, in two blocks
+    of each row: level 0 with columns repeated across the fold (equal
+    digits double, opposite ones cancel), level 1 with partials repeated
+    across it (y equal: double; y negated: cancel)."""
+    E = (2,) if is_g2 else ()
+    fld = ec.field_of(is_g2)
+    M, S, W = 2, 4096, 3
+    half = S // 2
+    tx = _rand_fq((MT.HALF,) + E + (M, S), gen).movedim(0, 1).contiguous()
+    ty = _rand_fq((MT.HALF,) + E + (M, S), gen).movedim(0, 1).contiguous()
+    d = torch.randint(-8, 9, (W, M, S), generator=gen,
+                      device="cuda").to(torch.int8)
+    rep = torch.cat([torch.arange(0, 64), torch.arange(1500, 1564)]).cuda()
+    tx[..., rep + half] = tx[..., rep]
+    ty[..., rep + half] = ty[..., rep]
+    mag = torch.randint(1, 9, (W, M, rep.numel()), generator=gen,
+                        device="cuda").to(torch.int8)
+    d[..., rep] = mag
+    d[..., rep + half] = torch.where(rep % 2 == 0, mag, -mag)
+    out = CT.tree_level0(tx, ty, d, is_g2)
+    assert _same(out, MT.tree_level0_plain(tx, ty, d, is_g2))
+    assert out[2][..., rep[1::2]].all() and not out[2][..., rep[::2]].any()
+
+    x, y, inf = (t.clone() for t in out)
+    h = half // 2
+    rep = torch.cat([torch.arange(0, 64), torch.arange(600, 664)]).cuda()
+    x[..., rep + h] = x[..., rep]
+    neg = F.pack(fld.neg(F.unpack(y[..., rep])))
+    y[..., rep + h] = torch.where(rep % 2 == 0, y[..., rep], neg)
+    inf[..., rep] = inf[..., rep + h] = False
+    assert _same(CT.tree_level(x, y, inf, is_g2),
+                 MT.tree_level_plain(x, y, inf, is_g2))
 
 
 @pytest.mark.parametrize("radix", [16, 4])

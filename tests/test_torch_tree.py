@@ -118,3 +118,52 @@ def test_plain_levels_match_reference(is_g2):
         assert np.array_equal(pi.numpy(), np.asarray(qi))
         assert _port_decode(px, is_g2) == _ref_decode(qx, is_g2)
         assert _port_decode(py, is_g2) == _ref_decode(qy, is_g2)
+
+
+@pytest.mark.parametrize("is_g2", [False, True], ids=["g1", "g2"])
+def test_plain_levels_double_and_cancel_equal_x(is_g2):
+    """Sums of one repeated point, which the reference's contract
+    excludes: column c holds point c mod 4, so level 0 pairs a point with
+    itself and level 1 equal partials.  Window 0: every digit 1 (P + P,
+    then 2P + 2P); window 1: 1 against -1 (P + (-P) at level 0); window
+    2: 2P against -2P at level 1; window 3: random digits.  Every output
+    equals the host's sum of its columns' d P."""
+    from za_tpu_torch.curve import (
+        G1_GEN, G2_GEN, g1_add, g1_mul, g2_add, g2_mul)
+
+    gen, add, mul = ((G2_GEN, g2_add, g2_mul) if is_g2
+                     else (G1_GEN, g1_add, g1_mul))
+    rng = random.Random(43)
+    S, W = 16, 4
+    base = [mul(gen, rng.randrange(1, R)) for _ in range(4)]
+    pts = [base[c % 4] for c in range(S)]
+    d = [[1] * S, [1] * 8 + [-1] * 8, ([1] * 4 + [-1] * 4) * 2,
+         [rng.randrange(-8, 9) for _ in range(S)]]
+    tabs = GpuEngine(device="cpu").stage_g2_affine([pts], chunk=S) if is_g2 \
+        else GpuEngine(device="cpu").stage_g1_affine([pts], chunk=S)
+    out0 = CT.tree_level0(tabs.tx[0], tabs.ty[0],
+                          torch.tensor(d, dtype=torch.int8).unsqueeze(1),
+                          is_g2)
+    out1 = CT.tree_level(*out0, is_g2)
+
+    def host(cols, w):
+        acc = None
+        for c in cols:
+            acc = add(acc, mul(pts[c], d[w][c] % R))
+        return acc
+
+    def port(out):
+        x, y, inf = out
+        xs, ys = _port_decode(x, is_g2), _port_decode(y, is_g2)
+        n = inf.shape[-1]
+        return [[None if inf[0, w, q] else
+                 (_port_g2(((Fq2(*xs[w * n + q]), Fq2(*ys[w * n + q]))))
+                  if is_g2 else (xs[w * n + q], ys[w * n + q]))
+                 for q in range(n)] for w in range(W)]
+
+    want0 = [[host((q, q + 8), w) for q in range(8)] for w in range(W)]
+    want1 = [[host((q, q + 4, q + 8, q + 12), w) for q in range(4)]
+             for w in range(W)]
+    assert port(out0) == want0 and port(out1) == want1
+    assert want0[1] == [None] * 8 and want1[2] == [None] * 4
+    assert want1[0] == [mul(b, 4) for b in base]

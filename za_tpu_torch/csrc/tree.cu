@@ -15,11 +15,17 @@
 //   den = x2 - x1 (1 where either side is infinity)
 //   lam = (y2 - y1) / den, x3 = lam^2 - x1 - x2, y3 = lam (x1 - x3) - y1
 //   inf + Q = Q, P + inf = P, inf + inf = inf (then x3, y3 = x2, y2).
+// Two finite operands with equal x (a pair the reference's contract
+// excludes, and which sums of repeated query points reach: one pk point
+// in several columns, or a small witness's digits) take the rare branch:
+// P + P doubles, den = 2 y1 and lam = 3 x1^2 / den; P + (-P) is
+// infinity (den = 1, x3, y3 = x2, y2).  Such a pair zeroes its thread's
+// product of denominators, and only a thread whose product is zero walks
+// its pairs again with them handled (out of line), so the common path's
+// code is as it was without them.
 // Level 0 reads the staged affine {1P..8P} tables directly: |d| picks
 // entry |d| - 1, d < 0 negates y, d = 0 is infinity (and reads entry 0);
-// the selected points never reach device memory.  Equal x of two finite
-// operands is excluded by contract, as in the reference
-// (za_tpu/engine/msm_tree.py).
+// the selected points never reach device memory.
 //
 // Design.  A block owns a contiguous slice of TB * K pairs of one row;
 // thread t walks pairs t, t + TB, ... (coalesced across the warp),
@@ -119,24 +125,25 @@ struct Level {
   }
 };
 
-// One level (Design above): the root inverted by inv_gcd (for Fq2
-// through the norm: block_inverse_gcd) and both walks rolled into loops
-// over prefix products kept in shared memory, so that a block's serial
-// chain is short and its code small.  Shared memory: K * Planes<F>::n * TB words
-// of prefixes and 2 TB Fq of tree, 40 KB for G1 (K = 8) and G2 (K = 4).
-template <class F, bool L0, int K, int BLOCKS>
-__global__ void __launch_bounds__(TB, BLOCKS)
-tree_level_rolled_kernel(Level<F, L0> lv, uint32_t* __restrict__ x3,
-                         uint32_t* __restrict__ y3,
-                         uint8_t* __restrict__ inf3) {
-  __shared__ Fq tree[2 * TB];
-  __shared__ uint32_t pre[K][Planes<F>::n][TB];  // exclusive prefixes
-  const int t = threadIdx.x;
-  const int r = blockIdx.y;
-  const long half = lv.n / 2;
-  const long p0 = (long)blockIdx.x * TB * K;
-  const size_t out_plane = (size_t)lv.M * lv.W * half;
+// The denominator of a finite pair whose x are equal: 2 y1 for P + P,
+// 1 for P + (-P) (y2 = -y1), which then adds no factor to the products.
+template <class F>
+__device__ __forceinline__ F equal_x_den(const F& y1, const F& y2) {
+  return is_zero(sub(y2, y1)) ? add(y1, y1) : one<F>();
+}
 
+template <class F>
+using Prefixes = uint32_t (*)[Planes<F>::n][TB];
+
+// A thread's first walk over its K pairs: the exclusive prefix products
+// of their denominators into pre, -> the thread's product.  EQX: pairs
+// with equal x take their denominators from equal_x_den (y reloaded);
+// without it such a pair makes the product zero.
+template <class F, bool L0, int K, bool EQX>
+__device__ __forceinline__ F first_walk(const Level<F, L0>& lv, int r,
+                                        long p0, Prefixes<F> pre) {
+  const int t = threadIdx.x;
+  const long half = lv.n / 2;
   F acc = one<F>();
 #pragma unroll 1  // unrolled, the two walks outgrow the instruction cache
   for (int j = 0; j < K; ++j) {
@@ -146,12 +153,30 @@ tree_level_rolled_kernel(Level<F, L0> lv, uint32_t* __restrict__ x3,
       F x1, x2, y1, y2;
       bool i1, i2;
       lv.operands(r, p, false, x1, x2, y1, y2, i1, i2);
-      if (!(i1 || i2)) acc = mul(acc, sub(x2, x1));
+      if (!(i1 || i2)) {
+        F den = sub(x2, x1);
+        if (EQX && is_zero(den)) {
+          lv.operands(r, p, true, x1, x2, y1, y2, i1, i2);
+          den = equal_x_den(y1, y2);
+        }
+        acc = mul(acc, den);
+      }
     }
   }
+  return acc;
+}
 
-  F inv_acc = block_inverse_gcd<TB>(acc, tree);
-
+// The second walk, backwards: each pair's inverse from the running
+// inverse and its prefix, the affine add, the outputs.  EQX: P + P
+// doubles (lam = 3 x1^2 / (2 y1)) and P + (-P) is infinity.
+template <class F, bool L0, int K, bool EQX>
+__device__ __forceinline__ void second_walk(
+    const Level<F, L0>& lv, int r, long p0, Prefixes<F> pre, F inv_acc,
+    uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
+    uint8_t* __restrict__ inf3) {
+  const int t = threadIdx.x;
+  const long half = lv.n / 2;
+  const size_t out_plane = (size_t)lv.M * lv.W * half;
 #pragma unroll 1
   for (int j = K - 1; j >= 0; --j) {
     const long p = p0 + (long)j * TB + t;
@@ -160,6 +185,7 @@ tree_level_rolled_kernel(Level<F, L0> lv, uint32_t* __restrict__ x3,
     bool i1, i2;
     lv.operands(r, p, true, x1, x2, y1, y2, i1, i2);
     F xo, yo;
+    bool cancel = false;  // P + (-P)
     if (i1) {
       xo = x2;
       yo = y2;
@@ -169,18 +195,74 @@ tree_level_rolled_kernel(Level<F, L0> lv, uint32_t* __restrict__ x3,
     } else {
       F pj;
       load(pj, &pre[j][0][0], TB, t);
-      const F den = sub(x2, x1);
+      F den = sub(x2, x1);
+      F num = sub(y2, y1);
+      if (EQX && is_zero(den)) {
+        den = equal_x_den(y1, y2);
+        cancel = !is_zero(num);
+        const F xx = sqr(x1);
+        num = add(add(xx, xx), xx);
+      }
       const F dinv = mul(inv_acc, pj);
       inv_acc = mul(inv_acc, den);
-      const F lam = mul(sub(y2, y1), dinv);
-      xo = sub(sub(sqr(lam), x1), x2);
-      yo = sub(mul(lam, sub(x1, xo)), y1);
+      if (EQX && cancel) {
+        xo = x2;
+        yo = y2;
+      } else {
+        const F lam = mul(num, dinv);
+        xo = sub(sub(sqr(lam), x1), x2);
+        yo = sub(mul(lam, sub(x1, xo)), y1);
+      }
     }
     const size_t o = (size_t)r * half + p;
     store(x3, out_plane, o, xo);
     store(y3, out_plane, o, yo);
-    inf3[o] = (uint8_t)(i1 && i2);
+    inf3[o] = (uint8_t)((i1 && i2) || cancel);
   }
+}
+
+// The walks of a thread that holds a pair with equal x, out of line: the
+// common path's code and registers stay as they were without them.
+template <class F, bool L0, int K>
+__device__ __noinline__ F first_walk_equal_x(const Level<F, L0> lv, int r,
+                                             long p0, Prefixes<F> pre) {
+  return first_walk<F, L0, K, true>(lv, r, p0, pre);
+}
+
+template <class F, bool L0, int K>
+__device__ __noinline__ void second_walk_equal_x(
+    const Level<F, L0> lv, int r, long p0, Prefixes<F> pre, F inv_acc,
+    uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
+    uint8_t* __restrict__ inf3) {
+  second_walk<F, L0, K, true>(lv, r, p0, pre, inv_acc, x3, y3, inf3);
+}
+
+// One level (Design above): the root inverted by inv_gcd (for Fq2
+// through the norm: block_inverse_gcd) and both walks rolled into loops
+// over prefix products kept in shared memory, so that a block's serial
+// chain is short and its code small.  Shared memory: K * Planes<F>::n * TB words
+// of prefixes and 2 TB Fq of tree, 40 KB for G1 (K = 8) and G2 (K = 4).
+// A thread whose product comes out zero holds a finite pair with equal
+// x (the product of nonzero factors is not zero): it walks again with
+// those pairs handled, before the block's inversion.
+template <class F, bool L0, int K, int BLOCKS>
+__global__ void __launch_bounds__(TB, BLOCKS)
+tree_level_rolled_kernel(Level<F, L0> lv, uint32_t* __restrict__ x3,
+                         uint32_t* __restrict__ y3,
+                         uint8_t* __restrict__ inf3) {
+  __shared__ Fq tree[2 * TB];
+  __shared__ uint32_t pre[K][Planes<F>::n][TB];  // exclusive prefixes
+  const int r = blockIdx.y;
+  const long p0 = (long)blockIdx.x * TB * K;
+
+  F acc = first_walk<F, L0, K, false>(lv, r, p0, pre);
+  const bool equal_x = is_zero(acc);
+  if (equal_x) acc = first_walk_equal_x<F, L0, K>(lv, r, p0, pre);
+  const F inv_acc = block_inverse_gcd<TB>(acc, tree);
+  if (equal_x)
+    second_walk_equal_x<F, L0, K>(lv, r, p0, pre, inv_acc, x3, y3, inf3);
+  else
+    second_walk<F, L0, K, false>(lv, r, p0, pre, inv_acc, x3, y3, inf3);
 }
 
 template <class F, bool L0>

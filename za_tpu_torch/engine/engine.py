@@ -587,15 +587,16 @@ class GpuEngine:
         if witness_lib() is None:
             with Span("witness.convert"):
                 limbs = F.ints_to_limbs([v % R for v in z])
-            MET.count_witness(0, limbs.shape[1])
+            MET.count_witness(0, limbs.shape[1], F.limb_digits(limbs)
+                              if MET.recording() else None)
             with Span("witness.h2d"):
                 return self._put(limbs)
         if not isinstance(z, (list, tuple)):
             z = list(z)
         with Span("witness.convert"):
             rows = self._rows_buffer(len(z))
-            fallback = F.witness_rows(z, rows)
-        MET.count_witness(len(z) - fallback, fallback)
+            fallback, digits = F.witness_rows(z, rows, MET.recording())
+        MET.count_witness(len(z) - fallback, fallback, digits)
         with Span("witness.h2d"):
             dev = MET.to_device_async(rows, self.device)
             if self._rows_copied is not None:

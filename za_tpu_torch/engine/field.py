@@ -25,6 +25,7 @@ that are not kernels yet (NTT, matvec).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -50,20 +51,35 @@ def ints_to_limbs(vs) -> np.ndarray:
     return np.ascontiguousarray(arr.T).astype(np.uint32)
 
 
-def witness_rows(z, rows: torch.Tensor) -> int:
+def witness_rows(z, rows: torch.Tensor,
+                 digits: bool = False) -> tuple[int, int | None]:
     """z (a list or tuple of n witness values) -> rows, an (n, 8) int32
     host tensor: row j the eight little-endian 32-bit limbs of z[j] mod R,
     in one native pass (``native/witness_limbs.c``; ``witness_lib()`` must
     not be None).  Equal to ``ints_to_limbs([v % R for v in z])`` once
     widened; raises what that raises.  -> the number of values that took
-    the native pass's Python fallback (not an exact int in [0, 2^256))."""
+    the native pass's Python fallback (not an exact int in [0, 2^256)),
+    and with ``digits`` the values' nonzero 4-bit digits (``limb_digits``'s
+    count; the same pass counts them), else None."""
     if (rows.device.type != "cpu" or rows.dtype != torch.int32
             or tuple(rows.shape) != (len(z), NL32)
             or not rows.is_contiguous()):
         raise ValueError(f"rows must be a contiguous ({len(z)}, {NL32}) "
                          f"int32 host tensor, not {rows.dtype} "
                          f"{tuple(rows.shape)} on {rows.device}")
-    return witness_lib().za_witness_rows(z, rows.data_ptr(), len(z), R)
+    live = ctypes.c_longlong() if digits else None
+    fallback = witness_lib().za_witness_rows(
+        z, rows.data_ptr(), len(z), R,
+        None if live is None else ctypes.byref(live))
+    return fallback, None if live is None else live.value
+
+
+def limb_digits(limbs: np.ndarray) -> int:
+    """The nonzero 4-bit digits of (16, n) 16-bit limbs: of each value's
+    64 digit slots, those the MSM's windows find nonzero before their
+    signed recoding."""
+    return sum(int(np.count_nonzero((limbs >> s) & 0xF))
+               for s in (0, 4, 8, 12))
 
 
 def rows_to_limbs(rows: torch.Tensor) -> torch.Tensor:

@@ -50,10 +50,13 @@ device tensor, ``synchronize``, an event waited for), ``syncs_timer``
 ``d2h_bytes``, ``launches`` (the change over the proof in the kernel
 wrappers' own ``_build.Kernel.launches``), and the witness values the
 upload converted in its native pass, ``witness_native``, or reduced in
-Python, ``witness_fallback``.  A copy, read or wait is counted where the
-program makes it, on every device, so an engine on the CPU counts what
-the same calls make on the card; ``synchronize`` and the timer's waits
-count only on a card, where they run.
+Python, ``witness_fallback``, and the nonzero 4-bit digits of those
+values mod r, ``witness_digits`` (of 64 digit slots a value: the digits
+the MSM's signed windows follow up to their carries).  A copy, read or
+wait is counted where the program makes it, on every device, so an
+engine on the CPU counts what the same calls make on the card;
+``synchronize`` and the timer's waits count only on a card, where they
+run.
 
 Off (no switch, no profiler), a span checks the switch and the profiler
 and does nothing else: no event, no record, no range, no wait, no line;
@@ -79,7 +82,8 @@ log = logging.getLogger("za_tpu_torch.metrics")
 RING = 4096
 
 COUNTERS = ("syncs", "syncs_timer", "h2d_copies", "h2d_bytes", "d2h_bytes",
-            "launches", "witness_native", "witness_fallback")
+            "launches", "witness_native", "witness_fallback",
+            "witness_digits")
 
 #: whether a torch profiler records now
 _profiling = torch._C._autograd._profiler_enabled
@@ -383,14 +387,22 @@ def wait(event: torch.cuda.Event) -> None:
     event.synchronize()
 
 
-def count_witness(native: int, fallback: int) -> None:
+def recording() -> bool:
+    """Whether a proof record is open: a counter that costs work of its
+    own to count (``witness_digits``) is counted only then."""
+    return _REC.proof is not None
+
+
+def count_witness(native: int, fallback: int, digits: int | None) -> None:
     """Witness values converted by the upload's native pass and reduced
-    in Python."""
+    in Python, and their nonzero 4-bit digits (None: not counted, with
+    no record open)."""
     rec = _REC.proof
     if rec is not None:
         c = rec["counters"]
         c["witness_native"] += native
         c["witness_fallback"] += fallback
+        c["witness_digits"] += digits
 
 
 def count_timer_sync() -> None:

@@ -15,10 +15,12 @@ pallas_tree.py):
 * the last 128 partials per window go projective (chunk carry, lane
   fold, Horner: ``engine.msm``).
 
-Affine addition is incomplete: two finite operands with equal x are
-excluded by contract (pairwise distinct pk points; synthetic inputs use
-prime pool sizes), exactly as in the reference.  Values are canonical,
-so there is no bound bookkeeping (the reference's RNS offsets).
+Two finite operands with equal x, which the reference excludes by
+contract, are handled: P + P doubles and P + (-P) is infinity.  Sums of
+repeated pk points reach them (a point in several query columns, a
+pool key, a witness of bits), where the reference's shared inversion
+would fail for a whole block.  Values are canonical, so there is no
+bound bookkeeping (the reference's RNS offsets).
 
 Layouts (l32, ``engine.field``; E = (8,) for G1, (8, 2) for G2):
   tables tx, ty: (C, 8, *E, M, S) int32; ident: (C, M, S) bool
@@ -122,16 +124,31 @@ def select_tables(tabx, taby, d, is_g2: bool):
 
 def affine_level(x1, y1, i1, x2, y2, i2, fld):
     """Affine add of operand pairs (l16 coordinates, bool flags) with
-    the infinity rules; the denominators share one batch inversion."""
+    the infinity rules; the denominators share one batch inversion.
+    Finite operands with equal x: P + P doubles (den = 2 y1, lam = 3 x1^2
+    / den), P + (-P) is infinity (den = 1, then x2, y2), as the kernels
+    do."""
     either = i1 | i2
-    den = fld.where(either, fld.one_like(x1), fld.sub(x2, x1))
-    dinv = F.batch_inv(fld, den)
-    lam = fld.mul(fld.sub(y2, y1), dinv)
+    dx, dy = fld.sub(x2, x1), fld.sub(y2, y1)
+    same_x = ~either & _is_zero(dx, fld)
+    dbl = same_x & _is_zero(dy, fld)
+    cancel = same_x & ~dbl
+    one = fld.one_like(x1)
+    den = fld.where(either | cancel, one,
+                    fld.where(dbl, fld.add(y1, y1), dx))
+    xx = fld.sqr(x1)
+    num = fld.where(dbl, fld.add(fld.add(xx, xx), xx), dy)
+    lam = fld.mul(num, F.batch_inv(fld, den))
     x3 = fld.sub(fld.sub(fld.sqr(lam), x1), x2)
     y3 = fld.sub(fld.mul(lam, fld.sub(x1, x3)), y1)
-    x3 = fld.where(i1, x2, fld.where(i2, x1, x3))
-    y3 = fld.where(i1, y2, fld.where(i2, y1, y3))
-    return x3, y3, i1 & i2
+    x3 = fld.where(i1 | cancel, x2, fld.where(i2, x1, x3))
+    y3 = fld.where(i1 | cancel, y2, fld.where(i2, y1, y3))
+    return x3, y3, (i1 & i2) | cancel
+
+
+def _is_zero(a, fld) -> torch.Tensor:
+    """Per element of l16 values: all limbs zero."""
+    return (a == 0).flatten(0, fld.nel - 1).all(0)
 
 
 def tree_level_plain(x, y, inf, is_g2: bool):

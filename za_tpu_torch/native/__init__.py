@@ -131,7 +131,7 @@ def witness_lib() -> Optional[ctypes.PyDLL]:
             lib.za_witness_rows.restype = ctypes.c_ssize_t
             lib.za_witness_rows.argtypes = [
                 ctypes.py_object, ctypes.c_void_p, ctypes.c_ssize_t,
-                ctypes.py_object,
+                ctypes.py_object, ctypes.c_void_p,
             ]
     except OSError as exc:  # load failure: fall back to Python
         lib, why = None, str(exc)

@@ -1,10 +1,14 @@
 /* Witness values -> limb rows, one pass in C.
  *
- * za_witness_rows(z, rows, n, R) writes row j of rows (n x 8 u32) as
- * the eight little-endian 32-bit limbs of z[j] mod R, for z a list or
- * a tuple of n values: what field.ints_to_limbs([v % R for v in z])
- * holds, row-major and in 32-bit words (engine.GpuEngine's witness
- * upload widens the rows to (16, n) 16-bit limbs on the device).
+ * za_witness_rows(z, rows, n, R, digits) writes row j of rows (n x 8
+ * u32) as the eight little-endian 32-bit limbs of z[j] mod R, for z a
+ * list or a tuple of n values: what field.ints_to_limbs([v % R for v in
+ * z]) holds, row-major and in 32-bit words (engine.GpuEngine's witness
+ * upload widens the rows to (16, n) 16-bit limbs on the device).  With
+ * digits not NULL it stores in *digits the number of nonzero 4-bit
+ * digits of the n values mod R (64 digit slots a value), counted from
+ * the words it writes: each word's nibbles OR-folded into their low
+ * bits, then a popcount; with NULL it counts nothing.
  *
  * Fast path: an exact int, non-negative and at most 256 bits wide.
  * Its digits are read straight from the object (CPython 3.12-3.14's
@@ -15,7 +19,7 @@
  * int(v % R), through the C API, and is written as that gives it.
  *
  * Returns the number of values that took the fallback, or -1 with a
- * Python error set.  Loaded with ctypes.PyDLL: the caller holds the
+ * Python error set (*digits is then not written).  Loaded with ctypes.PyDLL: the caller holds the
  * GIL throughout, and the error is raised on return.
  */
 
@@ -93,6 +97,18 @@ static void sub(u64 a[4], const u64 b[4])
     }
 }
 
+/* Nonzero 4-bit digits of the four words. */
+static int live_digits(const u64 w[4])
+{
+    int c = 0;
+    for (int k = 0; k < 4; k++) {
+        u64 x = w[k] | (w[k] >> 1);
+        x |= x >> 2;
+        c += __builtin_popcountll(x & 0x1111111111111111ULL);
+    }
+    return c;
+}
+
 /* The fallback: w <- int(v % R), which must lie in [0, 2^256), as
  * int.to_bytes(32, "little") requires.  0, or -1 with an error set. */
 static int slow_words(PyObject *v, PyObject *r, u64 w[4])
@@ -115,10 +131,11 @@ static int slow_words(PyObject *v, PyObject *r, u64 w[4])
 }
 
 Py_ssize_t za_witness_rows(PyObject *z, uint32_t *rows, Py_ssize_t n,
-                           PyObject *r)
+                           PyObject *r, long long *digits)
 {
     u64 rw[4];
     Py_ssize_t fallback = 0;
+    long long live = 0;
 
     if (!PyList_Check(z) && !PyTuple_Check(z)) {
         PyErr_SetString(PyExc_TypeError, "witness must be a list or tuple");
@@ -148,11 +165,15 @@ Py_ssize_t za_witness_rows(PyObject *z, uint32_t *rows, Py_ssize_t n,
                 return -1;
             fallback++;
         }
+        if (digits != NULL)
+            live += live_digits(w);
         uint32_t *row = rows + 8 * j;
         for (int k = 0; k < 4; k++) {
             row[2 * k] = (uint32_t)w[k];
             row[2 * k + 1] = (uint32_t)(w[k] >> 32);
         }
     }
+    if (digits != NULL)
+        *digits = live;
     return fallback;
 }
